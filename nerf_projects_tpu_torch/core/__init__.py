@@ -1,0 +1,15 @@
+from nerf_projects_tpu_torch.core.device import resolve_device
+from nerf_projects_tpu_torch.core.rays import (
+    Rays,
+    camera_rays,
+    pose_spherical,
+    spherical_pose_path,
+)
+
+__all__ = [
+    "Rays",
+    "camera_rays",
+    "pose_spherical",
+    "resolve_device",
+    "spherical_pose_path",
+]

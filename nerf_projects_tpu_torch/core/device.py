@@ -1,0 +1,17 @@
+"""Device selection for the port's entry points."""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """``None`` means the card. A CUDA device without a card raises;
+    the host runs only when the caller asks for ``"cpu"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the host"
+        )
+    return dev

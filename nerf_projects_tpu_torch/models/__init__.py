@@ -1,0 +1,4 @@
+from nerf_projects_tpu_torch.models.nerf import NeRFMLP, flax_to_state_dict
+from nerf_projects_tpu_torch.models.pipeline import NeRFRenderConfig, render_rays
+
+__all__ = ["NeRFMLP", "NeRFRenderConfig", "flax_to_state_dict", "render_rays"]
