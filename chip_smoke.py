@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's vanilla-NeRF serving path on one CUDA card.
+"""Drive the PyTorch port's vanilla-NeRF serving and training paths on one
+CUDA card.
 
 Run from the repository root, with no arguments:
 
@@ -7,10 +8,17 @@ Run from the repository root, with no arguments:
 
 Phases, each of which raises (exit code 1) on failure:
 
-  build   nvcc compiles every CUDA kernel of the path for sm_90a.
-  kernel  each kernel against its plain PyTorch version on the card, on
-          a ragged 8192 + 37 rows and at the fine level's 786,432 rows,
-          then both timed with CUDA events at the fine level's shape.
+  build   nvcc compiles the three kernel libraries for sm_90a, one
+          process per source, all at once.
+  kernel  each kernel against its plain PyTorch version on the card,
+          then timed with CUDA events beside its bound and its plain
+          version: the fused-MLP forward (K1f) on 8192 + 37 rows and at
+          the render's fine level (786,432 rows); its weight-gradient
+          backward (K1b) on 8192 + 37 rows (also against float64 sums)
+          and at a training step's fine level (294,912 rows); the fused
+          train level (K2) at a training step's coarse level (S 96, R 8,
+          1,024 rays, with weights), fine level (S 288, R 4) and once
+          with encoded inputs.
   render  requests of 4096 rays (64x64 patches of three 800x800 Blender
           cameras from pose_spherical) through NeRFTrainer.render_image
           with use_fused_mlp=True, at the Blender lego configuration of
@@ -23,6 +31,18 @@ Phases, each of which raises (exit code 1) on failure:
           read just after; the outputs are checked against the same
           render through the kernel's plain version and through the
           float32 modules.
+  train   NeRFTrainer at the flagship training configuration (bench.py's:
+          96 + 192 samples, 1,024 rays a step from the pool of
+          make_dataset(n_views=2, image_size=128), Adam at 5e-4 with
+          exponential decay): one step of each route on 64 rays against
+          the plain versions, then each route trained for WINDOW_S
+          seconds after a few warm steps — the fused train level
+          (use_mega, K2) and the fused MLP under autograd (K1f + K1b) —
+          with rays/s, step times, the first and last loss and PSNR, the
+          launch counts (zeroed just before, read just after; the loss
+          must fall and stay finite), then a short torch.profiler trace
+          of each route splitting the card's time into the hand-written
+          kernels and the rest.
 
 Output: progress lines, a `{"kernels": [...]}` JSON line, the card's
 name and power limit as nvidia-smi gives them, and last
@@ -32,6 +52,7 @@ WATCHDOG_S seconds.
 """
 from __future__ import annotations
 
+import copy
 import faulthandler
 import json
 import subprocess
@@ -53,6 +74,16 @@ BIAS_STD = 0.2              # flax init zeroes biases; trained models do not hav
 KERNEL_TOL = 1e-2           # max |err| / (mean |plain| + 1)
 RGB_TOL = 1e-2
 MAX_TAIL_FLIPS = 0.01       # share of rays
+GRAD_FRO_TOL = 2e-2         # |err|_F / |plain|_F of each gradient tensor
+GRAD_MAX_TOL = 5e-2         # largest |err| / largest |plain| of each gradient tensor
+NOISE_FACTOR = 2.0          # kernel vs float64 sums, over float32 plain vs float64 sums
+TRAIN_TOL = 2e-3            # rgb, acc, weights of a train level (tests/test_fused_train.py)
+TRAIN_RAYS = 1024           # rays per training step
+COARSE, FINE = 96, 192      # samples per ray: the flagship training configuration
+MEGA_RC, MEGA_RF = 8, 4     # rays per block of the per-ray inputs, coarse and fine
+WARM_STEPS = 3              # training steps before the timed window
+CHECK_RAYS = 64             # rays of the one-step check against the plain versions
+PROFILE_STEPS = 5           # traced training steps per route
 
 
 def log(msg: str) -> None:
@@ -100,15 +131,62 @@ def encodings(n: int, gen: torch.Generator, device) -> tuple:
     return x.to(device), v.to(device)
 
 
+LIBRARIES = ("fused_mlp_fwd", "fused_mlp_bwd", "fused_train")
+
+
 def phase_build():
     from nerf_projects_tpu_torch.ops.kernels import _build
 
-    b = _build.build("fused_mlp_fwd")
-    log(f"build: fused_mlp_fwd {b.seconds:.1f} s -> {b.path.name}")
-    for line in b.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
-    return b.seconds
+    t0 = time.perf_counter()
+    builds = _build.build_all(LIBRARIES)  # one nvcc per source, all at once
+    for name, b in builds.items():
+        log(f"build: {name} {b.seconds:.1f} s -> {b.path.name}")
+        for line in b.log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
+    return time.perf_counter() - t0
+
+
+def check_grads(tag, got, want, names, exact=None) -> float:
+    """Each gradient tensor of the kernel against the plain version's:
+    relative Frobenius error below GRAD_FRO_TOL and the largest entry's
+    error below GRAD_MAX_TOL of the largest |plain|. The two round to bf16
+    at the same points and sum float32 in another order, so a relu mask
+    or a bf16 rounding that flips moves a whole column of dW. With
+    ``exact`` (the plain version with float64 sums, on the same output
+    gradient), the kernel must also be no further from it than
+    NOISE_FACTOR times the float32 plain version is (+ 1e-5). Returns the
+    largest absolute error."""
+    max_abs, worst = 0.0, {"fro": (0.0, ""), "max": (0.0, ""), "noise": (0.0, "")}
+    for i, (name, g, w) in enumerate(zip(names, got, want)):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{tag}: non-finite gradient {name}")
+        d = (g - w).double()
+        max_abs = max(max_abs, float(d.abs().max()))
+        vals = {"fro": float(d.norm() / (w.double().norm() + 1e-30)),
+                "max": float(d.abs().max() / (w.abs().max().double() + 1e-30))}
+        if exact is not None:
+            e = exact[i].double()
+            en = e.norm() + 1e-30
+            vals["noise"] = float((g.double() - e).norm() / en) / (float((w.double() - e).norm() / en) + 1e-5)
+        for k, v in vals.items():
+            worst[k] = max(worst[k], (v, name))
+    msg = (f"{tag}: grads max_abs_err={max_abs:.3e}; worst relative Frobenius error {worst['fro'][0]:.3e} "
+           f"({worst['fro'][1]}, tolerance {GRAD_FRO_TOL}), worst entry {worst['max'][0]:.3e} of scale "
+           f"({worst['max'][1]}, tolerance {GRAD_MAX_TOL})")
+    if exact is not None:
+        msg += (f"; against float64 sums the kernel strays {worst['noise'][0]:.3f}x as far as the float32 "
+                f"plain version ({worst['noise'][1]}, tolerance {NOISE_FACTOR}x)")
+    log(msg)
+    if not (worst["fro"][0] < GRAD_FRO_TOL and worst["max"][0] < GRAD_MAX_TOL
+            and worst["noise"][0] <= NOISE_FACTOR):
+        raise AssertionError(f"{tag}: gradients disagree with the plain version")
+    return max_abs
+
+
+def bound(flops: float, nbytes: float) -> tuple:
+    t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), t_ops, t_bytes
 
 
 def phase_kernel(dev, fine_rows: int) -> dict:
@@ -158,6 +236,136 @@ def phase_kernel(dev, fine_rows: int) -> dict:
         "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
+    }
+
+
+def phase_kernel_bwd(dev, big_rows: int) -> dict:
+    """K1b against its plain version on a ragged size and at the fine
+    level's rows of a training step, then timed at the latter."""
+    from nerf_projects_tpu_torch.models.nerf import NeRFMLP
+    from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    model = NeRFMLP(depth=8, width=256, use_viewdirs=True).reset_parameters(gen)
+    model = random_biases(model, gen).to(dev)
+    W = fm.pack_params(model)
+    wk, wkt = fm.kernel_weights(model), fm.kernel_weights_bwd(model)
+    max_abs = 0.0
+    for n in (8192 + 37, big_rows):
+        x, v = encodings(n, gen, dev)
+        g = (torch.randn(n, 8, generator=gen) * 1e-3).to(dev)
+        got = fm.fused_mlp_bwd(wk, wkt, x, v, g)
+        want = fm.fused_mlp_bwd_reference(W, x, v, g)
+        exact = None
+        if n < big_rows:
+            with fm.float64_sums():
+                exact = fm.fused_mlp_bwd_reference(W, x, v, g)
+        torch.cuda.synchronize()
+        max_abs = max(max_abs, check_grads(f"kernel: fused_mlp_bwd n={n}", got, want,
+                                           fm.FusedMLPWeights._fields, exact))
+
+    ms = time_ms(lambda: fm.fused_mlp_bwd(wk, wkt, x, v, g), iters=10)
+    plain_ms = time_ms(lambda: fm.fused_mlp_bwd_reference(W, x, v, g), iters=3, warmup=1)
+    # recomputed forward, dX and dW: three passes of live MACs
+    flops = 3 * 2.0 * fm.LIVE_MACS_PER_SAMPLE * big_rows
+    nbytes = (64 + 32 + 8) * 4 * big_rows + fm.GRAD_ELEMS * 4 + (wk.numel() + wkt.numel()) * 2
+    bound_ms, by, t_ops, t_bytes = bound(flops, nbytes)
+    log(f"kernel: fused_mlp_bwd n={big_rows}: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms (operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms), {bound_ms / ms:.3f} of bound")
+    return {
+        "name": "fused_mlp_bwd", "route": "cuda",
+        "source": "nerf_projects_tpu_torch/csrc/fused_mlp_bwd.cu",
+        "replaces": "nerf_projects_tpu/ops/pallas/fused_mlp.py:475",
+        "launches": 0, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+    }
+
+
+def level_batch(gen, n_rays: int, S: int, R: int, dev, raw: bool):
+    """A level's kernel inputs for n_rays rays from cameras at radius 4
+    looking at the origin, S stratified depths in [2, 6], uniform targets."""
+    from nerf_projects_tpu_torch.ops.kernels import fused_train as ft
+
+    look = torch.randn(n_rays, 3, generator=gen)
+    origins = 4.0 * look / look.norm(dim=-1, keepdim=True)
+    dirs = -origins / 4.0 + 0.2 * torch.randn(n_rays, 3, generator=gen)
+    viewdirs = dirs / dirs.norm(dim=-1, keepdim=True)
+    t = (torch.arange(S) + torch.rand(n_rays, S, generator=gen)) / S
+    z = 2.0 + 4.0 * t
+    pts = origins[:, None] + z[..., None] * dirs[:, None]
+    target = torch.rand(n_rays, 3, generator=gen)
+    args = [a.to(dev) for a in (pts, viewdirs, z, dirs, target)]
+    if raw:
+        return ft.pack_level_inputs_raw(*args, S, R)
+    return ft.pack_level_inputs(*args, S, R)
+
+
+def phase_kernel_train(dev) -> dict:
+    """K2 against its plain version at the coarse level (S 96, R 8, with
+    weights), the fine level (S 288, R 4) and, once, with encoded inputs;
+    then each level timed. Rays whose last sample's weight changes sign
+    (the 1e10 tail) are counted, not compared."""
+    from nerf_projects_tpu_torch.models.nerf import NeRFMLP
+    from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerf_projects_tpu_torch.ops.kernels import fused_train as ft
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    model = NeRFMLP(depth=8, width=256, use_viewdirs=True).reset_parameters(gen)
+    model = random_biases(model, gen).to(dev)
+    wkt = fm.kernel_weights_bwd(model)
+    shapes = (("coarse", COARSE, MEGA_RC, True, True), ("fine", COARSE + FINE, MEGA_RF, False, True),
+              ("coarse, encoded inputs", COARSE, MEGA_RC, True, False))
+    max_abs, timed = 0.0, {}
+    for tag, S, R, want_w, raw in shapes:
+        x, vt = level_batch(gen, TRAIN_RAYS, S, R, dev, raw)
+        wk, W = fm.kernel_weights(model, raw_layout=raw), fm.pack_params(model, raw_layout=raw)
+        kw = dict(S=S, R=R, n_rays_total=TRAIN_RAYS, bkgd=1.0, want_weights=want_w, raw_inputs=raw)
+        got = ft.fused_train_level(wk, wkt, x, vt, **kw)
+        want = ft.fused_train_level_reference(W, x, vt, **kw)
+        torch.cuda.synchronize()
+        n_rows = TRAIN_RAYS * S
+        tag = f"kernel: fused_train_level {tag} (S {S}, R {R}, {n_rows} rows)"
+        flips = torch.zeros(TRAIN_RAYS, dtype=torch.bool, device=dev)
+        if want_w:
+            flips = (got[2][:, -1] > 0) != (want[2][:, -1] > 0)
+        keep = ~flips
+        errs = [float((got[0] - want[0]).abs().amax(-1)[keep].max()), float((got[1] - want[1]).abs()[keep].max())]
+        if want_w:
+            errs.append(float((got[2] - want[2]).abs()[keep].max()))
+        log(f"{tag}: max |err| rgb {errs[0]:.3e}, acc {errs[1]:.3e}"
+            + (f", weights {errs[2]:.3e}" if want_w else "") + f" (tolerance {TRAIN_TOL}); {int(flips.sum())} tail flips")
+        if not max(errs) < TRAIN_TOL or int(flips.sum()) > MAX_TAIL_FLIPS * TRAIN_RAYS:
+            raise AssertionError(f"{tag}: outputs disagree with the plain version")
+        if raw:
+            max_abs = max(max_abs, *errs, check_grads(tag, got[3], want[3], fm.FusedMLPWeights._fields))
+        else:
+            # encoded inputs carry dist (1e10 on the tail) in x's padding
+            # column 63, so w0's and w5's padded row 63 sums 1e10-sized
+            # products that cancel; no parameter reads it, so these are
+            # compared in the model's layout
+            got_p, want_p = fm.unpack_grads(got[3], model), fm.unpack_grads(want[3], model)
+            max_abs = max(max_abs, *errs, check_grads(tag, list(got_p.values()), list(want_p.values()),
+                                                      list(got_p)))
+        if raw:
+            ms = time_ms(lambda: ft.fused_train_level(wk, wkt, x, vt, **kw), iters=10)
+            plain_ms = time_ms(lambda: ft.fused_train_level_reference(W, x, vt, **kw), iters=3, warmup=1)
+            flops = 3 * 2.0 * fm.LIVE_MACS_PER_SAMPLE * n_rows
+            nbytes = (x.numel() + vt.numel() + TRAIN_RAYS * (4 + (S if want_w else 0))) * 4 \
+                + fm.GRAD_ELEMS * 4 + (wk.numel() + wkt.numel()) * 2
+            b_ms, by, t_ops, t_bytes = bound(flops, nbytes)
+            log(f"{tag}: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"(operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms), {b_ms / ms:.3f} of bound")
+            timed[S] = (ms, plain_ms, b_ms, by)
+    # a training step launches both levels: its numbers are the sums
+    ms, plain_ms, b_ms = (sum(t[i] for t in timed.values()) for i in range(3))
+    log(f"kernel: fused_train_level per step (coarse + fine): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms, {b_ms / ms:.3f} of bound")
+    return {
+        "name": "fused_train_level", "route": "cuda",
+        "source": "nerf_projects_tpu_torch/csrc/fused_train.cu",
+        "replaces": "nerf_projects_tpu/ops/pallas/fused_train.py:215",
+        "launches": 0, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": timed[COARSE + FINE][3], "library_ms": None,
     }
 
 
@@ -237,6 +445,156 @@ def phase_render(dev) -> int:
     return launches
 
 
+def train_window(trainer, state, ds):
+    """Steps back to back for WINDOW_S seconds after WARM_STEPS warm ones;
+    a CUDA event after each step times it on the card. Returns the
+    per-step stats and times."""
+    state, warm = trainer.scan_steps(state, ds["rays"], ds["pixels"], WARM_STEPS, batch_size=TRAIN_RAYS)
+    torch.cuda.synchronize()
+    events, losses, psnrs = [torch.cuda.Event(enable_timing=True)], [], []
+    t0 = time.perf_counter()
+    events[0].record()
+    while time.perf_counter() - t0 < WINDOW_S:
+        state, stats = trainer.scan_steps(state, ds["rays"], ds["pixels"], 1, batch_size=TRAIN_RAYS)
+        losses.append(stats["loss"])
+        psnrs.append(stats["psnr"])
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])]
+    losses = torch.cat([warm["loss"]] + losses).tolist()
+    psnrs = torch.cat([warm["psnr"]] + psnrs).tolist()
+    return state, window, step_ms, losses, psnrs
+
+
+OUR_KERNELS = ("mlp_fwd_kernel", "mlp_dx_kernel", "mlp_dw_kernel", "mlp_grad_reduce_kernel",
+               "composite_kernel")
+
+
+def profile_steps(trainer, state, ds, route: str, n: int = PROFILE_STEPS):
+    """torch.profiler over n steps: the card's busy time split into the
+    port's hand-written kernels and everything else (the glue), with the
+    largest glue kernels, and the idle share of the host-clock window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = trainer.scan_steps(state, ds["rays"], ds["pixels"], n, batch_size=TRAIN_RAYS)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ours, glue = 0.0, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue  # ranges such as Optimizer.step span kernels already counted
+        us = float(getattr(e, "self_device_time_total", 0.0))
+        if any(k in e.key for k in OUR_KERNELS):
+            ours += us
+        else:
+            glue[e.key] = glue.get(e.key, 0.0) + us
+    waits = {e.key: (e.count / n, e.cpu_time_total / n / 1e3) for e in prof.key_averages()
+             if e.key in ("cudaMemcpyAsync", "cudaStreamSynchronize", "cudaDeviceSynchronize")}
+    busy = ours + sum(glue.values())
+    if busy <= 0:
+        log(f"profile: {route}: the profiler saw no device time; kernel and glue shares not measured")
+        return state
+    top = sorted(glue.items(), key=lambda kv: -kv[1])[:6]
+    log(f"profile: {route}, {n} steps: host window {wall_us / n / 1e3:.4f} ms a step; device busy "
+        f"{busy / n / 1e3:.4f} ms a step (idle share {1 - busy / wall_us:.3f}): hand-written kernels "
+        f"{ours / n / 1e3:.4f} ms, other kernels {(busy - ours) / n / 1e3:.4f} ms; largest others: "
+        + "; ".join(f"{k[:60]} {v / n / 1e3:.4f} ms" for k, v in top)
+        + "; host calls that can wait on the card, per step: "
+        + ", ".join(f"{k} {c:.1f} calls {ms:.4f} ms" for k, (c, ms) in sorted(waits.items())))
+    return state
+
+
+def phase_train(dev, card: str) -> dict:
+    """NeRFTrainer at the flagship training configuration (bench.py's):
+    8x256 coarse and fine MLPs with viewdirs, multires 10/4, 96 coarse +
+    192 fine samples, white background, perturb, near 2 and far 6, Adam
+    at 5e-4 with exponential_decay(5e-4, 250), batches of 1,024 rays drawn
+    on the card from the 32,768-ray pool of make_dataset(n_views=2,
+    image_size=128). First one step of each route against the plain
+    versions on CHECK_RAYS rays (perturb off), then each route trained for
+    a timed window: the fused train level (use_mega) and the fused MLP
+    under autograd. The launch counters are zeroed just before each
+    window and read just after."""
+    from nerf_projects_tpu_torch.core.rays import Rays
+    from nerf_projects_tpu_torch.data.synthetic import make_dataset
+    from nerf_projects_tpu_torch.models.pipeline import NeRFRenderConfig
+    from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerf_projects_tpu_torch.ops.kernels import fused_train as ft
+    from nerf_projects_tpu_torch.train import NeRFTrainer
+
+    cfg = NeRFRenderConfig(
+        num_coarse_samples=COARSE, num_fine_samples=FINE, multires=10, multires_views=4,
+        use_viewdirs=True, white_bkgd=True, perturb=True, raw_noise_std=0.0, resample_sorted=False,
+    )
+    ds = make_dataset(n_views=2, image_size=128, device=dev)
+    torch.cuda.synchronize()
+    log(f"train: pool of {ds['pixels'].shape[0]} rays from make_dataset(n_views=2, image_size=128)")
+
+    def make(mega, config=cfg, device=dev):
+        trainer = NeRFTrainer(config, depth=8, width=256, near=2.0, far=6.0, lrate=5e-4, lrate_decay=250,
+                              compute_dtype=torch.bfloat16, use_fused_mlp=True, use_mega=mega,
+                              mega_rc=MEGA_RC, mega_rf=MEGA_RF, device=device)
+        if not (trainer.use_fused_mlp and trainer.use_mega == mega):
+            raise AssertionError("train: a kernel gate refused the flagship configuration")
+        return trainer
+
+    # one step of each route on the card against the same step through the
+    # plain versions (the models copied to the host), perturb off
+    check = cfg._replace(perturb=False)
+    idx = torch.arange(CHECK_RAYS, device=dev) * (ds["pixels"].shape[0] // CHECK_RAYS)
+    rays, target = ds["rays"].map(lambda t: t[idx]), ds["pixels"][idx]
+    for mega in (True, False):
+        on_card, on_host = make(mega, check), make(mega, check, "cpu")
+        gen = torch.Generator().manual_seed(SEED + 4)
+        params = tuple(random_biases(m, gen) for m in on_card.init_params(SEED))
+        host_params = tuple(copy.deepcopy(m).cpu() for m in params)
+        (loss, mse), grads = on_card._value_and_grad(params, None, rays, target)
+        (hloss, hmse), hgrads = on_host._value_and_grad(host_params, None, rays.map(lambda t: t.cpu()), target.cpu())
+        tag = f"train: one {'fused train-level' if mega else 'fused-MLP autograd'} step of {CHECK_RAYS} rays"
+        log(f"{tag}: loss {float(loss):.6f} (plain {float(hloss):.6f}), fine mse {float(mse):.6f} "
+            f"(plain {float(hmse):.6f})")
+        if not (abs(float(loss) - float(hloss)) < 3e-3 * float(hloss)
+                and abs(float(mse) - float(hmse)) < 3e-3 * float(hmse)):
+            raise AssertionError(f"{tag}: the loss disagrees with the plain versions")
+        # the coarse model's gradients come from the coarse level alone, which
+        # the fine level's resample (sensitive to bf16 noise) does not reach
+        names = list(grads[0])
+        check_grads(f"{tag}, coarse model", [grads[0][k].cpu() for k in names],
+                    [hgrads[0][k] for k in names], names)
+
+    out = {}
+    for route, mega in (("fused train level (use_mega)", True), ("fused MLP under autograd", False)):
+        trainer = make(mega)
+        state = trainer.init_state(SEED)
+        fm.fused_mlp_fwd.launches = fm.fused_mlp_bwd.launches = ft.fused_train_level.launches = 0
+        state, window, step_ms, losses, psnrs = train_window(trainer, state, ds)
+        counts = {"fused_mlp_fwd": fm.fused_mlp_fwd.launches, "fused_mlp_bwd": fm.fused_mlp_bwd.launches,
+                  "fused_train_level": ft.fused_train_level.launches}
+        n = len(step_ms)
+        log(f"train: {route} on {card}: {n} timed steps of {TRAIN_RAYS} rays in {window:.6f} s: "
+            f"{n * TRAIN_RAYS / window:.1f} rays/s; step ms median {float(np.median(step_ms)):.4f}, "
+            f"min {min(step_ms):.4f}, max {max(step_ms):.4f}; loss {losses[0]:.6f} -> {losses[-1]:.6f}, "
+            f"psnr {psnrs[0]:.4f} -> {psnrs[-1]:.4f} over {len(losses)} steps; launches {counts} "
+            f"(warm steps included)")
+        need = ("fused_train_level",) if mega else ("fused_mlp_fwd", "fused_mlp_bwd")
+        if any(counts[k] <= 0 for k in need):
+            raise AssertionError(f"train: {route} launched no {need} kernel")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"train: {route}: a loss is not finite")
+        k = min(10, len(losses) // 4)
+        if not np.mean(losses[-k:]) < np.mean(losses[:k]):
+            raise AssertionError(f"train: {route}: the loss did not fall")
+        out[mega] = counts
+        profile_steps(trainer, state, ds, route)
+    return {"fused_train_level": out[True]["fused_train_level"],
+            "fused_mlp_bwd": out[False]["fused_mlp_bwd"]}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -253,10 +611,17 @@ def main() -> int:
     card = nvidia_smi()
     log(f"card: {card}")
     build_s = phase_build()
-    entry = phase_kernel(dev, fine_rows=PATCH * PATCH * (64 + 128))
-    entry["launches"] = phase_render(dev)
+    kernels = [
+        phase_kernel(dev, fine_rows=PATCH * PATCH * (64 + 128)),
+        phase_kernel_bwd(dev, big_rows=TRAIN_RAYS * (COARSE + FINE)),
+        phase_kernel_train(dev),
+    ]
+    kernels[0]["launches"] = phase_render(dev)
+    launches = phase_train(dev, card)
+    for entry in kernels[1:]:
+        entry["launches"] = launches[entry["name"]]
     log(f"chip_smoke: wall {time.perf_counter() - t0:.1f} s, build {build_s:.1f} s")
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

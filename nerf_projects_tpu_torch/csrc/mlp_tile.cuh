@@ -1,0 +1,845 @@
+// Shared device code of the fused NeRF MLP kernels for Hopper (sm_90a):
+// fused_mlp_fwd.cu (K1f), fused_mlp_bwd.cu (K1b) and fused_train.cu (K2).
+//
+// The MLP is the 8x256 viewdirs NeRF MLP of models/nerf.py: trunk_0..7
+// with the [x, h] concat after trunk_4's relu, the sigma head, the
+// bottleneck, one 128-wide view layer over [bottleneck, views] and the
+// rgb head. Every product takes bf16 operands and accumulates in
+// float32 (mma.sync.m16n8k16), as the TPU kernels' _mm / mmT / mmBT do.
+//
+// Forward (forward_tile): a block owns a 64-row tile whose activations
+// stay in shared memory as bf16 and streams each layer's weights through
+// a double-buffered 32-deep K-slice with cp.async.
+//
+// Backward: the TPU kernel recomputes the forward per tile and adds each
+// tile's dW into resident gradient blocks, which works because its grid
+// runs in order. Here blocks run in parallel, and one row's activations
+// (3,040 values) do not fit a block's shared memory for a useful tile,
+// so the backward is three passes over bf16 stashes in device memory:
+//   1. forward_tile writes every activation the backward reads (x, a0..a7,
+//      bottleneck, v, hv) to the activation stash A, feature-major
+//      ([feature][row], rows padded to 64);
+//   2. mlp_dx_kernel walks the gradient down the layers for a 64-row tile
+//      (dX products with the transposed weights, relu masks from A),
+//      writes each layer's output gradient, rounded to bf16, to the
+//      gradient stash G, and sums the float32 gradients into bias
+//      partials per block (fixed row order);
+//   3. mlp_dw_kernel computes dW = A^T G for every layer as a split-K
+//      product over rows: each block owns a 128x128 tile of one dW and a
+//      fixed span of rows and writes its partial; mlp_grad_reduce_kernel
+//      sums the partials over the splits, and the bias partials over the
+//      blocks, in a fixed order. The result is the same bits on every run.
+// The bf16 stashes hold exactly what the reference rounds to bf16 at its
+// products (mmT rounds both operands, mmBT rounds g), and relu masks of
+// a bf16 value have the sign of the float32 one, so the stash changes no
+// number.
+
+#pragma once
+
+#include <climits>
+#include <cstdint>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace mlp {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BM = 64;        // rows per tile
+constexpr int THREADS = 256;  // 8 warps
+constexpr int KS = 32;        // depth of a staged weight slice
+constexpr int WS = KS + 8;    // padded row stride of a staged slice (bf16)
+constexpr int AS = 352 + 8;   // padded row stride of the activation tile (bf16)
+constexpr int GS = 256 + 8;   // padded row stride of the gradient tile (bf16)
+constexpr int COL_X = 0;      // activation columns: [x 0..63 | h 64..319 | v 320..351]
+constexpr int COL_H = 64;
+constexpr int COL_V = 320;
+constexpr float HALF_PI = 1.5707963267948966f;
+
+// Forward weight buffer (ops/kernels/fused_mlp.py::KERNEL_LAYOUT): the
+// matrices as [out][in], the heads' four columns, then the biases.
+constexpr long long OFF_W0 = 0;                       // [256][64]
+constexpr long long OFF_W1 = OFF_W0 + 256 * 64;       // w1..w4, [256][256] each
+constexpr long long OFF_W5 = OFF_W1 + 4 * 256 * 256;  // [256][320]
+constexpr long long OFF_W6 = OFF_W5 + 256 * 320;      // w6, w7, [256][256] each
+constexpr long long OFF_WB = OFF_W6 + 2 * 256 * 256;  // [256][256]
+constexpr long long OFF_WV = OFF_WB + 256 * 256;      // [128][288]
+constexpr long long OFF_WSIG = OFF_WV + 128 * 288;    // [4][256]
+constexpr long long OFF_WRGB = OFF_WSIG + 4 * 256;    // [4][128]
+constexpr long long OFF_B = OFF_WRGB + 4 * 128;       // b0..b7, [256] each
+constexpr long long OFF_BB = OFF_B + 8 * 256;         // [256]
+constexpr long long OFF_BV = OFF_BB + 256;            // [128]
+constexpr long long OFF_BSIG = OFF_BV + 128;          // [4]
+constexpr long long OFF_BRGB = OFF_BSIG + 4;          // [4]
+constexpr long long N_WEIGHTS = OFF_BRGB + 4;
+
+// Backward weight buffer (ops/kernels/fused_mlp.py::KERNEL_LAYOUT_BWD):
+// the matrices of the dX products as [in][out].
+constexpr long long OFFT_WV = 0;                      // [256][128], view_0's bottleneck rows
+constexpr long long OFFT_WB = OFFT_WV + 256 * 128;    // [256][256]
+constexpr long long OFFT_W7 = OFFT_WB + 256 * 256;    // w7, w6, w5 (h rows), w4, w3, w2, w1
+constexpr long long NT_WEIGHTS = OFFT_W7 + 7 * 256 * 256;
+__host__ __device__ constexpr long long offt_trunk(int l) { return OFFT_W7 + (7 - l) * 256 * 256; }
+
+// Activation stash features: x, a0..a7, bottleneck, v, hv ([bottleneck | v]
+// is view_0's input, contiguous).
+constexpr int A_X = 0;
+constexpr int A_TRUNK = 64;  // + 256 l
+constexpr int A_BNECK = A_TRUNK + 8 * 256;
+constexpr int A_V = A_BNECK + 256;
+constexpr int A_HV = A_V + 32;
+constexpr int A_FEATS = A_HV + 128;
+// Gradient stash features: the rgb and sigma head gradients (4 each), the
+// view layer's, the bottleneck's, then trunk_0..7's output gradients.
+constexpr int G_RGB = 0;
+constexpr int G_SIG = 4;
+constexpr int G_V = 8;
+constexpr int G_B = G_V + 128;
+constexpr int G_TRUNK = G_B + 256;  // + 256 l
+constexpr int G_FEATS = G_TRUNK + 8 * 256;
+
+// Gradient buffer: FusedMLPWeights' fields in order, padded [in][out], float32.
+constexpr long long GW0 = 0;                      // [64][256]
+constexpr long long GW1 = GW0 + 64 * 256;         // w1..w4 [256][256]
+constexpr long long GW5 = GW1 + 4 * 256 * 256;    // [320][256]
+constexpr long long GW6 = GW5 + 320 * 256;        // w6, w7
+constexpr long long GWSIG = GW6 + 2 * 256 * 256;  // [256][128]
+constexpr long long GWB = GWSIG + 256 * 128;      // [256][256]
+constexpr long long GWV = GWB + 256 * 256;        // [288][128]
+constexpr long long GWRGB = GWV + 288 * 128;      // [128][128]
+constexpr long long GB0 = GWRGB + 128 * 128;      // b0..b7 [256]
+constexpr long long GBSIG = GB0 + 8 * 256;        // [128]
+constexpr long long GBB = GBSIG + 128;            // [256]
+constexpr long long GBV = GBB + 256;              // [128]
+constexpr long long GBRGB = GBV + 128;            // [128]
+constexpr long long GRAD_ELEMS = GBRGB + 128;
+
+constexpr int FWD_SMEM_BYTES = (BM * AS + 2 * 256 * WS) * 2;
+constexpr int DX_MAX_BLOCKS = 264;  // fixed, so the bias sums' order does not depend on the card
+constexpr int DX_SMEM_BYTES =
+    (BM * GS + 2 * 256 * WS) * 2 + (BM * 8 + 2 * 256 + G_FEATS) * 4;
+constexpr int DW_TILE = 128;
+constexpr int DW_SMEM_BYTES = 2 * 2 * DW_TILE * WS * 2;
+constexpr unsigned FULL = 0xffffffffu;
+
+// ---------------------------------------------------------------------------
+// Primitives
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+// 16 bytes from gmem, or 16 zero bytes when !valid (gmem is not read).
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Stage wt[0:N][k0:k0+KS] (row stride K) into a padded [N][WS] slice.
+template <int N>
+__device__ __forceinline__ void load_slice(bf16* dst, const bf16* wt, int K, int k0) {
+  constexpr int PARTS = KS / 8;  // 16-byte chunks per row
+  for (int c = threadIdx.x; c < N * PARTS; c += THREADS) {
+    const int n = c / PARTS, part = c % PARTS;
+    cp_async16(dst + n * WS + part * 8, wt + static_cast<long long>(n) * K + k0 + part * 8);
+  }
+  cp_async_commit();
+}
+
+// acc = tile[:, in_col:in_col+K] @ wt^T for a 64-row bf16 tile (row
+// stride lda) and wt [N][K]. Warp w owns rows (w>>2)*32..+32 and columns
+// (w&3)*N/4..+N/4. Ends with every warp past its last read of the tile,
+// so the caller may overwrite it.
+template <int N>
+__device__ __forceinline__ void gemm_tile(const bf16* tile, int lda, int in_col, bf16* wbuf,
+                                          const bf16* wt, int K, float (&acc)[2][N / 32][4]) {
+  constexpr int NT = N / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = (warp >> 2) * 32;
+  const int col0 = (warp & 3) * (N / 4);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  const int nslices = K / KS;
+  load_slice<N>(wbuf, wt, K, 0);
+  for (int s = 0; s < nslices; ++s) {
+    if (s + 1 < nslices) {
+      load_slice<N>(wbuf + ((s + 1) & 1) * 256 * WS, wt, K, (s + 1) * KS);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* ws = wbuf + (s & 1) * 256 * WS;
+#pragma unroll
+    for (int kk = 0; kk < KS; kk += 16) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const bf16* p = tile + (row0 + mt * 16 + g) * lda + in_col + s * KS + kk + 2 * t;
+        a[mt][0] = ld32(p);
+        a[mt][1] = ld32(p + 8 * lda);
+        a[mt][2] = ld32(p + 8);
+        a[mt][3] = ld32(p + 8 * lda + 8);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const bf16* q = ws + (col0 + nt * 8 + g) * WS + kk + 2 * t;
+        const uint32_t b0 = ld32(q), b1 = ld32(q + 8);
+        mma_bf16(acc[0][nt], a[0], b0, b1);
+        mma_bf16(acc[1][nt], a[1], b0, b1);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// act[:, in_col:in_col+K] @ wt^T + bias (relu optional), rounded to bf16
+// into act[:, out_col:out_col+N]; ends synchronised.
+template <int N, bool RELU>
+__device__ __forceinline__ void dense_layer(bf16* act, bf16* wbuf, const bf16* wt,
+                                            const bf16* bias, int K, int in_col, int out_col) {
+  constexpr int NT = N / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = (warp >> 2) * 32;
+  const int col0 = (warp & 3) * (N / 4);
+  float acc[2][NT][4];
+  gemm_tile<N>(act, AS, in_col, wbuf, wt, K, acc);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int n = col0 + nt * 8 + 2 * t;
+    const float bias0 = bf(bias[n]);
+    const float bias1 = bf(bias[n + 1]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float v0 = acc[mt][nt][2 * half] + bias0;
+        float v1 = acc[mt][nt][2 * half + 1] + bias1;
+        if (RELU) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        const int r = row0 + mt * 16 + g + 8 * half;
+        *reinterpret_cast<__nv_bfloat162*>(act + r * AS + out_col + n) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+  }
+  __syncthreads();
+}
+
+// float32 dot product of k bf16 pairs (k even).
+__device__ __forceinline__ float dot_bf16(const bf16* a, const bf16* b, int k) {
+  float s = 0.f;
+  for (int i = 0; i < k; i += 2) {
+    const float2 av = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a + i));
+    const float2 bv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b + i));
+    s = fmaf(av.x, bv.x, s);
+    s = fmaf(av.y, bv.y, s);
+  }
+  return s;
+}
+
+// Copy columns col..col+ncols of a 64-row bf16 tile (row stride ld_tile)
+// to stash features feat..feat+ncols, rows row_base..row_base+63 (stash
+// row stride ld). Reads the tile only.
+__device__ __forceinline__ void stash_cols(const bf16* tile, int ld_tile, int col, int ncols,
+                                           bf16* stash, int feat, long long ld,
+                                           long long row_base) {
+  for (int i = threadIdx.x; i < ncols * (BM / 2); i += THREADS) {
+    const int c = i / (BM / 2), rp = (i % (BM / 2)) * 2;
+    __nv_bfloat162 val;
+    val.x = tile[rp * ld_tile + col + c];
+    val.y = tile[(rp + 1) * ld_tile + col + c];
+    *reinterpret_cast<__nv_bfloat162*>(stash + (feat + c) * ld + row_base + rp) = val;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Inputs of a forward tile
+// ---------------------------------------------------------------------------
+
+// A [BM, C] float32 tile (row stride C) as bf16 into act columns col..col+C.
+template <int C>
+__device__ __forceinline__ void load_input(bf16* act, const float* src, long long row_base,
+                                           long long n, int col) {
+  constexpr int V4 = C / 4;
+  for (int i = threadIdx.x; i < BM * V4; i += THREADS) {
+    const int r = i / V4, c = (i % V4) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row_base + r < n) val = *reinterpret_cast<const float4*>(src + (row_base + r) * C + c);
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(act + r * AS + col + c);
+    dst[0] = __floats2bfloat162_rn(val.x, val.y);
+    dst[1] = __floats2bfloat162_rn(val.z, val.w);
+  }
+}
+
+// Block-layout positional encoding of column c of a point p (3 live):
+// [p(3), sin(2^f p) f<F, sin(2^f p + pi/2) f<F], zero past 3 + 6F
+// (ops/pallas/fused_mlp.py::_encode_tile).
+__device__ __forceinline__ float encode_col(const float* p, int c, int n_freqs) {
+  if (c < 3) return p[c];
+  const int k = c - 3;
+  if (k < 6 * n_freqs) {
+    const bool is_cos = k >= 3 * n_freqs;
+    const int j = is_cos ? k - 3 * n_freqs : k;
+    const float xb = p[j % 3] * static_cast<float>(1 << (j / 3));
+    return sinf(is_cos ? xb + HALF_PI : xb);
+  }
+  return 0.f;
+}
+
+// K2's raw points: x_raw [n, 8] (xyz 0..2) -> encoded columns 0..63.
+__device__ __forceinline__ void encode_points(bf16* act, const float* x, long long row_base,
+                                              long long n) {
+  for (int i = threadIdx.x; i < BM * 64; i += THREADS) {
+    const int r = i / 64, c = i % 64;
+    float val = 0.f;
+    if (row_base + r < n) val = encode_col(x + (row_base + r) * 8, c, 10);
+    act[r * AS + COL_X + c] = __float2bfloat16_rn(val);
+  }
+}
+
+// K2's per-ray view inputs: row -> ray = row / S -> vt[ray / R][ray % R];
+// raw [.., 8] (direction 0..2) is encoded with 4 frequencies, encoded
+// [.., 32] is read as is; columns from 27 on are zero either way.
+template <bool RAW>
+__device__ __forceinline__ void load_views(bf16* act, const float* vt, long long row_base,
+                                           long long n, int S, int R) {
+  constexpr int VTC = RAW ? 8 : 32;
+  for (int i = threadIdx.x; i < BM * 32; i += THREADS) {
+    const int r = i / 32, c = i % 32;
+    float val = 0.f;
+    const long long row = row_base + r;
+    if (row < n && c < 27) {
+      const long long ray = row / S;
+      const float* vrow = vt + ((ray / R) * 8 + ray % R) * VTC;
+      val = RAW ? encode_col(vrow, c, 4) : vrow[c];
+    }
+    act[r * AS + COL_V + c] = __float2bfloat16_rn(val);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward
+// ---------------------------------------------------------------------------
+
+// The forward of one 64-row tile whose inputs are in act (x columns 0..63,
+// v 320..351, synchronised). out: null or [n, 8] float32 (columns 0..3
+// rgb head, 4..7 sigma head). stash: null or the activation stash.
+__device__ __forceinline__ void forward_tile(bf16* act, bf16* wbuf, const bf16* w,
+                                             long long row_base, long long n, float* out,
+                                             bf16* stash, long long ld) {
+  if (stash) {
+    stash_cols(act, AS, COL_X, 64, stash, A_X, ld, row_base);
+    stash_cols(act, AS, COL_V, 32, stash, A_V, ld, row_base);
+  }
+  dense_layer<256, true>(act, wbuf, w + OFF_W0, w + OFF_B, 64, COL_X, COL_H);
+  if (stash) stash_cols(act, AS, COL_H, 256, stash, A_TRUNK, ld, row_base);
+  for (int l = 1; l <= 4; ++l) {
+    dense_layer<256, true>(act, wbuf, w + OFF_W1 + (l - 1) * 256 * 256, w + OFF_B + l * 256,
+                           256, COL_H, COL_H);
+    if (stash) stash_cols(act, AS, COL_H, 256, stash, A_TRUNK + l * 256, ld, row_base);
+  }
+  // trunk_5 reads [x | h4], columns 0..319
+  dense_layer<256, true>(act, wbuf, w + OFF_W5, w + OFF_B + 5 * 256, 320, COL_X, COL_H);
+  if (stash) stash_cols(act, AS, COL_H, 256, stash, A_TRUNK + 5 * 256, ld, row_base);
+  for (int l = 6; l <= 7; ++l) {
+    dense_layer<256, true>(act, wbuf, w + OFF_W6 + (l - 6) * 256 * 256, w + OFF_B + l * 256,
+                           256, COL_H, COL_H);
+    if (stash) stash_cols(act, AS, COL_H, 256, stash, A_TRUNK + l * 256, ld, row_base);
+  }
+
+  // four threads per row; thread j computes column j of each head
+  const int r = threadIdx.x >> 2, j = threadIdx.x & 3;
+  const float sig = dot_bf16(act + r * AS + COL_H, w + OFF_WSIG + j * 256, 256) +
+                    bf(w[OFF_BSIG + j]);
+  dense_layer<256, false>(act, wbuf, w + OFF_WB, w + OFF_BB, 256, COL_H, COL_H);
+  if (stash) stash_cols(act, AS, COL_H, 256, stash, A_BNECK, ld, row_base);
+  // view layer reads [bottleneck | v], columns 64..351
+  dense_layer<128, true>(act, wbuf, w + OFF_WV, w + OFF_BV, 288, COL_H, COL_H);
+  if (stash) stash_cols(act, AS, COL_H, 128, stash, A_HV, ld, row_base);
+  const float rgb = dot_bf16(act + r * AS + COL_H, w + OFF_WRGB + j * 128, 128) +
+                    bf(w[OFF_BRGB + j]);
+  if (out && row_base + r < n) {
+    out[(row_base + r) * 8 + j] = rgb;
+    out[(row_base + r) * 8 + 4 + j] = sig;
+  }
+}
+
+enum InMode { IN_ENCODED = 0, IN_TRAIN_RAW = 1, IN_TRAIN_ENC = 2 };
+
+// IN_ENCODED: x [n, 64], v [n, 32] float32 per row. IN_TRAIN_RAW: x [n, 8]
+// raw points, v = vt [T, 8, 8]. IN_TRAIN_ENC: x [n, 64], v = vt [T, 8, 32].
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 2)
+    mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ v,
+                   const bf16* __restrict__ w, float* __restrict__ out, long long n,
+                   bf16* __restrict__ stash, long long ld, int S, int R) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* act = reinterpret_cast<bf16*>(smem_raw);
+  bf16* wbuf = act + BM * AS;
+  const long long row_base = static_cast<long long>(blockIdx.x) * BM;
+
+  if (MODE == IN_TRAIN_RAW) {
+    encode_points(act, x, row_base, n);
+    load_views<true>(act, v, row_base, n, S, R);
+  } else {
+    load_input<64>(act, x, row_base, n, COL_X);
+    if (MODE == IN_ENCODED) {
+      load_input<32>(act, v, row_base, n, COL_V);
+    } else {
+      load_views<false>(act, v, row_base, n, S, R);
+    }
+  }
+  __syncthreads();
+  forward_tile(act, wbuf, w, row_base, n, out, stash, ld);
+}
+
+template <int MODE>
+inline cudaError_t launch_forward(const float* x, const float* v, const bf16* w, float* out,
+                                  long long n, bf16* stash, long long ld, int S, int R,
+                                  cudaStream_t stream) {
+  const long long blocks = (n + BM - 1) / BM;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_fwd_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  mlp_fwd_kernel<MODE><<<static_cast<unsigned>(blocks), THREADS, FWD_SMEM_BYTES, stream>>>(
+      x, v, w, out, n, stash, ld, S, R);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Backward, pass 2: the gradient down the layers (dX)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ bool positive(const bf16* A, int feat, long long ld, long long row) {
+  return bf(A[static_cast<long long>(feat) * ld + row]) > 0.f;
+}
+
+// Epilogue of a dX product over a 64-row tile: acc (+ the sigma head's
+// rank-4 term for trunk_7), times the relu mask of activation feature
+// mask_feat.., rounded to bf16 into gt; the float32 column sums go to
+// db_acc[g_feat..] in a fixed order. Ends synchronised.
+template <bool MASK, bool SIGTERM>
+__device__ __forceinline__ void dx_epilogue(float (&acc)[2][8][4], bf16* gt, const float* g8s,
+                                            const bf16* w, const bf16* A, int mask_feat,
+                                            long long ld, long long row_base, float* colsum,
+                                            float* db_acc, int g_feat) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = (warp >> 2) * 32;
+  const int col0 = (warp & 3) * 64;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int n = col0 + nt * 8 + 2 * t;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = row0 + mt * 16 + g + 8 * half;
+        float v0 = acc[mt][nt][2 * half];
+        float v1 = acc[mt][nt][2 * half + 1];
+        if (SIGTERM) {
+          float t0 = 0.f, t1 = 0.f;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float gs = round_bf16(g8s[r * 8 + 4 + c]);
+            t0 = fmaf(gs, bf(w[OFF_WSIG + c * 256 + n]), t0);
+            t1 = fmaf(gs, bf(w[OFF_WSIG + c * 256 + n + 1]), t1);
+          }
+          v0 += t0;
+          v1 += t1;
+        }
+        if (MASK) {
+          if (!positive(A, mask_feat + n, ld, row_base + r)) v0 = 0.f;
+          if (!positive(A, mask_feat + n + 1, ld, row_base + r)) v1 = 0.f;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(gt + r * GS + n) = __floats2bfloat162_rn(v0, v1);
+        s0 += v0;
+        s1 += v1;
+      }
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      s0 += __shfl_xor_sync(FULL, s0, o);
+      s1 += __shfl_xor_sync(FULL, s1, o);
+    }
+    if (g == 0) {
+      colsum[(warp >> 2) * 256 + n] = s0;
+      colsum[(warp >> 2) * 256 + n + 1] = s1;
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < 256; c += THREADS) db_acc[g_feat + c] += colsum[c] + colsum[256 + c];
+}
+
+// g8 [n, 8] float32: columns 0..3 the gradient of the rgb head's output,
+// 4..7 the sigma head's. Writes G (bf16, [G_FEATS][ld]) and, per block,
+// the float32 bias-gradient sums db_part[blockIdx.x][G_FEATS].
+__global__ void __launch_bounds__(THREADS, 2)
+    mlp_dx_kernel(const float* __restrict__ g8, long long n, const bf16* __restrict__ w,
+                  const bf16* __restrict__ wt, const bf16* __restrict__ A,
+                  bf16* __restrict__ G, long long ld, int n_tiles, float* __restrict__ db_part) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* gt = reinterpret_cast<bf16*>(smem_raw);
+  bf16* wbuf = gt + BM * GS;
+  float* g8s = reinterpret_cast<float*>(wbuf + 2 * 256 * WS);
+  float* colsum = g8s + BM * 8;
+  float* db_acc = colsum + 2 * 256;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  for (int i = tid; i < G_FEATS; i += THREADS) db_acc[i] = 0.f;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long row_base = static_cast<long long>(tile) * BM;
+    __syncthreads();
+    for (int i = tid; i < BM * 8; i += THREADS) {
+      const long long row = row_base + i / 8;
+      g8s[i] = row < n ? g8[row * 8 + i % 8] : 0.f;
+    }
+    __syncthreads();
+    // the heads' bias gradients and their gradient stash
+    if (tid < 8) {
+      float s = 0.f;
+      for (int r = 0; r < BM; ++r) s += g8s[r * 8 + tid];
+      db_acc[G_RGB + tid] += s;
+    }
+    for (int i = tid; i < 8 * (BM / 2); i += THREADS) {
+      const int c = i / (BM / 2), rp = (i % (BM / 2)) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(G + static_cast<long long>(G_RGB + c) * ld + row_base + rp) =
+          __floats2bfloat162_rn(g8s[rp * 8 + c], g8s[(rp + 1) * 8 + c]);
+    }
+    // view layer: g_hv = (g_rgb @ wrgb^T) * (hv > 0); thread: row tid % 64,
+    // columns (tid / 64) * 32 .. +32; a warp holds 32 rows of one column group
+    {
+      const int r = tid & 63, jg = tid >> 6;
+      float gr[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) gr[c] = round_bf16(g8s[r * 8 + c]);
+      for (int jj = 0; jj < 32; ++jj) {
+        const int j = jg * 32 + jj;
+        float val = 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) val = fmaf(gr[c], bf(w[OFF_WRGB + c * 128 + j]), val);
+        if (!positive(A, A_HV + j, ld, row_base + r)) val = 0.f;
+        gt[r * GS + j] = __float2bfloat16_rn(val);
+        float s = val;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+        if (lane == 0) colsum[(warp & 1) * 256 + j] = s;
+      }
+      __syncthreads();
+      for (int c = tid; c < 128; c += THREADS) db_acc[G_V + c] += colsum[c] + colsum[256 + c];
+      stash_cols(gt, GS, 0, 128, G, G_V, ld, row_base);
+    }
+    float acc[2][8][4];
+    // bottleneck: g_bneck = (g_hv @ wv^T)[:, :256]
+    gemm_tile<256>(gt, GS, 0, wbuf, wt + OFFT_WV, 128, acc);
+    dx_epilogue<false, false>(acc, gt, g8s, w, A, 0, ld, row_base, colsum, db_acc, G_B);
+    stash_cols(gt, GS, 0, 256, G, G_B, ld, row_base);
+    // trunk_7: (g_bneck @ wb^T + g_sig @ wsig^T) * (a7 > 0)
+    gemm_tile<256>(gt, GS, 0, wbuf, wt + OFFT_WB, 256, acc);
+    dx_epilogue<true, true>(acc, gt, g8s, w, A, A_TRUNK + 7 * 256, ld, row_base, colsum, db_acc,
+                            G_TRUNK + 7 * 256);
+    stash_cols(gt, GS, 0, 256, G, G_TRUNK + 7 * 256, ld, row_base);
+    // trunk_l for l = 6..0: (g_{l+1} @ w_{l+1}^T) * (a_l > 0); for l = 4
+    // the product takes w5's h rows only (x carries no gradient)
+    for (int l = 6; l >= 0; --l) {
+      gemm_tile<256>(gt, GS, 0, wbuf, wt + offt_trunk(l + 1), 256, acc);
+      dx_epilogue<true, false>(acc, gt, g8s, w, A, A_TRUNK + l * 256, ld, row_base, colsum,
+                               db_acc, G_TRUNK + l * 256);
+      stash_cols(gt, GS, 0, 256, G, G_TRUNK + l * 256, ld, row_base);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < G_FEATS; i += THREADS)
+    db_part[static_cast<long long>(blockIdx.x) * G_FEATS + i] = db_acc[i];
+}
+
+// ---------------------------------------------------------------------------
+// Backward, pass 3: dW = A^T G, split over rows, then the fixed-order sums
+// ---------------------------------------------------------------------------
+
+struct DwEntry {
+  int a_feat, m;       // activation features a_feat..a_feat+m: dW's rows
+  int g_feat, n;       // gradient features g_feat..g_feat+n: dW's live columns
+  long long out_off;   // first element in the gradient buffer
+  int out_ld;          // dW's padded width; columns n..out_ld are written as 0
+};
+constexpr int DW_ENTRIES = 13;
+struct DwTable {
+  DwEntry e[DW_ENTRIES];
+  int first_tile[DW_ENTRIES + 1];
+};
+
+inline DwTable dw_table() {
+  const DwEntry e[DW_ENTRIES] = {
+      {A_X, 64, G_TRUNK + 0 * 256, 256, GW0, 256},
+      {A_TRUNK + 0 * 256, 256, G_TRUNK + 1 * 256, 256, GW1 + 0 * 65536, 256},
+      {A_TRUNK + 1 * 256, 256, G_TRUNK + 2 * 256, 256, GW1 + 1 * 65536, 256},
+      {A_TRUNK + 2 * 256, 256, G_TRUNK + 3 * 256, 256, GW1 + 2 * 65536, 256},
+      {A_TRUNK + 3 * 256, 256, G_TRUNK + 4 * 256, 256, GW1 + 3 * 65536, 256},
+      {A_X, 64, G_TRUNK + 5 * 256, 256, GW5, 256},                         // w5: x rows
+      {A_TRUNK + 4 * 256, 256, G_TRUNK + 5 * 256, 256, GW5 + 64 * 256, 256},  // w5: h rows
+      {A_TRUNK + 5 * 256, 256, G_TRUNK + 6 * 256, 256, GW6, 256},
+      {A_TRUNK + 6 * 256, 256, G_TRUNK + 7 * 256, 256, GW6 + 65536, 256},
+      {A_TRUNK + 7 * 256, 256, G_SIG, 4, GWSIG, 128},
+      {A_TRUNK + 7 * 256, 256, G_B, 256, GWB, 256},
+      {A_BNECK, 288, G_V, 128, GWV, 128},  // [bottleneck | v]
+      {A_HV, 128, G_RGB, 4, GWRGB, 128},
+  };
+  DwTable tab;
+  int tiles = 0;
+  for (int i = 0; i < DW_ENTRIES; ++i) {
+    tab.e[i] = e[i];
+    tab.first_tile[i] = tiles;
+    tiles += ((e[i].m + DW_TILE - 1) / DW_TILE) * ((e[i].out_ld + DW_TILE - 1) / DW_TILE);
+  }
+  tab.first_tile[DW_ENTRIES] = tiles;
+  return tab;
+}
+
+// Stage src features feat0..feat0+128 (those below `valid`; zeros past
+// it), rows k0..k0+KS, into a padded [128][WS] slice.
+__device__ __forceinline__ void load_dw_slice(bf16* dst, const bf16* src, int feat0, int valid,
+                                              long long ld, long long k0) {
+  constexpr int PARTS = KS / 8;
+  for (int c = threadIdx.x; c < DW_TILE * PARTS; c += THREADS) {
+    const int row = c / PARTS, part = c % PARTS;
+    const bool ok = row < valid;
+    const bf16* p = ok ? src + static_cast<long long>(feat0 + row) * ld + k0 + part * 8 : src;
+    cp_async16_zfill(dst + row * WS + part * 8, p, ok);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+    mlp_dw_kernel(const bf16* __restrict__ A, const bf16* __restrict__ G, long long ld,
+                  long long rows_per_split, float* __restrict__ part, DwTable tab) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* as = reinterpret_cast<bf16*>(smem_raw);  // [2][128][WS]
+  bf16* gs = as + 2 * DW_TILE * WS;              // [2][128][WS]
+  int e = 0;
+  while (static_cast<int>(blockIdx.x) >= tab.first_tile[e + 1]) ++e;
+  const DwEntry en = tab.e[e];
+  const int local = blockIdx.x - tab.first_tile[e];
+  const int col_tiles = (en.out_ld + DW_TILE - 1) / DW_TILE;
+  const int m0 = (local / col_tiles) * DW_TILE, n0 = (local % col_tiles) * DW_TILE;
+  const long long k_begin = static_cast<long long>(blockIdx.y) * rows_per_split;
+  const long long k_end = k_begin + rows_per_split < ld ? k_begin + rows_per_split : ld;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
+
+  const int nsteps = k_end > k_begin ? static_cast<int>((k_end - k_begin) / KS) : 0;
+  if (nsteps > 0) {
+    load_dw_slice(as, A, en.a_feat + m0, en.m - m0, ld, k_begin);
+    load_dw_slice(gs, G, en.g_feat + n0, en.n - n0, ld, k_begin);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nsteps; ++s) {
+    if (s + 1 < nsteps) {
+      const int nb = (s + 1) & 1;
+      load_dw_slice(as + nb * DW_TILE * WS, A, en.a_feat + m0, en.m - m0, ld, k_begin + (s + 1) * KS);
+      load_dw_slice(gs + nb * DW_TILE * WS, G, en.g_feat + n0, en.n - n0, ld, k_begin + (s + 1) * KS);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* a_s = as + (s & 1) * DW_TILE * WS;
+    const bf16* g_s = gs + (s & 1) * DW_TILE * WS;
+#pragma unroll
+    for (int kk = 0; kk < KS; kk += 16) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const bf16* p = a_s + (wm + mt * 16 + g) * WS + kk + 2 * t;
+        a[mt][0] = ld32(p);
+        a[mt][1] = ld32(p + 8 * WS);
+        a[mt][2] = ld32(p + 8);
+        a[mt][3] = ld32(p + 8 * WS + 8);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const bf16* q = g_s + (wn + nt * 8 + g) * WS + kk + 2 * t;
+        const uint32_t b0 = ld32(q), b1 = ld32(q + 8);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) mma_bf16(acc[mt][nt], a[mt], b0, b1);
+      }
+    }
+    __syncthreads();
+  }
+
+  float* out = part + static_cast<long long>(blockIdx.y) * GB0 + en.out_off;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = m0 + wm + mt * 16 + g + 8 * half;
+        const int c = n0 + wn + nt * 8 + 2 * t;
+        if (m < en.m && c < en.out_ld) {
+          out[static_cast<long long>(m) * en.out_ld + c] = acc[mt][nt][2 * half];
+          out[static_cast<long long>(m) * en.out_ld + c + 1] = acc[mt][nt][2 * half + 1];
+        }
+      }
+}
+
+// Gradient-stash feature whose float32 sum is bias element b (-1: padding).
+__device__ __forceinline__ int bias_feature(int b) {
+  if (b < 8 * 256) return G_TRUNK + b;
+  b -= 8 * 256;
+  if (b < 128) return b < 4 ? G_SIG + b : -1;
+  b -= 128;
+  if (b < 256) return G_B + b;
+  b -= 256;
+  if (b < 128) return G_V + b;
+  b -= 128;
+  return b < 4 ? G_RGB + b : -1;
+}
+
+__global__ void mlp_grad_reduce_kernel(const float* __restrict__ part, int splits,
+                                       const float* __restrict__ db_part, int db_blocks,
+                                       float* __restrict__ grads) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= GRAD_ELEMS) return;
+  float s = 0.f;
+  if (i < GB0) {
+    for (int k = 0; k < splits; ++k) s += part[k * GB0 + i];
+  } else {
+    const int f = bias_feature(static_cast<int>(i - GB0));
+    if (f >= 0)
+      for (int b = 0; b < db_blocks; ++b) s += db_part[static_cast<long long>(b) * G_FEATS + f];
+  }
+  grads[i] = s;
+}
+
+// ---------------------------------------------------------------------------
+// Host side: workspace and the backward passes
+// ---------------------------------------------------------------------------
+
+inline long long align256(long long bytes) { return (bytes + 255) / 256 * 256; }
+inline long long padded_rows(long long n) { return (n + BM - 1) / BM * BM; }
+inline int max_splits(long long npad) {
+  const long long s = npad / 16384;
+  return s < 1 ? 1 : (s > 16 ? 16 : static_cast<int>(s));
+}
+
+struct Workspace {
+  bf16* A;        // [A_FEATS][npad]
+  bf16* G;        // [G_FEATS][npad]
+  float* part;    // [splits][GB0]
+  float* db_part; // [DX_MAX_BLOCKS][G_FEATS]
+  float* raw;     // [n, 8] (train only)
+  float* g8;      // [n, 8] (train only)
+};
+
+inline long long workspace_bytes(long long n, bool train) {
+  const long long npad = padded_rows(n);
+  long long b = align256(A_FEATS * npad * 2) + align256(G_FEATS * npad * 2) +
+                align256(max_splits(npad) * GB0 * 4) + align256(DX_MAX_BLOCKS * G_FEATS * 4LL);
+  if (train) b += 2 * align256(n * 8 * 4);
+  return b;
+}
+
+inline Workspace carve(void* base, long long n, bool train) {
+  const long long npad = padded_rows(n);
+  char* p = static_cast<char*>(base);
+  Workspace ws{};
+  ws.A = reinterpret_cast<bf16*>(p);
+  p += align256(A_FEATS * npad * 2);
+  ws.G = reinterpret_cast<bf16*>(p);
+  p += align256(G_FEATS * npad * 2);
+  ws.part = reinterpret_cast<float*>(p);
+  p += align256(max_splits(npad) * GB0 * 4);
+  ws.db_part = reinterpret_cast<float*>(p);
+  p += align256(DX_MAX_BLOCKS * G_FEATS * 4LL);
+  if (train) {
+    ws.raw = reinterpret_cast<float*>(p);
+    p += align256(n * 8 * 4);
+    ws.g8 = reinterpret_cast<float*>(p);
+  }
+  return ws;
+}
+
+// Passes 2 and 3 over a filled activation stash: g8 [n, 8] -> grads
+// [GRAD_ELEMS] float32.
+inline cudaError_t run_backward(const float* g8, long long n, const bf16* w, const bf16* wt,
+                                const Workspace& ws, float* grads, cudaStream_t stream) {
+  const long long npad = padded_rows(n);
+  const long long n_tiles = npad / BM;
+  if (n_tiles > INT_MAX) return cudaErrorInvalidValue;
+  const int dx_blocks = n_tiles < DX_MAX_BLOCKS ? static_cast<int>(n_tiles) : DX_MAX_BLOCKS;
+  cudaError_t err = cudaFuncSetAttribute(mlp_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         DX_SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  mlp_dx_kernel<<<dx_blocks, THREADS, DX_SMEM_BYTES, stream>>>(
+      g8, n, w, wt, ws.A, ws.G, npad, static_cast<int>(n_tiles), ws.db_part);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const int splits_max = max_splits(npad);
+  const long long rows_per_split = ((npad + splits_max - 1) / splits_max + BM - 1) / BM * BM;
+  const int splits = static_cast<int>((npad + rows_per_split - 1) / rows_per_split);
+  const DwTable tab = dw_table();
+  err = cudaFuncSetAttribute(mlp_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             DW_SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  mlp_dw_kernel<<<dim3(tab.first_tile[DW_ENTRIES], splits), THREADS, DW_SMEM_BYTES, stream>>>(
+      ws.A, ws.G, npad, rows_per_split, ws.part, tab);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  mlp_grad_reduce_kernel<<<static_cast<unsigned>((GRAD_ELEMS + 255) / 256), 256, 0, stream>>>(
+      ws.part, splits, ws.db_part, dx_blocks, grads);
+  return cudaGetLastError();
+}
+
+}  // namespace mlp

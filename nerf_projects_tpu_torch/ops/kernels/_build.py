@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. ``nvcc`` compiles it for
 ``sm_90a`` into a shared library in ``_build/`` (listed in .gitignore),
-named by a hash of the source and the flags, so a library is rebuilt
-only when either changes. The library is written under a temporary name
+named by a hash of the source, the headers it includes from ``csrc/``
+(``#include "..."``, followed recursively) and the flags, so a library is
+rebuilt when any of them changes. The library is written under a temporary name
 and renamed into place; nothing else guards the build, so there is no
 lock to go stale. A missing ``nvcc`` or a failed build raises with the
 compiler's output.
@@ -14,9 +15,11 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple
 
@@ -47,12 +50,38 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str, csrc: Path = CSRC) -> list:
+    """``csrc/<name>.cu`` and every header it includes with ``#include
+    "..."``, directly or through another header, in a fixed order."""
+    seen, todo = [], [csrc / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / inc.decode()).resolve()
+            if dep.is_file():
+                todo.append(dep)
+    return seen
+
+
+def digest(name: str, csrc: Path = CSRC) -> str:
+    """Hash of the flags and of ``sources(name)``: names the library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name, csrc):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Build:
-    """Compile ``csrc/<name>.cu`` unless a library of this source and
+    """Compile ``csrc/<name>.cu`` unless a library of these sources and
     these flags exists already."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}-{digest}.so"
+    out = BUILD_DIR / f"{name}-{digest(name)}.so"
     if out.exists():
         return Build(out, 0.0, "")
     nvcc = find_nvcc()
@@ -72,6 +101,13 @@ def build(name: str) -> Build:
     finally:
         tmp.unlink(missing_ok=True)
     return Build(out, time.perf_counter() - t0, proc.stdout + proc.stderr)
+
+
+def build_all(names) -> dict:
+    """Build several libraries at once, one ``nvcc`` process each."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,4 +1,4 @@
-"""Fully fused NeRF MLP forward (port of the forward half of
+"""Fully fused NeRF MLP, forward and weight-gradient backward (port of
 ``nerf_projects_tpu/ops/pallas/fused_mlp.py``).
 
 Architecture (models/nerf.py NeRFMLP, use_viewdirs, depth 8, width 256,
@@ -7,23 +7,35 @@ sigma head, the bottleneck, one 128-wide view layer and the rgb head.
 Feature dims are padded as on the TPU: points 63->64, views 27->32,
 heads to 128 columns; weights and biases are bf16.
 
-``fused_mlp_fwd`` launches the CUDA kernel ``csrc/fused_mlp_fwd.cu``
-(built with nvcc for sm_90a, loaded with ctypes) on the flat weight
-buffer of ``kernel_weights`` and counts its launches in
-``fused_mlp_fwd.launches``. ``fused_nerf_mlp_reference`` is its plain
-PyTorch version over ``pack_params``, with the same bf16 rounding points.
-``fused_nerf_mlp`` and ``fused_apply`` take a ``NeRFMLP`` and run the
-plain version for tensors on the CPU and the kernel for tensors on a
-card; there is no fallback from one to the other.
+Kernels (CUDA C++ for sm_90a under ``csrc/``, built with nvcc and loaded
+with ctypes), each with a launch counter and its plain PyTorch version:
+
+- ``fused_mlp_fwd`` (``csrc/fused_mlp_fwd.cu``, K1f) over the flat weight
+  buffer of ``kernel_weights``; plain: ``fused_nerf_mlp_reference`` over
+  ``pack_params``.
+- ``fused_mlp_bwd`` (``csrc/fused_mlp_bwd.cu``, K1b): the 24 padded
+  weight gradients from the inputs and the output gradient, recomputing
+  the forward; plain: ``fused_mlp_bwd_reference`` over
+  ``mlp_backward_reference``, with the same bf16 rounding points.
+
+``fused_nerf_mlp`` and ``fused_apply`` take a ``NeRFMLP`` and are
+differentiable: an autograd Function runs the kernels on a card and the
+plain versions on the CPU (no fallback from one to the other), and maps
+the padded gradients back onto the ``nn.Linear`` parameters. The inputs
+get no gradient, as on the TPU. ``pack_params`` / ``unpack_grads`` with
+``raw_layout=True`` permute the encoded-input rows to the block layout of
+the in-kernel encoder (``_encode_tile``) that the fused train level uses.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from nerf_projects_tpu_torch.models.nerf import NeRFMLP
 from nerf_projects_tpu_torch.ops.kernels import _build
@@ -73,18 +85,54 @@ def _pad_to(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return out
 
 
-def pack_params(model: NeRFMLP, dtype=torch.bfloat16) -> FusedMLPWeights:
-    """The port's 8x256 viewdirs ``NeRFMLP`` -> padded kernel weights
-    (the layout of the reference's ``pack_params`` with raw_layout=False)."""
-    _check_arch(model)
+def _block_perm(n_freqs: int, dims: int = 3) -> list:
+    """Row permutation from the block-layout encoding to the interleaved
+    one the model's weights expect: perm[j] is the interleaved row that
+    feeds block row j."""
+    perm = list(range(dims))
+    for i in range(n_freqs):  # sin block
+        for d in range(dims):
+            perm.append(dims + 2 * dims * i + d)
+    for i in range(n_freqs):  # cos block
+        for d in range(dims):
+            perm.append(dims + 2 * dims * i + dims + d)
+    return perm
 
-    def kb(layer, rpad, cpad):
-        k = layer.weight.detach().T
+
+@functools.lru_cache(maxsize=None)
+def _perm_index(n_freqs: int, device: torch.device) -> torch.Tensor:
+    """``_block_perm(n_freqs)`` as an index tensor on ``device``, made
+    once: indexing with a Python list copies it to the card each time."""
+    return torch.tensor(_block_perm(n_freqs), device=device)
+
+
+def _encode_tile(pts: torch.Tensor, n_freqs: int, out_cols: int) -> torch.Tensor:
+    """Block-layout positional encoding of [T, >=3] points (3 live) ->
+    [T, out_cols]: [x(3), sin(2^f x) f<F, sin(2^f x + pi/2) f<F], zeros
+    after; float32, cos taken as sin(x + pi/2) as the in-kernel encoder."""
+    p3 = pts[:, :3].float()
+    xb = torch.cat([p3 * (2.0 ** i) for i in range(n_freqs)], dim=-1)
+    enc = torch.cat([p3, torch.sin(xb), torch.sin(xb + 0.5 * math.pi)], dim=-1)
+    return F.pad(enc, (0, out_cols - enc.shape[-1]))
+
+
+def pack_params(model: NeRFMLP, dtype=torch.bfloat16, raw_layout: bool = False) -> FusedMLPWeights:
+    """The port's 8x256 viewdirs ``NeRFMLP`` -> padded kernel weights, as
+    the reference's ``pack_params``. ``raw_layout=True`` permutes
+    trunk_0's and trunk_5's point rows and view_0's view rows to the
+    block layout of ``_encode_tile``."""
+    _check_arch(model)
+    dev = model.trunk[0].weight.device
+    perm_pts = _perm_index(10, dev) if raw_layout else slice(None)
+    perm_views = _perm_index(4, dev) if raw_layout else slice(None)
+
+    def kb(layer, rpad, cpad, k=None):
+        k = layer.weight.detach().T if k is None else k
         b = layer.bias.detach()[None, :]
         return _pad_to(k, rpad, cpad).to(dtype), _pad_to(b, 1, cpad).to(dtype)
 
     t = model.trunk
-    w0, b0 = kb(t[0], 64, 256)
+    w0, b0 = kb(t[0], 64, 256, t[0].weight.detach().T[perm_pts])
     w1, b1 = kb(t[1], 256, 256)
     w2, b2 = kb(t[2], 256, 256)
     w3, b3 = kb(t[3], 256, 256)
@@ -92,7 +140,7 @@ def pack_params(model: NeRFMLP, dtype=torch.bfloat16) -> FusedMLPWeights:
     # trunk_5 consumes [x(63), h(256)]; padded rows [x(64) | h(256)] = 320
     k5 = t[5].weight.detach().T
     w5 = k5.new_zeros((320, 256))
-    w5[:63] = k5[:63]
+    w5[:63] = k5[:63][perm_pts]
     w5[64:320] = k5[63:319]
     w5 = w5.to(dtype)
     b5 = _pad_to(t[5].bias.detach()[None, :], 1, 256).to(dtype)
@@ -104,7 +152,7 @@ def pack_params(model: NeRFMLP, dtype=torch.bfloat16) -> FusedMLPWeights:
     kv = model.view_0.weight.detach().T
     wv = kv.new_zeros((288, 128))
     wv[:256] = kv[:256]
-    wv[256:283] = kv[256:283]
+    wv[256:283] = kv[256:283][perm_views]
     wv = wv.to(dtype)
     bv = _pad_to(model.view_0.bias.detach()[None, :], 1, 128).to(dtype)
     wrgb, brgb = kb(model.rgb_head, 128, 128)
@@ -112,6 +160,41 @@ def pack_params(model: NeRFMLP, dtype=torch.bfloat16) -> FusedMLPWeights:
         w0, w1, w2, w3, w4, w5, w6, w7, wsig, wb, wv, wrgb,
         b0, b1, b2, b3, b4, b5, b6, b7, bsig, bb, bv, brgb,
     )
+
+
+def unpack_grads(g: FusedMLPWeights, model: NeRFMLP, raw_layout: bool = False) -> dict:
+    """Padded weight gradients -> float32 gradients of the model's
+    parameters, by name (``nn.Linear`` shapes: weight [out, in]).
+    ``raw_layout=True`` undoes ``pack_params(raw_layout=True)``'s row
+    permutation."""
+    def unperm(rows, n_freqs):
+        out = torch.zeros_like(rows)
+        out[_perm_index(n_freqs, rows.device)] = rows
+        return out
+
+    w0, w5x, wvv = g.w0[:63], g.w5[:63], g.wv[256:283]
+    if raw_layout:
+        w0, w5x, wvv = unperm(w0, 10), unperm(w5x, 10), unperm(wvv, 4)
+    kernels = {
+        "trunk.0": w0, "trunk.1": g.w1, "trunk.2": g.w2, "trunk.3": g.w3, "trunk.4": g.w4,
+        "trunk.5": torch.cat([w5x, g.w5[64:320]]), "trunk.6": g.w6, "trunk.7": g.w7,
+        "sigma_head": g.wsig, "bottleneck": g.wb,
+        "view_0": torch.cat([g.wv[:256], wvv]), "rgb_head": g.wrgb,
+    }
+    biases = {
+        "trunk.0": g.b0, "trunk.1": g.b1, "trunk.2": g.b2, "trunk.3": g.b3, "trunk.4": g.b4,
+        "trunk.5": g.b5, "trunk.6": g.b6, "trunk.7": g.b7, "sigma_head": g.bsig,
+        "bottleneck": g.bb, "view_0": g.bv, "rgb_head": g.brgb,
+    }
+    out = {}
+    for name, p in model.named_parameters():
+        layer, kind = name.rsplit(".", 1)
+        if kind == "weight":
+            o, i = p.shape
+            out[name] = kernels[layer][:i, :o].T.float().contiguous()
+        else:
+            out[name] = biases[layer][0, : p.shape[0]].float().contiguous()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -132,40 +215,140 @@ def _full_fp32_matmul(device: torch.device):
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
+_SUM_DTYPE = torch.float32
+
+
+@contextlib.contextmanager
+def float64_sums():
+    """Inside, the plain versions sum their bf16 products in float64 and
+    round the sums to float32: the yardstick for how far float32 sums,
+    in any order, stray."""
+    global _SUM_DTYPE
+    old, _SUM_DTYPE = _SUM_DTYPE, torch.float64
+    try:
+        yield
+    finally:
+        _SUM_DTYPE = old
+
+
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     # bf16 operands, float32 accumulation: bf16 products are exact in float32
-    return a.to(torch.bfloat16).float() @ w.float()
+    return (a.to(torch.bfloat16).to(_SUM_DTYPE) @ w.to(_SUM_DTYPE)).float()
+
+
+def _fwd_tile(W: FusedMLPWeights, x: torch.Tensor, v: torch.Tensor):
+    """The reference's ``_fwd_tile``: (rgb head [N, 128], sigma head
+    [N, 128], float32 activations by name)."""
+    acts = {}
+    h = torch.relu(_mm(x, W.w0) + W.b0.float())
+    acts["a0"] = h
+    for i, (w, b) in enumerate(((W.w1, W.b1), (W.w2, W.b2), (W.w3, W.b3), (W.w4, W.b4)), start=1):
+        h = torch.relu(_mm(h, w) + b.float())
+        acts[f"a{i}"] = h
+    cat = torch.cat([x.float(), h], dim=-1)
+    acts["cat"] = cat
+    h = torch.relu(_mm(cat, W.w5) + W.b5.float())
+    acts["a5"] = h
+    h = torch.relu(_mm(h, W.w6) + W.b6.float())
+    acts["a6"] = h
+    h = torch.relu(_mm(h, W.w7) + W.b7.float())
+    acts["a7"] = h
+    sig = _mm(h, W.wsig) + W.bsig.float()
+    bneck = _mm(h, W.wb) + W.bb.float()
+    catv = torch.cat([bneck, v.float()], dim=-1)
+    acts["catv"] = catv
+    hv = torch.relu(_mm(catv, W.wv) + W.bv.float())
+    acts["hv"] = hv
+    rgb = _mm(hv, W.wrgb) + W.brgb.float()
+    return rgb, sig, acts
 
 
 def fused_nerf_mlp_reference(W: FusedMLPWeights, x: torch.Tensor, v: torch.Tensor):
-    """Plain PyTorch version of the kernel: x [N, 64], v [N, 32] float32
-    -> [N, 8] float32, columns 0..3 rgb head and 4..7 sigma head (cols
-    0..2 and 4 live). Mirrors ``_fwd_tile``: every product rounds its left
-    operand to bf16 and accumulates in float32; biases add in float32. On
-    a card the matmuls run with TF32 off."""
+    """Plain PyTorch version of the forward kernel: x [N, 64], v [N, 32]
+    float32 -> [N, 8] float32, columns 0..3 rgb head and 4..7 sigma head
+    (cols 0..2 and 4 live). Mirrors ``_fwd_tile``: every product rounds
+    its left operand to bf16 and accumulates in float32; biases add in
+    float32. On a card the matmuls run with TF32 off."""
     with _full_fp32_matmul(x.device):
-        h = torch.relu(_mm(x, W.w0) + W.b0.float())
-        for w, b in ((W.w1, W.b1), (W.w2, W.b2), (W.w3, W.b3), (W.w4, W.b4)):
-            h = torch.relu(_mm(h, w) + b.float())
-        cat = torch.cat([x.float(), h], dim=-1)
-        h = torch.relu(_mm(cat, W.w5) + W.b5.float())
-        h = torch.relu(_mm(h, W.w6) + W.b6.float())
-        h = torch.relu(_mm(h, W.w7) + W.b7.float())
-        sig = _mm(h, W.wsig) + W.bsig.float()
-        bneck = _mm(h, W.wb) + W.bb.float()
-        catv = torch.cat([bneck, v.float()], dim=-1)
-        hv = torch.relu(_mm(catv, W.wv) + W.bv.float())
-        rgb = _mm(hv, W.wrgb) + W.brgb.float()
+        rgb, sig, _ = _fwd_tile(W, x, v)
         return torch.cat([rgb[:, :4], sig[:, :4]], dim=-1)
+
+
+def _mmT(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    # a [T, I]^T @ b [T, O] -> [I, O]: both operands bf16, float32 sums
+    return (a.to(torch.bfloat16).to(_SUM_DTYPE).T @ b.to(torch.bfloat16).to(_SUM_DTYPE)).float()
+
+
+def _mmBT(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    # g [T, O] @ w^T [O, I] -> [T, I]: g rounded to bf16, float32 sums
+    return (g.to(torch.bfloat16).to(_SUM_DTYPE) @ w.to(_SUM_DTYPE).T).float()
+
+
+def mlp_backward_reference(x, W: FusedMLPWeights, acts: dict, g_rgb, g_sig) -> FusedMLPWeights:
+    """Plain version of the reference's ``_mlp_backward``: the padded
+    float32 weight and bias gradients from the heads' output gradients
+    g_rgb / g_sig [T, 128] (live columns 0..3) over the forward's
+    activations. ``mmT`` rounds both operands to bf16, ``mmBT`` rounds g;
+    relu masks come from a float32 ``> 0``; bias gradients are float32
+    sums."""
+    def pos(a):
+        return (a.float() > 0).float()
+
+    with _full_fp32_matmul(x.device):
+        gr = {}
+        gr["wrgb"] = _mmT(acts["hv"], g_rgb)
+        gr["brgb"] = g_rgb.sum(0, keepdim=True)
+        g_hv = _mmBT(g_rgb, W.wrgb) * pos(acts["hv"])
+        gr["wv"] = _mmT(acts["catv"], g_hv)
+        gr["bv"] = g_hv.sum(0, keepdim=True)
+        g_bneck = _mmBT(g_hv, W.wv)[:, :256]
+        gr["wb"] = _mmT(acts["a7"], g_bneck)
+        gr["bb"] = g_bneck.sum(0, keepdim=True)
+        gr["wsig"] = _mmT(acts["a7"], g_sig)
+        gr["bsig"] = g_sig.sum(0, keepdim=True)
+        g_h = (_mmBT(g_bneck, W.wb) + _mmBT(g_sig, W.wsig)) * pos(acts["a7"])
+        gr["w7"] = _mmT(acts["a6"], g_h)
+        gr["b7"] = g_h.sum(0, keepdim=True)
+        g_h = _mmBT(g_h, W.w7) * pos(acts["a6"])
+        gr["w6"] = _mmT(acts["a5"], g_h)
+        gr["b6"] = g_h.sum(0, keepdim=True)
+        g_h = _mmBT(g_h, W.w6) * pos(acts["a5"])
+        gr["w5"] = _mmT(acts["cat"], g_h)
+        gr["b5"] = g_h.sum(0, keepdim=True)
+        g_h = _mmBT(g_h, W.w5)[:, 64:320] * pos(acts["a4"])
+        for i in (4, 3, 2, 1):
+            w = getattr(W, f"w{i}")
+            gr[f"w{i}"] = _mmT(acts[f"a{i - 1}"], g_h)
+            gr[f"b{i}"] = g_h.sum(0, keepdim=True)
+            g_h = _mmBT(g_h, w) * pos(acts[f"a{i - 1}"])
+        gr["w0"] = _mmT(x.float(), g_h)
+        gr["b0"] = g_h.sum(0, keepdim=True)
+        return FusedMLPWeights(**gr)
+
+
+def _head_grads(g8: torch.Tensor):
+    """g8 [N, 8] (cols 0..3 rgb head, 4..7 sigma head) -> g_rgb, g_sig [N, 128]."""
+    g8 = g8.float()
+    return F.pad(g8[:, :4], (0, 124)), F.pad(g8[:, 4:8], (0, 124))
+
+
+def fused_mlp_bwd_reference(W: FusedMLPWeights, x: torch.Tensor, v: torch.Tensor,
+                            g: torch.Tensor) -> FusedMLPWeights:
+    """Plain version of the backward kernel: x [N, 64], v [N, 32] and the
+    output gradient g [N, 8] -> the padded float32 gradients of ``W``,
+    recomputing the forward as the reference's ``_bwd_body`` does."""
+    with _full_fp32_matmul(x.device):
+        _, _, acts = _fwd_tile(W, x, v)
+    return mlp_backward_reference(x, W, acts, *_head_grads(g))
 
 
 # ---------------------------------------------------------------------------
 # The kernel
 # ---------------------------------------------------------------------------
 
-# The kernel's weight buffer, in order: (field, rows, cols) of each piece,
+# The forward weight buffer, in order: (field, rows, cols) of each piece,
 # [out][in] as nn.Linear holds it; the heads keep four rows. Offsets must
-# match OFF_* in csrc/fused_mlp_fwd.cu.
+# match OFF_* in csrc/mlp_tile.cuh.
 KERNEL_LAYOUT = (
     ("w0", 256, 64), ("w1", 256, 256), ("w2", 256, 256), ("w3", 256, 256),
     ("w4", 256, 256), ("w5", 256, 320), ("w6", 256, 256), ("w7", 256, 256),
@@ -174,6 +357,22 @@ KERNEL_LAYOUT = (
     ("b4", 1, 256), ("b5", 1, 256), ("b6", 1, 256), ("b7", 1, 256),
     ("bb", 1, 256), ("bv", 1, 128), ("bsig", 1, 4), ("brgb", 1, 4),
 )
+# The backward weight buffer: the matrices of the dX products as [in][out]
+# (view_0's bottleneck rows, trunk_5's h rows). Offsets: OFFT_* in
+# csrc/mlp_tile.cuh.
+KERNEL_LAYOUT_BWD = (
+    ("wv", 256, 128), ("wb", 256, 256), ("w7", 256, 256), ("w6", 256, 256),
+    ("w5", 256, 256), ("w4", 256, 256), ("w3", 256, 256), ("w2", 256, 256),
+    ("w1", 256, 256),
+)
+# FusedMLPWeights' padded shapes: the layout of the kernels' gradient buffer.
+GRAD_SHAPES = (
+    (64, 256), (256, 256), (256, 256), (256, 256), (256, 256), (320, 256),
+    (256, 256), (256, 256), (256, 128), (256, 256), (288, 128), (128, 128),
+    (1, 256), (1, 256), (1, 256), (1, 256), (1, 256), (1, 256), (1, 256),
+    (1, 256), (1, 128), (1, 256), (1, 128), (1, 128),
+)
+GRAD_ELEMS = sum(r * c for r, c in GRAD_SHAPES)
 
 
 def _check_arch(model: NeRFMLP) -> None:
@@ -181,24 +380,11 @@ def _check_arch(model: NeRFMLP) -> None:
         raise ValueError("the fused MLP covers depth 8 with viewdirs and a skip at 4")
 
 
-def _build_kernel_weights(model: NeRFMLP) -> torch.Tensor:
-    t, sig, bn, v0, rgb = model.trunk, model.sigma_head, model.bottleneck, model.view_0, model.rgb_head
-    # each piece: (source [rows, cols] slice, first column in the piece);
-    # trunk_5 reads [x(63) | h(256)] and view_0 [bottleneck(256) | views(27)],
-    # placed at the kernel's padded columns [x 0..63 | h 64..319] and [.. | 256..287]
-    sources = {f"w{i}": ((t[i].weight, 0),) for i in (0, 1, 2, 3, 4, 6, 7)}
-    sources.update({f"b{i}": ((t[i].bias[None], 0),) for i in range(8)})
-    sources.update(
-        w5=((t[5].weight[:, :63], 0), (t[5].weight[:, 63:], 64)),
-        wb=((bn.weight, 0),), wv=((v0.weight[:, :256], 0), (v0.weight[:, 256:], 256)),
-        wsig=((sig.weight, 0),), wrgb=((rgb.weight, 0),),
-        bb=((bn.bias[None], 0),), bv=((v0.bias[None], 0),),
-        bsig=((sig.bias[None], 0),), brgb=((rgb.bias[None], 0),),
-    )
-    total = sum(rows * cols for _, rows, cols in KERNEL_LAYOUT)
-    buf = torch.zeros(total, dtype=torch.bfloat16, device=t[0].weight.device)
+def _fill(layout, sources, device) -> torch.Tensor:
+    total = sum(rows * cols for _, rows, cols in layout)
+    buf = torch.zeros(total, dtype=torch.bfloat16, device=device)
     at = 0
-    for name, rows, cols in KERNEL_LAYOUT:
+    for name, rows, cols in layout:
         piece = buf[at: at + rows * cols].view(rows, cols)
         for src, c0 in sources[name]:
             piece[: src.shape[0], c0: c0 + src.shape[1]] = src.detach()
@@ -206,33 +392,107 @@ def _build_kernel_weights(model: NeRFMLP) -> torch.Tensor:
     return buf
 
 
-def kernel_weights(model: NeRFMLP) -> torch.Tensor:
-    """The kernel's flat bf16 weight buffer (KERNEL_LAYOUT), built from the
-    8x256 viewdirs ``NeRFMLP``'s parameters and kept on the model until one
-    of them is replaced or changed in place."""
+def _build_kernel_weights(model: NeRFMLP, raw_layout: bool) -> torch.Tensor:
+    t, sig, bn, v0, rgb = model.trunk, model.sigma_head, model.bottleneck, model.view_0, model.rgb_head
+    dev = t[0].weight.device
+    pp = _perm_index(10, dev) if raw_layout else slice(None)
+    pv = _perm_index(4, dev) if raw_layout else slice(None)
+    # each piece: (source [rows, cols] slice, first column in the piece);
+    # trunk_5 reads [x(63) | h(256)] and view_0 [bottleneck(256) | views(27)],
+    # placed at the kernel's padded columns [x 0..63 | h 64..319] and [.. | 256..287]
+    sources = {f"w{i}": ((t[i].weight, 0),) for i in (1, 2, 3, 4, 6, 7)}
+    sources.update({f"b{i}": ((t[i].bias[None], 0),) for i in range(8)})
+    sources.update(
+        w0=((t[0].weight[:, pp], 0),),
+        w5=((t[5].weight[:, :63][:, pp], 0), (t[5].weight[:, 63:], 64)),
+        wb=((bn.weight, 0),), wv=((v0.weight[:, :256], 0), (v0.weight[:, 256:][:, pv], 256)),
+        wsig=((sig.weight, 0),), wrgb=((rgb.weight, 0),),
+        bb=((bn.bias[None], 0),), bv=((v0.bias[None], 0),),
+        bsig=((sig.bias[None], 0),), brgb=((rgb.bias[None], 0),),
+    )
+    return _fill(KERNEL_LAYOUT, sources, t[0].weight.device)
+
+
+def _build_kernel_weights_bwd(model: NeRFMLP) -> torch.Tensor:
+    t = model.trunk
+    sources = {f"w{i}": ((t[i].weight.T, 0),) for i in (1, 2, 3, 4, 6, 7)}
+    sources.update(
+        w5=((t[5].weight[:, 63:].T, 0),), wb=((model.bottleneck.weight.T, 0),),
+        wv=((model.view_0.weight[:, :256].T, 0),),
+    )
+    return _fill(KERNEL_LAYOUT_BWD, sources, t[0].weight.device)
+
+
+def _cached(model: NeRFMLP, tag, make) -> torch.Tensor:
+    """``make()``, kept on the model under ``tag`` until one of its
+    parameters is replaced or changed in place."""
     _check_arch(model)
     key = tuple((p.data_ptr(), p._version) for p in model.parameters())
-    cached = model.__dict__.get("_kernel_weights")
-    if cached is None or cached[0] != key:
-        cached = (key, _build_kernel_weights(model))
-        model.__dict__["_kernel_weights"] = cached
-    return cached[1]
+    cache = model.__dict__.setdefault("_kernel_buffers", {})
+    hit = cache.get(tag)
+    if hit is None or hit[0] != key:
+        hit = (key, make())
+        cache[tag] = hit
+    return hit[1]
+
+
+def kernel_weights(model: NeRFMLP, raw_layout: bool = False) -> torch.Tensor:
+    """The kernels' flat bf16 forward weight buffer (KERNEL_LAYOUT), built
+    from the 8x256 viewdirs ``NeRFMLP``'s parameters (input rows permuted
+    to the block encoding with ``raw_layout``) and kept on the model."""
+    return _cached(model, ("fwd", raw_layout), lambda: _build_kernel_weights(model, raw_layout))
+
+
+def kernel_weights_bwd(model: NeRFMLP) -> torch.Tensor:
+    """The backward kernels' flat bf16 buffer of transposed weights
+    (KERNEL_LAYOUT_BWD), kept on the model like ``kernel_weights``."""
+    return _cached(model, "bwd", lambda: _build_kernel_weights_bwd(model))
+
+
+def split_grads(flat: torch.Tensor) -> FusedMLPWeights:
+    """A flat [GRAD_ELEMS] gradient buffer -> FusedMLPWeights of views."""
+    out, at = [], 0
+    for r, c in GRAD_SHAPES:
+        out.append(flat[at: at + r * c].view(r, c))
+        at += r * c
+    return FusedMLPWeights(*out)
+
+
+def load_library(name: str, api: dict) -> ctypes.CDLL:
+    """Load ``csrc/<name>.cu``'s library and declare its C functions:
+    api maps a function name to (argtypes, restype)."""
+    lib = _build.load(name)
+    for fn, (args, res) in api.items():
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = res
+    return lib
+
+
+_VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = _build.load("fused_mlp_fwd")
-    vp = ctypes.c_void_p
-    lib.fused_mlp_fwd.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, vp]
-    lib.fused_mlp_fwd.restype = ctypes.c_int
-    lib.fused_mlp_fwd_weight_elems.argtypes = []
-    lib.fused_mlp_fwd_weight_elems.restype = ctypes.c_longlong
-    lib.fused_mlp_fwd_error_string.argtypes = [ctypes.c_int]
-    lib.fused_mlp_fwd_error_string.restype = ctypes.c_char_p
-    return lib
+    return load_library("fused_mlp_fwd", {
+        "fused_mlp_fwd": ([_VP, _VP, _VP, _VP, _LL, _VP], _INT),
+        "fused_mlp_fwd_weight_elems": ([], _LL),
+        "fused_mlp_fwd_error_string": ([_INT], ctypes.c_char_p),
+    })
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device):
+@functools.lru_cache(maxsize=None)
+def _bwd_library():
+    return load_library("fused_mlp_bwd", {
+        "fused_mlp_bwd": ([_VP] * 6 + [_LL, _VP, _VP], _INT),
+        "fused_mlp_bwd_weight_elems": ([], _LL),
+        "fused_mlp_bwd_weight_t_elems": ([], _LL),
+        "fused_mlp_bwd_grad_elems": ([], _LL),
+        "fused_mlp_bwd_workspace_bytes": ([_LL], _LL),
+        "fused_mlp_bwd_error_string": ([_INT], ctypes.c_char_p),
+    })
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype, shape, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -243,22 +503,26 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def current_stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def fused_mlp_fwd(wk: torch.Tensor, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel: wk a ``kernel_weights`` buffer, x [N, 64]
+    """Launch the forward kernel: wk a ``kernel_weights`` buffer, x [N, 64]
     and v [N, 32] float32 on one card -> [N, 8] float32. Any N >= 0."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_fwd runs on a CUDA device, got {x.device}")
     lib = _library()
     n = x.shape[0]
-    _check(x, "x", torch.float32, (n, 64), x.device)
-    _check(v, "v", torch.float32, (n, 32), x.device)
-    _check(wk, "weights", torch.bfloat16, (lib.fused_mlp_fwd_weight_elems(),), x.device)
+    check_tensor(x, "x", torch.float32, (n, 64), x.device)
+    check_tensor(v, "v", torch.float32, (n, 32), x.device)
+    check_tensor(wk, "weights", torch.bfloat16, (lib.fused_mlp_fwd_weight_elems(),), x.device)
     out = torch.empty((n, 8), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.fused_mlp_fwd(x.data_ptr(), v.data_ptr(), wk.data_ptr(), out.data_ptr(), n, stream)
+        rc = lib.fused_mlp_fwd(x.data_ptr(), v.data_ptr(), wk.data_ptr(), out.data_ptr(), n,
+                               current_stream(x.device))
     if rc != 0:
         raise RuntimeError(f"fused_mlp_fwd launch failed: {lib.fused_mlp_fwd_error_string(rc).decode()}")
     fused_mlp_fwd.launches += 1
@@ -268,13 +532,70 @@ def fused_mlp_fwd(wk: torch.Tensor, x: torch.Tensor, v: torch.Tensor) -> torch.T
 fused_mlp_fwd.launches = 0
 
 
+def fused_mlp_bwd(wk: torch.Tensor, wkt: torch.Tensor, x: torch.Tensor, v: torch.Tensor,
+                  g: torch.Tensor) -> FusedMLPWeights:
+    """Launch the backward kernel: wk / wkt the ``kernel_weights`` /
+    ``kernel_weights_bwd`` buffers, x [N, 64], v [N, 32] and the output
+    gradient g [N, 8] float32 on one card -> the padded float32 weight
+    gradients (views into one buffer). Any N >= 0."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_bwd runs on a CUDA device, got {x.device}")
+    lib = _bwd_library()
+    n, dev = x.shape[0], x.device
+    check_tensor(x, "x", torch.float32, (n, 64), dev)
+    check_tensor(v, "v", torch.float32, (n, 32), dev)
+    check_tensor(g, "g", torch.float32, (n, 8), dev)
+    check_tensor(wk, "weights", torch.bfloat16, (lib.fused_mlp_bwd_weight_elems(),), dev)
+    check_tensor(wkt, "weights_bwd", torch.bfloat16, (lib.fused_mlp_bwd_weight_t_elems(),), dev)
+    grads = torch.empty(lib.fused_mlp_bwd_grad_elems(), dtype=torch.float32, device=dev)
+    if n == 0:
+        return split_grads(grads.zero_())
+    ws = torch.empty(lib.fused_mlp_bwd_workspace_bytes(n), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.fused_mlp_bwd(x.data_ptr(), v.data_ptr(), g.data_ptr(), wk.data_ptr(), wkt.data_ptr(),
+                               grads.data_ptr(), n, ws.data_ptr(), current_stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"fused_mlp_bwd launch failed: {lib.fused_mlp_bwd_error_string(rc).decode()}")
+    fused_mlp_bwd.launches += 1
+    return split_grads(grads)
+
+
+fused_mlp_bwd.launches = 0
+
+
+class _FusedNeRFMLP(torch.autograd.Function):
+    """Forward: the forward kernel (card) or its plain version (CPU).
+    Backward: the backward kernel or its plain version, whose padded
+    gradients are mapped onto the model's parameters; x and v get none."""
+
+    @staticmethod
+    def forward(ctx, model, x, v, *params):
+        ctx.model = model
+        ctx.save_for_backward(x, v)
+        if x.device.type == "cuda":
+            return fused_mlp_fwd(kernel_weights(model), x, v)
+        return fused_nerf_mlp_reference(pack_params(model), x, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, v = ctx.saved_tensors
+        model = ctx.model
+        g = g.float().contiguous()
+        if x.device.type == "cuda":
+            grads = fused_mlp_bwd(kernel_weights(model), kernel_weights_bwd(model), x, v, g)
+        else:
+            grads = fused_mlp_bwd_reference(pack_params(model), x, v, g)
+        named = unpack_grads(grads, model)
+        return (None, None, None, *(named[name] for name, _ in model.named_parameters()))
+
+
 def fused_nerf_mlp(model: NeRFMLP, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """x [N, 64] points encoding (63 live), v [N, 32] view encoding (27
     live) -> raw [N, 8]: cols 0..2 rgb logits, col 4 sigma logit. The
-    kernel on a card, the plain version on the CPU."""
-    if x.device.type == "cuda":
-        return fused_mlp_fwd(kernel_weights(model), x.float().contiguous(), v.float().contiguous())
-    return fused_nerf_mlp_reference(pack_params(model), x, v)
+    kernels on a card, the plain versions on the CPU; differentiable in
+    the model's parameters."""
+    x, v = x.float().contiguous(), v.float().contiguous()
+    return _FusedNeRFMLP.apply(model, x, v, *model.parameters())
 
 
 def _pad_inputs(pts_enc: torch.Tensor, views_enc: torch.Tensor):

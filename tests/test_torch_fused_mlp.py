@@ -1,9 +1,10 @@
-"""The port's NeRFMLP and fused-MLP forward against the JAX package (CPU).
+"""The port's NeRFMLP and fused MLP (forward and weight-gradient
+backward) against the JAX package (CPU).
 
-On the CPU the fused MLP runs its plain PyTorch version; the JAX side
-runs its Pallas kernel in interpret mode, as tests/test_fused_mlp.py does.
-The CUDA kernel itself is held against the plain version on the card by
-chip_smoke.py.
+On the CPU the fused MLP runs its plain PyTorch versions; the JAX side
+runs its Pallas kernels in interpret mode, as tests/test_fused_mlp.py
+does. The CUDA kernels themselves are held against the plain versions on
+the card by chip_smoke.py.
 """
 import re
 from pathlib import Path
@@ -164,12 +165,18 @@ def test_fused_mlp_fwd_refuses_host_tensors(full_width):
         tfm.fused_mlp_fwd(wk, torch.zeros(8, 64), torch.zeros(8, 32))
 
 
-def test_kernel_layout_matches_cuda_source():
-    """KERNEL_LAYOUT's offsets are the OFF_* constants of the CUDA source."""
-    src = (Path(tfm.__file__).resolve().parents[2] / "csrc" / "fused_mlp_fwd.cu").read_text()
+def _cuda_constants():
+    """The ``constexpr long long`` constants of csrc/mlp_tile.cuh."""
+    src = (Path(tfm.__file__).resolve().parents[2] / "csrc" / "mlp_tile.cuh").read_text()
     env = {}
     for name, expr in re.findall(r"constexpr long long (\w+) = ([^;]+);", src):
         env[name] = eval(expr, {}, dict(env))
+    return env
+
+
+def test_kernel_layout_matches_cuda_source():
+    """KERNEL_LAYOUT's offsets are the OFF_* constants of the CUDA source."""
+    env = _cuda_constants()
     offsets, total = {}, 0
     for name, rows, cols in tfm.KERNEL_LAYOUT:
         offsets[name] = total
@@ -210,3 +217,177 @@ def test_kernel_weights_is_kept_until_a_parameter_changes():
     assert wk2[bsig].item() == 0.5 and wk[bsig].item() == 0.0
     model.load_state_dict(NeRFMLP(depth=8, width=256, use_viewdirs=True).state_dict())
     assert tfm.kernel_weights(model) is not wk2
+
+
+# ---------------------------------------------------------------------------
+# The weight-gradient backward (K1b) and the raw layout
+# ---------------------------------------------------------------------------
+
+def _jax_grad_tree(tree, pts, views, cot):
+    def loss(p):
+        return jnp.sum(jfm.fused_apply(jfm.pack_params(p), pts, views) * cot)
+    return jax.tree_util.tree_map(np.asarray, jax.jit(jax.grad(loss))(tree))
+
+
+@pytest.mark.parametrize("n", [2 * jfm.TILE, jfm.TILE + 37])
+def test_fused_apply_gradients_match_jax(full_width, n):
+    """A loss through the port's fused_apply gives the model's parameters
+    non-zero gradients, those of jax.grad through the reference's
+    fused_apply (Pallas forward and backward in interpret mode), over two
+    tiles and over a ragged tile. Both round to bf16 at the same points,
+    but float32 sums in another order move the odd activation across a
+    bf16 rounding boundary or a relu's zero, and one flipped mask moves a
+    column of dW by ~1/sqrt(rows) of its size (seen: up to 1.5e-2 on
+    trunk_7, below 8e-3 elsewhere). So the bound is relative to each
+    tensor's largest entry: the 0.05 of
+    tests/test_fused_mlp.py::test_weight_grads_match_flax_bf16."""
+    tree, model = full_width
+    pts, views = _inputs(5, n)
+    cot = np.random.default_rng(6).standard_normal((n, 4)).astype(np.float32)
+    want = flax_to_state_dict(_jax_grad_tree(tree, pts, views, cot))
+
+    model.zero_grad(set_to_none=True)
+    out = tfm.fused_apply(model, torch.from_numpy(pts), torch.from_numpy(views))
+    (out * torch.from_numpy(cot)).sum().backward()
+    for name, p in model.named_parameters():
+        assert p.grad is not None and p.grad.shape == p.shape, name
+        g, w = p.grad.numpy(), want[name].numpy()
+        assert np.abs(g).max() > 0, name
+        rel = np.abs(g - w).max() / (np.abs(w).max() + 1e-3)
+        assert rel < 0.05, (name, rel)
+    model.zero_grad(set_to_none=True)
+
+
+def test_backward_reference_matches_jax_padded_grads(full_width):
+    """fused_mlp_bwd_reference against the reference's backward kernel on
+    the padded layout, g on all eight columns (the padded head columns
+    carry gradient too)."""
+    tree, model = full_width
+    n = jfm.TILE
+    pts, views = _inputs(7, n)
+    x = np.zeros((n, 64), np.float32)
+    x[:, :63] = pts
+    v = np.zeros((n, 32), np.float32)
+    v[:, :27] = views
+    g8 = np.random.default_rng(8).standard_normal((n, 8)).astype(np.float32)
+    W = jfm.pack_params(tree)
+    _, vjp = jax.vjp(lambda w: jfm.fused_nerf_mlp(w, jnp.asarray(x), jnp.asarray(v)), W)
+    (want,) = vjp(jnp.asarray(g8))
+    got = tfm.fused_mlp_bwd_reference(tfm.pack_params(model), *(torch.from_numpy(a) for a in (x, v, g8)))
+    for name in jfm.FusedMLPWeights._fields:
+        gw = np.asarray(getattr(want, name).astype(jnp.float32))
+        gg = getattr(got, name).numpy()
+        assert gg.shape == gw.shape, name
+        rel = np.abs(gg - gw).max() / (np.abs(gw).max() + 1e-3)
+        assert rel < 1e-2, (name, rel)
+
+
+def test_fused_apply_backward_on_cpu_runs_the_plain_version(full_width):
+    _, model = full_width
+    pts, views = (torch.from_numpy(a) for a in _inputs(9, 50))
+    before = tfm.fused_mlp_bwd.launches
+    model.zero_grad(set_to_none=True)
+    tfm.fused_apply(model, pts, views).square().sum().backward()
+    assert model.trunk[0].weight.grad is not None
+    assert tfm.fused_mlp_bwd.launches == before
+    model.zero_grad(set_to_none=True)
+
+
+def test_fused_mlp_bwd_refuses_host_tensors(full_width):
+    _, model = full_width
+    with pytest.raises(ValueError, match="CUDA"):
+        tfm.fused_mlp_bwd(tfm.kernel_weights(model), tfm.kernel_weights_bwd(model),
+                          torch.zeros(8, 64), torch.zeros(8, 32), torch.zeros(8, 8))
+
+
+@pytest.mark.parametrize("n_freqs,out_cols", [(10, 64), (4, 32)])
+def test_encode_tile_matches_jax(n_freqs, out_cols):
+    pts = np.random.default_rng(n_freqs).uniform(-4, 4, (200, 8)).astype(np.float32)
+    want = np.asarray(jfm._encode_tile(jnp.asarray(pts), n_freqs, out_cols))
+    got = tfm._encode_tile(torch.from_numpy(pts), n_freqs, out_cols).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+    assert tfm._block_perm(n_freqs) == jfm._block_perm(n_freqs)
+
+
+@pytest.mark.parametrize("raw_layout", [False, True])
+def test_pack_params_layouts_match_jax(full_width, raw_layout):
+    tree, model = full_width
+    want = jfm.pack_params(tree, raw_layout=raw_layout)
+    got = tfm.pack_params(model, raw_layout=raw_layout)
+    for name in jfm.FusedMLPWeights._fields:
+        np.testing.assert_array_equal(
+            getattr(got, name).float().numpy(),
+            np.asarray(getattr(want, name).astype(jnp.float32)), err_msg=name)
+
+
+@pytest.mark.parametrize("raw_layout", [False, True])
+def test_unpack_grads_round_trip_and_matches_jax(full_width, raw_layout):
+    """unpack_grads inverts pack_params' layout (float32 packing, so the
+    round trip is exact) and maps a padded gradient as the reference's
+    unpack_grads does."""
+    tree, model = full_width
+    packed = tfm.pack_params(model, dtype=torch.float32, raw_layout=raw_layout)
+    back = tfm.unpack_grads(packed, model, raw_layout=raw_layout)
+    for name, p in model.named_parameters():
+        torch.testing.assert_close(back[name], p.detach(), rtol=0, atol=0)
+
+    rng = np.random.default_rng(10)
+    g = jfm.FusedMLPWeights(*(rng.standard_normal(a.shape).astype(np.float32)
+                              for a in jfm.pack_params(tree)))
+    want = flax_to_state_dict(jax.tree_util.tree_map(
+        np.asarray, jfm.unpack_grads(jax.tree_util.tree_map(jnp.asarray, g), tree, raw_layout=raw_layout)))
+    got = tfm.unpack_grads(tfm.FusedMLPWeights(*(torch.from_numpy(a) for a in g)), model,
+                           raw_layout=raw_layout)
+    for name in want:
+        torch.testing.assert_close(got[name], want[name], rtol=0, atol=0)
+
+
+def test_kernel_weights_raw_and_bwd_layouts(full_width):
+    """The raw-layout forward buffer is pack_params(raw_layout=True)
+    transposed, piece by piece; the backward buffer holds the dX
+    products' matrices as [in][out]; offsets match OFFT_* and the
+    gradient buffer's size matches GRAD_ELEMS of the CUDA source."""
+    _, model = full_width
+    W = tfm.pack_params(model, raw_layout=True)
+    wk = tfm.kernel_weights(model, raw_layout=True)
+    at = 0
+    for name, rows, cols in tfm.KERNEL_LAYOUT:
+        piece = wk[at: at + rows * cols].reshape(rows, cols)
+        field = getattr(W, name)
+        want = field[:, :cols] if name.startswith("b") else field.T[:rows]
+        torch.testing.assert_close(piece, want, rtol=0, atol=0)
+        at += rows * cols
+    assert tfm.kernel_weights(model, raw_layout=True) is wk
+    assert tfm.kernel_weights(model) is not wk
+
+    Wp = tfm.pack_params(model)
+    wkt = tfm.kernel_weights_bwd(model)
+    env = _cuda_constants()
+    fields = {"wv": Wp.wv[:256], "wb": Wp.wb, "w5": Wp.w5[64:320],
+              **{f"w{i}": getattr(Wp, f"w{i}") for i in (1, 2, 3, 4, 6, 7)}}
+    at = 0
+    for name, rows, cols in tfm.KERNEL_LAYOUT_BWD:
+        piece = wkt[at: at + rows * cols].reshape(rows, cols)
+        torch.testing.assert_close(piece, fields[name], rtol=0, atol=0)
+        if name in ("wv", "wb", "w7"):
+            assert env[f"OFFT_{name.upper()}"] == at, name
+        at += rows * cols
+    assert env["NT_WEIGHTS"] == at == wkt.numel()
+    assert env["GRAD_ELEMS"] == tfm.GRAD_ELEMS == 645_760
+
+
+def test_build_hash_tracks_included_headers(tmp_path):
+    """A library's name hashes its source and every header it includes,
+    so an edit to a shared header rebuilds each library that uses it."""
+    from nerf_projects_tpu_torch.ops.kernels import _build
+
+    (tmp_path / "a.cu").write_text('#include "tile.cuh"\n#include <cuda_runtime.h>\nint a;\n')
+    (tmp_path / "tile.cuh").write_text('#pragma once\n#include "inner.cuh"\n')
+    (tmp_path / "inner.cuh").write_text("// v1\n")
+    assert [p.name for p in _build.sources("a", tmp_path)] == ["a.cu", "tile.cuh", "inner.cuh"]
+    before = _build.digest("a", tmp_path)
+    (tmp_path / "inner.cuh").write_text("// v2\n")
+    assert _build.digest("a", tmp_path) != before
+    for name in ("fused_mlp_fwd", "fused_mlp_bwd", "fused_train"):
+        assert "mlp_tile.cuh" in [p.name for p in _build.sources(name)]
