@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Mutation check of the backward kernels on one CUDA card.
+"""Mutation check of the kernels on one CUDA card.
 
 Copies the package and chip_smoke.py to a temporary directory, breaks
-one line of a CUDA source there, and runs chip_smoke.py's K1b and K2
-kernel phases on the copy; each mutant must make the phases that run
-the broken code fail. Run from the repository root:
+one line of a CUDA source there, and runs the chip_smoke.py kernel
+phases that run the broken code (K1b, K2 or K3) on the copy; each must
+fail. Run from the repository root:
 
     python3 chip_mutants.py
 
@@ -33,6 +33,18 @@ MUTANTS = {
         "const float logT = carry + incl;",
         ("fused_train_level",),
     ),
+    "inclusive instead of exclusive transmittance in the tile march": (
+        "nerf_projects_tpu_torch/csrc/tile_march_fwd.cu",
+        "const float T = expf(-cum);",
+        "const float T = expf(-(cum + sigma * step_world));",
+        ("tile_march_fwd",),
+    ),
+    "y and z taps swapped in the tile march's cell offset": (
+        "nerf_projects_tpu_torch/csrc/tile_march_fwd.cu",
+        "((cx & 7) * 64 + (cy & 7) * 8 + (cz & 7))",
+        "((cx & 7) * 64 + (cz & 7) * 8 + (cy & 7))",
+        ("tile_march_fwd",),
+    ),
 }
 
 PHASES = r'''
@@ -42,8 +54,11 @@ import chip_smoke as c
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda", 0)
 c.phase_build()
-for name, fn in (("fused_mlp_bwd", lambda: c.phase_kernel_bwd(dev, big_rows=65536)),
-                 ("fused_train_level", lambda: c.phase_kernel_train(dev))):
+phases = {"fused_mlp_bwd": lambda: c.phase_kernel_bwd(dev, big_rows=65536),
+          "fused_train_level": lambda: c.phase_kernel_train(dev),
+          "tile_march_fwd": lambda: c.phase_kernel_march(dev)}
+for name in sys.argv[1:]:
+    fn = phases[name]
     try:
         fn()
         print("RESULT", name, "SURVIVED", flush=True)
@@ -65,7 +80,7 @@ def main() -> int:
                 raise SystemExit(f"mutant {label!r}: the original text is not in {path} once")
             with open(target, "w") as f:
                 f.write(src.replace(old, new))
-            proc = subprocess.run([sys.executable, "-c", PHASES], cwd=d, capture_output=True,
+            proc = subprocess.run([sys.executable, "-c", PHASES, *must_fail], cwd=d, capture_output=True,
                                   text=True, timeout=600)
         print(f"mutant: {label}", flush=True)
         results = [l.split(" ", 3)[1:] for l in proc.stdout.splitlines() if l.startswith("RESULT")]

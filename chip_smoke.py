@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's vanilla-NeRF serving and training paths on one
-CUDA card.
+"""Drive the PyTorch port's vanilla-NeRF serving and training paths and its
+Plenoxels serving path on one CUDA card.
 
 Run from the repository root, with no arguments:
 
@@ -8,7 +8,7 @@ Run from the repository root, with no arguments:
 
 Phases, each of which raises (exit code 1) on failure:
 
-  build   nvcc compiles the three kernel libraries for sm_90a, one
+  build   nvcc compiles the four kernel libraries for sm_90a, one
           process per source, all at once.
   kernel  each kernel against its plain PyTorch version on the card,
           then timed with CUDA events beside its bound and its plain
@@ -43,6 +43,25 @@ Phases, each of which raises (exit code 1) on failure:
           must fall and stay finite), then a short torch.profiler trace
           of each route splitting the card's time into the hand-written
           kernels and the rest.
+  kernel_march
+          the Plenoxels tile march (K3) against its plain PyTorch version
+          on the card: a random 32^3 grid (basis_dim 9) with tiles of 128,
+          256 and 512 rays, then one 800x800 frame at 512^3 (the fog scene
+          below) in 16x32-ray tiles, compared tile by tile; then that
+          frame's march timed with CUDA events beside its bound (the
+          bricks it touches and its rays over HBM bandwidth, its samples'
+          float operations over the float32 rate) and the plain version.
+  render_plenoxels
+          render_frame_pallas (one K3 launch a frame, per-ray early stop)
+          at bench.py's two frame configurations: 512^3, basis_dim 9,
+          step 0.5, 800x800 frames from bench.py's frame_tiles poses, on
+          the fog scene (density U[0, 2], SH N(0, 0.2^2) on every cell of
+          the sphere) and the opaque shell (bricks at radius 0.85-1.02,
+          density U[500, 1500]); both grids are built on the card. Frames
+          run back to back for WINDOW_S seconds; frames/s, ms a frame,
+          bricks, GB on the card, K3 launches (zeroed just before, read
+          just after) and samples marched; a few tiles of the first frame
+          of each scene are checked against the plain version.
 
 Output: progress lines, a `{"kernels": [...]}` JSON line, the card's
 name and power limit as nvidia-smi gives them, and last
@@ -53,6 +72,7 @@ WATCHDOG_S seconds.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import faulthandler
 import json
 import subprocess
@@ -131,7 +151,7 @@ def encodings(n: int, gen: torch.Generator, device) -> tuple:
     return x.to(device), v.to(device)
 
 
-LIBRARIES = ("fused_mlp_fwd", "fused_mlp_bwd", "fused_train")
+LIBRARIES = ("fused_mlp_fwd", "fused_mlp_bwd", "fused_train", "tile_march_fwd")
 
 
 def phase_build():
@@ -396,14 +416,14 @@ def phase_render(dev) -> int:
     outs = []
     for rays in requests:
         t0 = time.perf_counter()
-        outs.append(trainer.render_image(params, rays, chunk=n_rays))
+        outs.append(trainer.render_image(params, rays, chunk=n_rays, use_kernel=True))
         torch.cuda.synchronize()
         log(f"render: first request at theta {REQUESTS[len(outs) - 1][0]}: {time.perf_counter() - t0:.6f} s")
     secs = []
     t_window = time.perf_counter()
     while time.perf_counter() - t_window < WINDOW_S:
         t0 = time.perf_counter()
-        trainer.render_image(params, requests[len(secs) % len(requests)], chunk=n_rays)
+        trainer.render_image(params, requests[len(secs) % len(requests)], chunk=n_rays, use_kernel=True)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     window = time.perf_counter() - t_window
@@ -595,6 +615,269 @@ def phase_train(dev, card: str) -> dict:
             "fused_mlp_bwd": out[False]["fused_mlp_bwd"]}
 
 
+# ---------------------------------------------------------------------------
+# Plenoxels serving: the tile march (K3)
+# ---------------------------------------------------------------------------
+
+H100_FP32_FLOPS = 67e12     # float32 outside the tensor cores, H100 SXM data sheet
+GRID_RESO, GRID_BASIS = 512, 9
+FRAME = 800                 # 800x800 frames
+FRAME_TILE = (16, 32)       # 512-ray tiles, as bench.py's frame bench
+MARCH_TOL = 1e-4            # max |err| / (|plain| + 1), float32 sums of the same bf16 cells
+PLAIN_BATCH_TILES = 64      # tiles per call of the plain version
+
+
+def frame_tiles(i: int, dev):
+    """bench.py's frame_tiles(i): 800x800 OpenCV rays (focal 800) from a
+    camera on a circle of radius 2.4 around the grid, in 16x32 tiles."""
+    from nerf_projects_tpu_torch.core.rays import camera_rays_opencv
+    from nerf_projects_tpu_torch.ops.tile_render import tiles_from_image_rays
+
+    pose = np.eye(4, dtype=np.float32)
+    ang = 0.15 * i
+    pose[0, 3] = 2.4 * np.sin(ang)
+    pose[2, 3] = -2.4 * np.cos(ang)
+    rays = camera_rays_opencv(FRAME, FRAME, float(FRAME), float(FRAME), FRAME / 2.0, FRAME / 2.0, pose, device=dev)
+    return tiles_from_image_rays(rays.map(lambda x: x.reshape(-1, 3)), FRAME, FRAME, *FRAME_TILE)
+
+
+def random_cells(bg, gen: torch.Generator, opaque_sigma=None, chunk: int = 8192):
+    """The march's bf16 cell array for bg's geometry, filled on the card
+    from ``gen`` as bench.py's _gen_z: density U[0, 2] (or
+    U[S/2, 3S/2] with opaque_sigma=S) and SH N(0, 0.2^2) on active cells,
+    zeros elsewhere."""
+    from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
+
+    nb, B = bg.n_bricks, bg.basis_dim
+    cells = torch.zeros((nb, 512, tm.channels(B)), dtype=torch.bfloat16, device=bg.device)
+    for i in range(0, nb, chunk):
+        m = bg.cell_mask[i:i + chunk].float()
+        d = torch.rand(m.shape, generator=gen, device=bg.device) * 2.0
+        if opaque_sigma is not None:
+            d = d * (opaque_sigma / 2.0) + opaque_sigma / 2.0
+        cells[i:i + chunk, :, 0] = d * m
+        sh = torch.randn(m.shape + (3 * B,), generator=gen, device=bg.device) * 0.2
+        cells[i:i + chunk, :, 1:1 + 3 * B] = sh * m[..., None]
+    return cells
+
+
+def shell_select(bg, r_lo: float = 0.85, r_hi: float = 1.02):
+    """bench.py's _shell_select: keep the bricks whose centre lies at
+    radius r_lo..r_hi of the unit sphere, rows renumbered."""
+    links = bg.brick_links.cpu().numpy()
+    coords = np.argwhere(links >= 0)
+    centers = (coords * 8.0 + 4.0) / bg.reso[0] * 2.0 - 1.0
+    rad = np.linalg.norm(centers, axis=1)
+    keep = (rad >= r_lo) & (rad <= r_hi)
+    if not keep.any():  # a grid too coarse for the band keeps every brick
+        keep[:] = True
+    old_rows = links[coords[:, 0], coords[:, 1], coords[:, 2]]
+    new_links = np.full_like(links, -1)
+    kept = coords[keep]
+    new_links[kept[:, 0], kept[:, 1], kept[:, 2]] = np.arange(int(keep.sum()), dtype=np.int32)
+    sel = torch.from_numpy(old_rows[keep]).long().to(bg.device)
+    return dataclasses.replace(bg, brick_links=torch.from_numpy(new_links).to(bg.device), cell_mask=bg.cell_mask[sel],
+                      brick_coords=bg.brick_coords[sel], density_bricks=bg.density_bricks[sel],
+                      sh_bricks=bg.sh_bricks[sel])
+
+
+def scene_grid(dev, shell: bool):
+    """(geometry-only BrickGrid, cells) of a 512^3 basis-9 scene built
+    on the card: the fog or the opaque shell."""
+    from nerf_projects_tpu_torch.ops.brick_grid import create_brick_grid
+
+    bg = create_brick_grid(GRID_RESO, basis_dim=GRID_BASIS, use_sphere_bound=True, alloc_data=False, device=dev)
+    if shell:
+        bg = shell_select(bg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + (6 if shell else 5))
+    return bg, random_cells(bg, gen, opaque_sigma=1000.0 if shell else None)
+
+
+def plain_march(cells, bg, pack, basis, counts=False, **kw):
+    """The plain version in batches of PLAIN_BATCH_TILES tiles: out, or
+    with ``counts`` (out, (samples marched, samples shaded, bricks
+    touched)) over all the tiles."""
+    from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
+
+    outs, marched, shaded, touched = [], 0, 0, None
+    for i in range(0, pack.shape[0], PLAIN_BATCH_TILES):
+        got = tm.march_reference(cells, bg.brick_links, bg.reso, pack[i:i + PLAIN_BATCH_TILES],
+                                 basis[i:i + PLAIN_BATCH_TILES], counts=counts, **kw)
+        if counts:
+            got, c = got
+            marched += int(c["marched"].sum())
+            shaded += int(c["shaded"].sum())
+            touched = c["touched"] if touched is None else touched | c["touched"]
+        outs.append(got)
+    out = torch.cat(outs)
+    return (out, (marched, shaded, int(touched.sum()))) if counts else out
+
+
+def compare_march(tag, out, ref) -> float:
+    """Kernel out against the plain version's: every output row within
+    MARCH_TOL of (|plain| + 1), no NaN, no miss. Returns the largest |err|
+    of rgb and acc."""
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{tag}: non-finite kernel output")
+    rel = ((out - ref).abs() / (ref.abs() + 1.0)).amax(dim=(0, 2))  # per output row
+    max_abs = float((out[:, :4] - ref[:, :4]).abs().max())
+    names = ("r", "g", "b", "acc", "depth_t", "-log_transmit", "sparsity", "miss")
+    log(f"{tag}: max |err| rgb/acc {max_abs:.3e}; worst err/(|plain|+1) per row "
+        + ", ".join(f"{n} {float(v):.2e}" for n, v in zip(names, rel)) + f" (tolerance {MARCH_TOL})")
+    if not float(rel.max()) < MARCH_TOL or bool(out[:, 7].any()):
+        raise AssertionError(f"{tag}: the march kernel disagrees with its plain version")
+    return max_abs
+
+
+def march_bound(touched_bricks: int, basis_dim: int, n_rays: int, n_tiles: int, marched: int, shaded: int):
+    """(bound ms, "bytes" | "operations", ops ms, bytes ms) of one march:
+    the touched bricks' live channels (1 + 3B bf16 a cell) and each ray's
+    pack and outputs and each tile's basis once over HBM; the samples'
+    float operations over the float32 rate."""
+    from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
+
+    nbytes = (touched_bricks * 512 * (1 + 3 * basis_dim) * 2 + n_rays * (tm.PACK * 4 + 8 * 4)
+              + n_tiles * basis_dim * 4)
+    flops = marched * tm.FLOPS_PER_SAMPLE + shaded * tm.flops_per_shaded(basis_dim)
+    t_ops, t_bytes = flops / H100_FP32_FLOPS * 1e3, nbytes / H100_HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), t_ops, t_bytes
+
+
+def phase_kernel_march(dev) -> dict:
+    """K3 against its plain version: a random 32^3 grid with 128-, 256-
+    and 512-ray tiles, then a whole 800x800 frame of the 512^3 fog scene,
+    whose plain run also counts the work of the bound; then that frame's
+    march timed, and the plain version's."""
+    from nerf_projects_tpu_torch.core.rays import camera_rays_opencv
+    from nerf_projects_tpu_torch.ops.brick_grid import create_brick_grid
+    from nerf_projects_tpu_torch.ops.grid import GridRenderOptions
+    from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
+    from nerf_projects_tpu_torch.ops.tile_render import tiles_from_image_rays
+
+    opts = GridRenderOptions(step_size=0.5)
+    max_abs = 0.0
+    bg = create_brick_grid(32, basis_dim=GRID_BASIS, use_sphere_bound=True, alloc_data=False, device=dev)
+    cells = random_cells(bg, torch.Generator(device=dev).manual_seed(SEED + 4), opaque_sigma=40.0)
+    C = tm.default_chunks_for(bg, opts)
+    tm.tile_march_fwd.launches = 0
+    for th, tw in ((8, 16), (16, 16), (16, 32)):
+        H, W = 4 * th, 4 * tw
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, 3] = [0.3, -0.2, -2.6]
+        rays = camera_rays_opencv(H, W, 1.2 * W, 1.2 * W, W / 2.0, H / 2.0, pose, device=dev)
+        tiles = tiles_from_image_rays(rays.map(lambda x: x.reshape(-1, 3)), H, W, th, tw)
+        pack, basis = tm.pack_rays(bg, tiles, opts)
+        for early_stop in (False, True):
+            kw = dict(max_steps=C * tm.SC, early_stop=early_stop)
+            got = tm.tile_march_fwd(cells, bg.brick_links, bg.reso, pack, basis, **kw)
+            want = tm.march_reference(cells, bg.brick_links, bg.reso, pack, basis, **kw)
+            torch.cuda.synchronize()
+            max_abs = max(max_abs, compare_march(
+                f"kernel_march: 32^3, {th}x{tw}-ray tiles, {pack.shape[0]} tiles, early_stop {early_stop}",
+                got, want))
+
+    bg, cells = scene_grid(dev, shell=False)
+    tiles = frame_tiles(0, dev)
+    pack, basis = tm.pack_rays(bg, tiles, opts)
+    kw = dict(max_steps=tm.default_chunks_for(bg, opts) * tm.SC, early_stop=True)
+    got = tm.tile_march_fwd(cells, bg.brick_links, bg.reso, pack, basis, **kw)
+    torch.cuda.synchronize()
+    if tm.tile_march_fwd.launches != 7:
+        raise AssertionError(f"kernel_march: {tm.tile_march_fwd.launches} launches counted for 7 kernel calls")
+    T = pack.shape[0]
+    want, (marched, shaded, n_touched) = plain_march(cells, bg, pack, basis, counts=True, **kw)
+    max_abs = max(max_abs, compare_march(
+        f"kernel_march: {GRID_RESO}^3 fog frame, {T} tiles of {pack.shape[1]} rays", got, want))
+
+    ms = time_ms(lambda: tm.tile_march_fwd(cells, bg.brick_links, bg.reso, pack, basis, **kw), iters=5)
+    t0 = time.perf_counter()
+    plain_march(cells, bg, pack, basis, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    b_ms, by, t_ops, t_bytes = march_bound(n_touched, bg.basis_dim, T * pack.shape[1], T, marched, shaded)
+    log(f"kernel_march: {GRID_RESO}^3 fog frame ({FRAME}x{FRAME}, {T} tiles): {ms:.4f} ms a frame "
+        f"({marched / ms / 1e6:.3f} G samples/s; {marched} samples marched, {shaded} shaded, by the plain version; "
+        f"{n_touched} of {bg.n_bricks} bricks touched), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"(operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms), {b_ms / ms:.3f} of bound")
+    del cells, bg
+    torch.cuda.empty_cache()
+    return {
+        "name": "tile_march_fwd", "route": "cuda",
+        "source": "nerf_projects_tpu_torch/csrc/tile_march_fwd.cu",
+        "replaces": "nerf_projects_tpu/ops/pallas/tile_march.py:431",
+        "launches": 0, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+    }
+
+
+def phase_render_plenoxels(dev, card: str) -> int:
+    """render_frame_pallas at bench.py's two frame configurations (fog,
+    opaque shell): frames back to back for WINDOW_S seconds after one
+    warm frame a pose. Returns the K3 launches of both windows."""
+    from nerf_projects_tpu_torch.ops.grid import GridRenderOptions
+    from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
+    from nerf_projects_tpu_torch.ops.kernels.frame_march import render_frame_pallas
+
+    opts = GridRenderOptions(step_size=0.5)
+    frames = [frame_tiles(i, dev) for i in range(4)]
+    launches = 0
+    for name, shell in (("fog", False), ("shell", True)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        bg, cells = scene_grid(dev, shell)
+        C = tm.default_chunks_for(bg, opts)
+        gb = cells.numel() * cells.element_size() / 1e9
+
+        def render(rays):
+            return render_frame_pallas(bg, rays, opts, kernel_arrays=cells, n_chunks=C, use_occupancy=False)
+
+        first = [render(f) for f in frames]
+        torch.cuda.synchronize()
+        for i, out in enumerate(first):
+            for key, shape in (("rgb", (frames[i].origins.shape[0], 512, 3)), ("acc", (frames[i].origins.shape[0], 512))):
+                if tuple(out[key].shape) != shape or not bool(torch.isfinite(out[key]).all()):
+                    raise AssertionError(f"render_plenoxels: {name} frame {i} {key} is not finite of shape {shape}")
+            if not (float(out["acc"].min()) >= -1e-6 and float(out["acc"].max()) <= 1 + 1e-5):
+                raise AssertionError(f"render_plenoxels: {name} frame {i}: acc outside [0, 1]")
+        # every frame against the plain version, which also counts its samples
+        per_pose = []
+        for i, f in enumerate(frames):
+            pack, basis = tm.pack_rays(bg, f, opts)
+            plain, (marched, _, _) = plain_march(cells, bg, pack, basis, counts=True, max_steps=C * tm.SC,
+                                                 early_stop=True)
+            ref = tm.march_outputs(plain, pack, opts, False)
+            err = max(float((first[i][k] - ref[k]).abs().max()) for k in ("rgb", "acc"))
+            log(f"render_plenoxels: {name}: frame {i} against the plain version: max |rgb, acc err| {err:.3e} "
+                f"(tolerance {MARCH_TOL}); {marched} samples marched")
+            if not err < MARCH_TOL:
+                raise AssertionError(f"render_plenoxels: {name}: frame {i} disagrees with the plain version")
+            per_pose.append(marched)
+
+        tm.tile_march_fwd.launches = 0
+        secs, marched = [], 0
+        t_window = time.perf_counter()
+        while time.perf_counter() - t_window < WINDOW_S:
+            t0 = time.perf_counter()
+            render(frames[len(secs) % len(frames)])
+            marched += per_pose[len(secs) % len(frames)]
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        window = time.perf_counter() - t_window
+        n_launch = tm.tile_march_fwd.launches
+        launches += n_launch
+        mean_acc = float(first[0]["acc"].mean())
+        log(f"render_plenoxels: {name} on {card}: {GRID_RESO}^3 basis {GRID_BASIS} step 0.5, {bg.n_bricks} active bricks, "
+            f"cells {gb:.3f} GB, peak allocated {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB; "
+            f"{len(secs)} frames of {FRAME}x{FRAME} in {window:.6f} s: {len(secs) / window:.4f} frames/s; ms a frame "
+            f"median {np.median(secs) * 1e3:.4f}, min {min(secs) * 1e3:.4f}, max {max(secs) * 1e3:.4f}; "
+            f"{n_launch} tile_march_fwd launches; {marched} samples marched (counted by the plain version) "
+            f"({marched / len(secs) / 1e6:.3f} M a frame); mean acc of frame 0 {mean_acc:.4f}")
+        if n_launch <= 0:
+            raise AssertionError(f"render_plenoxels: {name}: the main path launched no tile_march_fwd kernel")
+        del cells, bg, first
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -620,6 +903,9 @@ def main() -> int:
     launches = phase_train(dev, card)
     for entry in kernels[1:]:
         entry["launches"] = launches[entry["name"]]
+    march = phase_kernel_march(dev)
+    march["launches"] = phase_render_plenoxels(dev, card)
+    kernels.append(march)
     log(f"chip_smoke: wall {time.perf_counter() - t0:.1f} s, build {build_s:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

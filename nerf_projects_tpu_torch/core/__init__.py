@@ -2,6 +2,7 @@ from nerf_projects_tpu_torch.core.device import resolve_device
 from nerf_projects_tpu_torch.core.rays import (
     Rays,
     camera_rays,
+    camera_rays_opencv,
     pose_spherical,
     spherical_pose_path,
 )
@@ -9,6 +10,7 @@ from nerf_projects_tpu_torch.core.rays import (
 __all__ = [
     "Rays",
     "camera_rays",
+    "camera_rays_opencv",
     "pose_spherical",
     "resolve_device",
     "spherical_pose_path",

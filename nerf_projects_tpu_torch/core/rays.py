@@ -67,6 +67,32 @@ def camera_rays(
     return Rays(origins=origins, directions=directions, viewdirs=viewdirs)
 
 
+def camera_rays_opencv(
+    height: int,
+    width: int,
+    fx: float,
+    fy: float,
+    cx: float,
+    cy: float,
+    c2w,
+    *,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Rays:
+    """Per-pixel pinhole rays, OpenCV convention (+z forward, y down,
+    pixel centres at +0.5), unit directions, shaped [H, W, 3]: svox2's
+    ``Camera.gen_rays`` (svox2/svox2/svox2.py:157-183)."""
+    dev = resolve_device(device)
+    c2w = torch.as_tensor(np.asarray(c2w), dtype=torch.float32, device=dev)
+    x = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
+    y = torch.arange(height, dtype=torch.float32, device=dev) + 0.5
+    y, x = torch.meshgrid(y, x, indexing="ij")
+    dirs_cam = torch.stack([(x - cx) / fx, (y - cy) / fy, torch.ones_like(x)], dim=-1)
+    dirs_cam = dirs_cam / torch.linalg.norm(dirs_cam, dim=-1, keepdim=True)
+    directions = dirs_cam @ c2w[:3, :3].T
+    origins = c2w[:3, -1].expand(directions.shape)
+    return Rays(origins=origins, directions=directions, viewdirs=directions)
+
+
 # ---------------------------------------------------------------------------
 # Pose path helpers (host-side numpy)
 # ---------------------------------------------------------------------------

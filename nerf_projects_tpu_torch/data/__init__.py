@@ -1,3 +1,4 @@
+from nerf_projects_tpu_torch.data.base import SceneData, detect_dataset_type, load_scene
 from nerf_projects_tpu_torch.data.synthetic import (
     SphereScene,
     default_scene,
@@ -9,6 +10,9 @@ from nerf_projects_tpu_torch.data.synthetic import (
 )
 
 __all__ = [
+    "SceneData",
+    "detect_dataset_type",
+    "load_scene",
     "SphereScene",
     "default_scene",
     "make_dataset",

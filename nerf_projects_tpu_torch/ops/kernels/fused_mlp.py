@@ -29,6 +29,7 @@ the in-kernel encoder (``_encode_tile``) that the fused train level uses.
 from __future__ import annotations
 
 import contextlib
+import copy
 import ctypes
 import functools
 import math
@@ -380,9 +381,9 @@ def _check_arch(model: NeRFMLP) -> None:
         raise ValueError("the fused MLP covers depth 8 with viewdirs and a skip at 4")
 
 
-def _fill(layout, sources, device) -> torch.Tensor:
+def _fill(layout, sources) -> torch.Tensor:
     total = sum(rows * cols for _, rows, cols in layout)
-    buf = torch.zeros(total, dtype=torch.bfloat16, device=device)
+    buf = torch.zeros(total, dtype=torch.float64)
     at = 0
     for name, rows, cols in layout:
         piece = buf[at: at + rows * cols].view(rows, cols)
@@ -393,6 +394,7 @@ def _fill(layout, sources, device) -> torch.Tensor:
 
 
 def _build_kernel_weights(model: NeRFMLP, raw_layout: bool) -> torch.Tensor:
+    """The forward buffer in float64 from a model on the host."""
     t, sig, bn, v0, rgb = model.trunk, model.sigma_head, model.bottleneck, model.view_0, model.rgb_head
     dev = t[0].weight.device
     pp = _perm_index(10, dev) if raw_layout else slice(None)
@@ -410,43 +412,59 @@ def _build_kernel_weights(model: NeRFMLP, raw_layout: bool) -> torch.Tensor:
         bb=((bn.bias[None], 0),), bv=((v0.bias[None], 0),),
         bsig=((sig.bias[None], 0),), brgb=((rgb.bias[None], 0),),
     )
-    return _fill(KERNEL_LAYOUT, sources, t[0].weight.device)
+    return _fill(KERNEL_LAYOUT, sources)
 
 
 def _build_kernel_weights_bwd(model: NeRFMLP) -> torch.Tensor:
+    """The backward buffer in float64 from a model on the host."""
     t = model.trunk
     sources = {f"w{i}": ((t[i].weight.T, 0),) for i in (1, 2, 3, 4, 6, 7)}
     sources.update(
         w5=((t[5].weight[:, 63:].T, 0),), wb=((model.bottleneck.weight.T, 0),),
         wv=((model.view_0.weight[:, :256].T, 0),),
     )
-    return _fill(KERNEL_LAYOUT_BWD, sources, t[0].weight.device)
+    return _fill(KERNEL_LAYOUT_BWD, sources)
 
 
-def _cached(model: NeRFMLP, tag, make) -> torch.Tensor:
-    """``make()``, kept on the model under ``tag`` until one of its
-    parameters is replaced or changed in place."""
+_GATHER_INDEX: dict = {}
+
+
+def _gathered(model: NeRFMLP, bwd: bool, raw_layout: bool = False) -> torch.Tensor:
+    """A kernel buffer gathered from the model's parameters, flattened one
+    after another behind a leading 0 (the padding): three launches, no
+    wait for the card, nothing kept but the index. The index is found once
+    per layout, by building the buffer in float64 over a copy of the model
+    whose parameters hold their own positions."""
     _check_arch(model)
-    key = tuple((p.data_ptr(), p._version) for p in model.parameters())
-    cache = model.__dict__.setdefault("_kernel_buffers", {})
-    hit = cache.get(tag)
-    if hit is None or hit[0] != key:
-        hit = (key, make())
-        cache[tag] = hit
-    return hit[1]
+    params = [p.detach() for p in model.parameters()]
+    key = (bwd, raw_layout, params[0].device, tuple(p.shape for p in params))
+    index = _GATHER_INDEX.get(key)
+    if index is None:
+        probe = copy.deepcopy(model).to("cpu", torch.float64)
+        with torch.no_grad():
+            at = 1
+            for p in probe.parameters():
+                p.copy_(torch.arange(at, at + p.numel(), dtype=torch.float64).view(p.shape))
+                at += p.numel()
+        buf = _build_kernel_weights_bwd(probe) if bwd else _build_kernel_weights(probe, raw_layout)
+        index = _GATHER_INDEX[key] = buf.long().to(params[0].device)
+    flat = torch.cat([params[0].new_zeros(1)] + [p.reshape(-1) for p in params])
+    return flat.to(torch.bfloat16)[index]
 
 
 def kernel_weights(model: NeRFMLP, raw_layout: bool = False) -> torch.Tensor:
     """The kernels' flat bf16 forward weight buffer (KERNEL_LAYOUT), built
     from the 8x256 viewdirs ``NeRFMLP``'s parameters (input rows permuted
-    to the block encoding with ``raw_layout``) and kept on the model."""
-    return _cached(model, ("fwd", raw_layout), lambda: _build_kernel_weights(model, raw_layout))
+    to the block encoding with ``raw_layout``). Gathered afresh on every
+    call: no cache can miss a write through ``p.data``."""
+    return _gathered(model, bwd=False, raw_layout=raw_layout)
 
 
 def kernel_weights_bwd(model: NeRFMLP) -> torch.Tensor:
     """The backward kernels' flat bf16 buffer of transposed weights
-    (KERNEL_LAYOUT_BWD), kept on the model like ``kernel_weights``."""
-    return _cached(model, "bwd", lambda: _build_kernel_weights_bwd(model))
+    (KERNEL_LAYOUT_BWD), gathered afresh on every call like
+    ``kernel_weights``."""
+    return _gathered(model, bwd=True)
 
 
 def split_grads(flat: torch.Tensor) -> FusedMLPWeights:
@@ -573,7 +591,8 @@ class _FusedNeRFMLP(torch.autograd.Function):
         ctx.model = model
         ctx.save_for_backward(x, v)
         if x.device.type == "cuda":
-            return fused_mlp_fwd(kernel_weights(model), x, v)
+            ctx.wk = kernel_weights(model)  # the backward reuses the forward's buffer
+            return fused_mlp_fwd(ctx.wk, x, v)
         return fused_nerf_mlp_reference(pack_params(model), x, v)
 
     @staticmethod
@@ -582,7 +601,7 @@ class _FusedNeRFMLP(torch.autograd.Function):
         model = ctx.model
         g = g.float().contiguous()
         if x.device.type == "cuda":
-            grads = fused_mlp_bwd(kernel_weights(model), kernel_weights_bwd(model), x, v, g)
+            grads = fused_mlp_bwd(ctx.wk, kernel_weights_bwd(model), x, v, g)
         else:
             grads = fused_mlp_bwd_reference(pack_params(model), x, v, g)
         named = unpack_grads(grads, model)

@@ -17,7 +17,9 @@ The MLP runs through one of three routes:
 On the CPU each kernel is replaced by its plain PyTorch version.
 
 ``render_step`` is the deterministic serving path over one ray batch and
-``render_image`` chunks an image's rays through it. ``train_step`` is one
+``render_image`` chunks an image's rays through it; both evaluate the
+modules, as the reference does, unless ``use_kernel`` asks for the fused
+MLP. ``train_step`` is one
 Adam step; ``scan_steps`` runs many, drawing ray batches on the device
 from a pool, with no host round trip per step.
 """
@@ -283,18 +285,25 @@ class NeRFTrainer:
         return state, {"loss": torch.stack(losses), "psnr": torch.stack(psnrs)}
 
     @torch.no_grad()
-    def render_step(self, params: Params, rays: Rays):
-        """Deterministic (serving) render of a [R] ray batch."""
+    def render_step(self, params: Params, rays: Rays, use_kernel: bool = False):
+        """Deterministic (serving) render of a [R] ray batch. By default
+        the modules run in ``compute_dtype``, as the reference's
+        render_step does whatever the training route; ``use_kernel``
+        serves through the fused MLP (bf16 products) instead and needs
+        ``use_fused_mlp``."""
+        if use_kernel and not self.use_fused_mlp:
+            raise ValueError("use_kernel needs a trainer whose use_fused_mlp gate passed")
         coarse, fine = params
         return render_rays(
-            None, coarse, fine, self.apply_fn, rays, self.near, self.far, self.cfg,
-            randomized=False,
+            None, coarse, fine, fused_apply if use_kernel else _module_apply, rays, self.near,
+            self.far, self.cfg, randomized=False,
         )
 
     @torch.no_grad()
-    def render_image(self, params: Params, rays: Rays, chunk: int = 16384):
-        """Render rays of any batch shape in chunks of ``chunk`` rays; the
-        last chunk is padded by repeating its last ray and cut back."""
+    def render_image(self, params: Params, rays: Rays, chunk: int = 16384, use_kernel: bool = False):
+        """Render rays of any batch shape in chunks of ``chunk`` rays
+        through ``render_step`` (``use_kernel`` as there); the last chunk
+        is padded by repeating its last ray and cut back."""
         shape = rays.batch_shape
         flat = rays.map(lambda t: t.reshape(-1, 3))
         n = flat.origins.shape[0]
@@ -304,7 +313,7 @@ class NeRFTrainer:
             pad = chunk - sl.origins.shape[0]
             if pad:
                 sl = sl.map(lambda t: F.pad(t[None], (0, 0, 0, pad), mode="replicate")[0])
-            out = self.render_step(params, sl)
+            out = self.render_step(params, sl, use_kernel)
             if pad:
                 out = {k: v[: chunk - pad] for k, v in out.items()}
             outs.append(out)

@@ -208,7 +208,7 @@ def test_kernel_weights_layout(full_width):
 def test_kernel_weights_is_kept_until_a_parameter_changes():
     model = NeRFMLP(depth=8, width=256, use_viewdirs=True).reset_parameters(torch.Generator().manual_seed(0))
     wk = tfm.kernel_weights(model)
-    assert tfm.kernel_weights(model) is wk
+    assert torch.equal(tfm.kernel_weights(model), wk)
     with torch.no_grad():
         model.sigma_head.bias.fill_(0.5)
     wk2 = tfm.kernel_weights(model)
@@ -216,7 +216,32 @@ def test_kernel_weights_is_kept_until_a_parameter_changes():
     bsig = sum(r * c for n, r, c in tfm.KERNEL_LAYOUT[: [n for n, _, _ in tfm.KERNEL_LAYOUT].index("bsig")])
     assert wk2[bsig].item() == 0.5 and wk[bsig].item() == 0.0
     model.load_state_dict(NeRFMLP(depth=8, width=256, use_viewdirs=True).state_dict())
-    assert tfm.kernel_weights(model) is not wk2
+    assert not torch.equal(tfm.kernel_weights(model), wk2)
+
+
+def test_kernel_weights_rebuild_after_a_write_through_data():
+    """``p.data.copy_`` bumps no version counter and keeps the pointer;
+    the buffers must still follow it, forward and backward, after one
+    write and after another."""
+    gen = torch.Generator().manual_seed(3)
+    model = NeRFMLP(depth=8, width=256, use_viewdirs=True).reset_parameters(gen)
+    fresh = NeRFMLP(depth=8, width=256, use_viewdirs=True)
+
+    def follows_the_parameters(wk, wkt):
+        fresh.load_state_dict(model.state_dict())
+        torch.testing.assert_close(wk, tfm.kernel_weights(fresh), rtol=0, atol=0)
+        torch.testing.assert_close(wkt, tfm.kernel_weights_bwd(fresh), rtol=0, atol=0)
+
+    wk, wkt = tfm.kernel_weights(model), tfm.kernel_weights_bwd(model)
+    model.trunk[1].weight.data.copy_(torch.randn(model.trunk[1].weight.shape, generator=gen))
+    model.sigma_head.bias.data.fill_(0.25)
+    wk2, wkt2 = tfm.kernel_weights(model), tfm.kernel_weights_bwd(model)
+    assert not torch.equal(wk2, wk) and not torch.equal(wkt2, wkt)
+    follows_the_parameters(wk2, wkt2)
+    model.view_0.weight.data.mul_(0.5)
+    wk3, wkt3 = tfm.kernel_weights(model), tfm.kernel_weights_bwd(model)
+    assert not torch.equal(wk3, wk2) and not torch.equal(wkt3, wkt2)
+    follows_the_parameters(wk3, wkt3)
 
 
 # ---------------------------------------------------------------------------
@@ -358,8 +383,8 @@ def test_kernel_weights_raw_and_bwd_layouts(full_width):
         want = field[:, :cols] if name.startswith("b") else field.T[:rows]
         torch.testing.assert_close(piece, want, rtol=0, atol=0)
         at += rows * cols
-    assert tfm.kernel_weights(model, raw_layout=True) is wk
-    assert tfm.kernel_weights(model) is not wk
+    assert torch.equal(tfm.kernel_weights(model, raw_layout=True), wk)
+    assert not torch.equal(tfm.kernel_weights(model), wk)
 
     Wp = tfm.pack_params(model)
     wkt = tfm.kernel_weights_bwd(model)

@@ -153,13 +153,14 @@ def test_trainer_render_image_chunks_with_edge_padding():
 
 
 def test_trainer_fused_render_on_cpu_is_the_plain_version():
-    """With use_fused_mlp on host tensors, the render goes through the
-    kernel's plain version: equal to render_rays over fused_apply_reference."""
+    """Serving through the fused MLP (use_kernel=True) on host tensors
+    goes through the kernel's plain version: equal to render_rays over
+    fused_apply_reference."""
     cfg = _cfg()
     tr = NeRFTrainer(cfg, use_fused_mlp=True, device="cpu")
     params = tr.init_params(7)
     rays = _image_rays(3, 4).map(lambda t: t.reshape(-1, 3))
-    got = tr.render_image(params, rays, chunk=8)
+    got = tr.render_image(params, rays, chunk=8, use_kernel=True)
     want = render_rays(
         None, tfm.pack_params(params[0]), tfm.pack_params(params[1]),
         tfm.fused_apply_reference, rays, 2.0, 6.0, cfg, randomized=False,
@@ -167,6 +168,29 @@ def test_trainer_fused_render_on_cpu_is_the_plain_version():
     for k in ("rgb", "acc", "depth", "rgb0"):
         torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-6)
     assert bool(torch.isfinite(got["rgb"]).all())
+
+
+def test_trainer_render_step_follows_the_reference_with_fused_mlp():
+    """A use_fused_mlp=True trainer serves, by default, through the
+    float32 modules as the reference's render_step does (it never uses
+    the fused kernel for eval): held against JAX's render_step on the
+    same weights at float32 tolerances (1e-4 on rgb and acc, 1e-4 of far
+    on depth: summation order only). Asking for the kernel without the
+    gate raises."""
+    from nerf_projects_tpu.train.nerf_trainer import NeRFTrainer as JaxTrainer
+
+    cfg = dict(num_coarse_samples=8, num_fine_samples=16, white_bkgd=True, perturb=False)
+    _, trees, ports = _flax_and_port(8, 256)
+    o, d, vd = _blender_rays(12, seed=2)
+    jtr = JaxTrainer(JaxConfig(**cfg), depth=8, width=256, use_fused_mlp=True)
+    want = jtr.render_step((trees[0], trees[1]), JaxRays(*(jnp.asarray(a) for a in (o, d, vd))))
+    tr = NeRFTrainer(NeRFRenderConfig(**cfg), use_fused_mlp=True, device="cpu")
+    assert tr.use_fused_mlp
+    got = tr.render_step(tuple(ports), Rays(*(torch.from_numpy(a) for a in (o, d, vd))))
+    _compare(got, want, 1e-4, depth_tol=1e-4 * 6.0)
+    with pytest.raises(ValueError, match="use_fused_mlp"):
+        NeRFTrainer(_cfg(), depth=2, width=32, device="cpu").render_step(
+            tr.init_params(0), Rays(*(torch.from_numpy(a) for a in (o, d, vd))), use_kernel=True)
 
 
 def test_init_params_is_seeded_and_separate():
