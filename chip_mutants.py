@@ -3,8 +3,8 @@
 
 Copies the package and chip_smoke.py to a temporary directory, breaks
 one line of a CUDA source there, and runs the chip_smoke.py kernel
-phases that run the broken code (K1b, K2 or K3) on the copy; each must
-fail. Run from the repository root:
+phases that run the broken code (K1b, K2, K3 or K4) on the copy; each
+must fail. Run from the repository root:
 
     python3 chip_mutants.py
 
@@ -36,14 +36,26 @@ MUTANTS = {
     "inclusive instead of exclusive transmittance in the tile march": (
         "nerf_projects_tpu_torch/csrc/tile_march_fwd.cu",
         "const float T = expf(-cum);",
-        "const float T = expf(-(cum + sigma * step_world));",
+        "const float T = expf(-(cum + sigma * r.step_world));",
         ("tile_march_fwd",),
     ),
     "y and z taps swapped in the tile march's cell offset": (
-        "nerf_projects_tpu_torch/csrc/tile_march_fwd.cu",
+        "nerf_projects_tpu_torch/csrc/tile_march.cuh",
         "((cx & 7) * 64 + (cy & 7) * 8 + (cz & 7))",
         "((cx & 7) * 64 + (cz & 7) * 8 + (cy & 7))",
-        ("tile_march_fwd",),
+        ("tile_march_fwd", "tile_march_bwd"),
+    ),
+    "the suffix term dropped from dL/dtau in the march backward": (
+        "nerf_projects_tpu_torch/csrc/tile_march_bwd.cu",
+        "const float gtau = T * e * cdotg - (s_total - P);",
+        "const float gtau = T * e * cdotg;",
+        ("tile_march_bwd",),
+    ),
+    "the march backward stops at the first inactive sample with sparsity on": (
+        "nerf_projects_tpu_torch/csrc/tile_march_bwd.cu",
+        "if (!active && p.sparsity_scale == 0.f) break;",
+        "if (!active) break;",
+        ("tile_march_bwd",),
     ),
 }
 
@@ -56,7 +68,8 @@ dev = torch.device("cuda", 0)
 c.phase_build()
 phases = {"fused_mlp_bwd": lambda: c.phase_kernel_bwd(dev, big_rows=65536),
           "fused_train_level": lambda: c.phase_kernel_train(dev),
-          "tile_march_fwd": lambda: c.phase_kernel_march(dev)}
+          "tile_march_fwd": lambda: c.phase_kernel_march(dev),
+          "tile_march_bwd": lambda: c.phase_kernel_march_bwd(dev)}
 for name in sys.argv[1:]:
     fn = phases[name]
     try:

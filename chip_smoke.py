@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's vanilla-NeRF serving and training paths and its
-Plenoxels serving path on one CUDA card.
+Plenoxels serving and training paths on one CUDA card.
 
 Run from the repository root, with no arguments:
 
@@ -8,7 +8,7 @@ Run from the repository root, with no arguments:
 
 Phases, each of which raises (exit code 1) on failure:
 
-  build   nvcc compiles the four kernel libraries for sm_90a, one
+  build   nvcc compiles the five kernel libraries for sm_90a, one
           process per source, all at once.
   kernel  each kernel against its plain PyTorch version on the card,
           then timed with CUDA events beside its bound and its plain
@@ -62,6 +62,31 @@ Phases, each of which raises (exit code 1) on failure:
           bricks, GB on the card, K3 launches (zeroed just before, read
           just after) and samples marched; a few tiles of the first frame
           of each scene are checked against the plain version.
+  kernel_march_bwd
+          the tile march's backward (K4) against its plain PyTorch
+          version on the card: a random 32^3 grid whose rays stop
+          (density U[20, 60]) with tiles of 128, 256 and 512 rays, the
+          bias and sigmoid decodes, the beta and sparsity losses off and
+          on; then one training batch of the fog scene at 256^3 (40
+          tiles of 8x16 rays); each gradient tensor within BWD_FRO_TOL
+          (relative Frobenius) and BWD_MAX_TOL of its largest entry.
+          Then that batch's backward timed with CUDA events beside its
+          bound, the plain version, the same kernel without its atomics
+          (tile_march_bwd_probe) and the forward (K3).
+  train_plenoxels
+          PlenoxelsTrainer.train_step_tiles_pallas (K3 + K4, sampled TV,
+          RMSprop) at bench.py's two training configurations: fog 256^3
+          (plenoxels_train: 40 tiles of 8x16 rays a step from
+          bench.py's _tile_rays, target 0.4) and the shell at 512^3
+          (plenoxels_train_sparse512's scene: bricks at radius
+          0.85-1.02, 128 tiles a step), basis_dim 9, step 0.5, float32
+          masters built on the card in chunks (density U[0, 2], SH
+          N(0, 0.2^2)). First one step's gradients and updated masters
+          against the same step through the plain versions; then 3 warm
+          steps and steps back to back for WINDOW_S seconds, a CUDA event
+          after each: train rays/s, step ms median, min and max, the K3
+          and K4 launches (zeroed just before, read just after), the
+          first and last MSE (the loss must fall and stay finite).
 
 Output: progress lines, a `{"kernels": [...]}` JSON line, the card's
 name and power limit as nvidia-smi gives them, and last
@@ -151,7 +176,7 @@ def encodings(n: int, gen: torch.Generator, device) -> tuple:
     return x.to(device), v.to(device)
 
 
-LIBRARIES = ("fused_mlp_fwd", "fused_mlp_bwd", "fused_train", "tile_march_fwd")
+LIBRARIES = ("fused_mlp_fwd", "fused_mlp_bwd", "fused_train", "tile_march_fwd", "tile_march_bwd")
 
 
 def phase_build():
@@ -489,19 +514,20 @@ def train_window(trainer, state, ds):
 
 
 OUR_KERNELS = ("mlp_fwd_kernel", "mlp_dx_kernel", "mlp_dw_kernel", "mlp_grad_reduce_kernel",
-               "composite_kernel")
+               "composite_kernel", "march_kernel", "march_bwd_kernel")
 
 
-def profile_steps(trainer, state, ds, route: str, n: int = PROFILE_STEPS):
-    """torch.profiler over n steps: the card's busy time split into the
-    port's hand-written kernels and everything else (the glue), with the
-    largest glue kernels, and the idle share of the host-clock window."""
+def profile_steps(run_steps, route: str, n: int = PROFILE_STEPS):
+    """torch.profiler over ``run_steps(n)`` (n training steps; its result
+    is returned): the card's busy time split into the port's hand-written
+    kernels and everything else (the glue), with the largest glue
+    kernels, and the idle share of the host-clock window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, _ = trainer.scan_steps(state, ds["rays"], ds["pixels"], n, batch_size=TRAIN_RAYS)
+        result = run_steps(n)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     ours, glue = 0.0, {}
@@ -518,7 +544,7 @@ def profile_steps(trainer, state, ds, route: str, n: int = PROFILE_STEPS):
     busy = ours + sum(glue.values())
     if busy <= 0:
         log(f"profile: {route}: the profiler saw no device time; kernel and glue shares not measured")
-        return state
+        return result
     top = sorted(glue.items(), key=lambda kv: -kv[1])[:6]
     log(f"profile: {route}, {n} steps: host window {wall_us / n / 1e3:.4f} ms a step; device busy "
         f"{busy / n / 1e3:.4f} ms a step (idle share {1 - busy / wall_us:.3f}): hand-written kernels "
@@ -526,7 +552,7 @@ def profile_steps(trainer, state, ds, route: str, n: int = PROFILE_STEPS):
         + "; ".join(f"{k[:60]} {v / n / 1e3:.4f} ms" for k, v in top)
         + "; host calls that can wait on the card, per step: "
         + ", ".join(f"{k} {c:.1f} calls {ms:.4f} ms" for k, (c, ms) in sorted(waits.items())))
-    return state
+    return result
 
 
 def phase_train(dev, card: str) -> dict:
@@ -610,7 +636,8 @@ def phase_train(dev, card: str) -> dict:
         if not np.mean(losses[-k:]) < np.mean(losses[:k]):
             raise AssertionError(f"train: {route}: the loss did not fall")
         out[mega] = counts
-        profile_steps(trainer, state, ds, route)
+        profile_steps(lambda n: trainer.scan_steps(state, ds["rays"], ds["pixels"], n, batch_size=TRAIN_RAYS)[0],
+                      route)
     return {"fused_train_level": out[True]["fused_train_level"],
             "fused_mlp_bwd": out[False]["fused_mlp_bwd"]}
 
@@ -878,6 +905,327 @@ def phase_render_plenoxels(dev, card: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Plenoxels training: the march's backward (K4) and the training step
+# ---------------------------------------------------------------------------
+
+TRAIN_SCENES = {"fog": (256, 40), "shell": (512, 128)}  # reso, tiles of 8x16 rays a step
+TRAIN_TARGET = 0.4
+BWD_FRO_TOL = 1e-4          # |err|_F / |plain|_F of each gradient tensor: float32 atomics against index_add_
+BWD_MAX_TOL = 1e-3          # largest |err| / largest |plain| of each gradient tensor
+BWD_LOSSES = {"mse": (0.0, 0.0), "beta+sparsity": (1e-3, 1e-3)}
+MASTER_TOL = 1e-5           # of scale: updated masters where |g| > 1e-3 max |g| (lr sign(g) on a first step)
+RMS_TOL = 2 * BWD_MAX_TOL   # of scale: rms = g^2 on a first step
+
+
+def train_tile_rays(seed: int, n_tiles: int, dev, radius=3.0, focal_px=800.0, tile_shape=(8, 16)):
+    """bench.py's _tile_rays: n_tiles tiles of 8x16 rays from cameras on
+    a sphere of radius 3 looking at the origin, focal 800 px, each at a
+    random offset in [-300, 300) px (numpy's generator, not JAX's)."""
+    from nerf_projects_tpu_torch.core.rays import Rays
+
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((n_tiles, 3))
+    cam = radius * u / np.linalg.norm(u, axis=-1, keepdims=True)
+    fwd = -cam / radius
+    right = np.cross(fwd, np.array([0.0, 1.0, 0.0]))
+    right /= np.maximum(np.linalg.norm(right, axis=-1, keepdims=True), 1e-6)
+    up2 = np.cross(right, fwd)
+    ii, jj = np.meshgrid(np.arange(float(tile_shape[0])), np.arange(float(tile_shape[1])), indexing="ij")
+    base = rng.uniform(-300, 300, (n_tiles, 2))
+    px = base[:, 0:1] + jj.reshape(-1)[None]
+    py = base[:, 1:2] + ii.reshape(-1)[None]
+    d = fwd[:, None] + (px / focal_px)[..., None] * right[:, None] + (py / focal_px)[..., None] * up2[:, None]
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    o = np.broadcast_to(cam[:, None], d.shape).astype(np.float32)
+    o, d = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (o, d))
+    return Rays(o, d, d)
+
+
+def train_grid(dev, name: str, chunk: int = 4096):
+    """bench.py's _plenoxels_setup(reso) (fog) or _shell_setup(512)
+    (shell): basis 9, float32 masters made on the card chunk by chunk
+    (density U[0, 2], SH N(0, 0.2^2) on active cells); the shell keeps
+    the bricks at radius 0.85-1.02 and never builds the whole sphere."""
+    from nerf_projects_tpu_torch.ops.brick_grid import create_brick_grid
+
+    reso, _ = TRAIN_SCENES[name]
+    bg = create_brick_grid(reso, basis_dim=GRID_BASIS, use_sphere_bound=True, alloc_data=False, device=dev)
+    if name == "shell":
+        bg = shell_select(bg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    nb, B = bg.n_bricks, bg.basis_dim
+    dens = torch.empty((nb, 512), device=dev)
+    sh = torch.empty((nb, 512, 3 * B), device=dev)
+    for i in range(0, nb, chunk):
+        m = bg.cell_mask[i:i + chunk].float()
+        dens[i:i + chunk] = torch.rand(m.shape, generator=gen, device=dev) * 2.0 * m
+        sh[i:i + chunk] = torch.randn(m.shape + (3 * B,), generator=gen, device=dev) * 0.2 * m[..., None]
+    return dataclasses.replace(bg, density_bricks=dens, sh_bricks=sh)
+
+
+class plain_kernels:
+    """Within the block, the march and its backward run their plain
+    versions on CUDA tensors too."""
+
+    def __enter__(self):
+        from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
+
+        self.saved = tm.march, tm.march_backward
+        tm.march, tm.march_backward = tm.march_reference, tm.march_backward_reference
+        return self
+
+    def __exit__(self, *exc):
+        from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
+
+        tm.march, tm.march_backward = self.saved
+
+
+def check_bwd(tag, got, want) -> float:
+    """Each of K4's gradient tensors against the plain version's:
+    relative Frobenius error below BWD_FRO_TOL and the largest entry's
+    error below BWD_MAX_TOL of the largest |plain|. Returns the largest
+    absolute error."""
+    max_abs, msgs, ok = 0.0, [], True
+    for name, g, w in zip(("grad_density", "grad_sh"), got, want):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{tag}: non-finite {name}")
+        d = (g - w).double()
+        fro = float(d.norm() / (w.double().norm() + 1e-30))
+        worst = float(d.abs().max() / (w.abs().max().double() + 1e-30))
+        max_abs = max(max_abs, float(d.abs().max()))
+        msgs.append(f"{name} relative Frobenius {fro:.3e}, worst entry {worst:.3e} of scale")
+        ok = ok and fro < BWD_FRO_TOL and worst < BWD_MAX_TOL and float(w.abs().max()) > 0
+    log(f"{tag}: " + "; ".join(msgs) + f" (tolerances {BWD_FRO_TOL}, {BWD_MAX_TOL})")
+    if not ok:
+        raise AssertionError(f"{tag}: the march backward disagrees with its plain version")
+    return max_abs
+
+
+def bwd_inputs(cells, bg, pack, basis, gt, opts, beta, max_steps):
+    """The backward's g and S_total from the forward kernel's outputs."""
+    from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
+
+    out = tm.tile_march_fwd(cells, bg.brick_links, bg.reso, pack, basis, max_steps=max_steps,
+                            color_mode=opts.color_mode)
+    _, g, s_total = tm.loss_seeds(out, gt, opts, beta)
+    return g, s_total
+
+
+def march_bwd_bound(n_touched: int, nb: int, basis_dim: int, n_rays: int, n_tiles: int, counts: dict,
+                    sparsity: float):
+    """(bound ms, "bytes" | "operations", ops ms, bytes ms) of one
+    backward: the touched bricks' live channels (1 + 3B bf16 a cell) read
+    once, the float32 gradient arrays ((1 + 3B) a cell) written once, and
+    each ray's pack, g and S_total and each tile's basis read once, over
+    HBM; the re-march's and the backward's float operations (itemised in
+    ops/kernels/tile_march.py) over the float32 rate."""
+    from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
+
+    B = basis_dim
+    nbytes = (n_touched * 512 * (1 + 3 * B) * 2 + nb * 512 * (1 + 3 * B) * 4
+              + n_rays * (tm.PACK + 3 + 1) * 4 + n_tiles * B * 4)
+    flops = (counts["marched"] * tm.FLOPS_PER_SAMPLE
+             + counts["shaded"] * (tm.flops_per_shaded(B) + tm.bwd_flops_per_shaded(B)))
+    if sparsity:
+        flops += (counts["dense"] * tm.BWD_FLOPS_SPARSITY
+                  + (counts["dense"] - counts["shaded"]) * tm.BWD_FLOPS_SPARSITY_UNSHADED)
+    t_ops, t_bytes = flops / H100_FP32_FLOPS * 1e3, nbytes / H100_HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), t_ops, t_bytes
+
+
+def phase_kernel_march_bwd(dev) -> dict:
+    """K4 against its plain version: a random 32^3 grid whose rays stop,
+    tiles of 128, 256 and 512 rays, both decodes, the losses off and on;
+    then one training batch of the 256^3 fog scene, whose plain run
+    also counts the work of the bound; then that batch's backward timed
+    beside the plain version, the kernel without atomics and K3."""
+    from nerf_projects_tpu_torch.core.rays import camera_rays_opencv
+    from nerf_projects_tpu_torch.ops.brick_grid import create_brick_grid
+    from nerf_projects_tpu_torch.ops.grid import GridRenderOptions
+    from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
+    from nerf_projects_tpu_torch.ops.tile_render import tiles_from_image_rays
+
+    max_abs = 0.0
+    bg = create_brick_grid(32, basis_dim=GRID_BASIS, use_sphere_bound=True, alloc_data=False, device=dev)
+    cells = random_cells(bg, torch.Generator(device=dev).manual_seed(SEED + 8), opaque_sigma=40.0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    tm.tile_march_bwd.launches = 0
+    n_calls = 0
+    for th, tw in ((8, 16), (16, 16), (16, 32)):
+        H, W = 4 * th, 4 * tw
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, 3] = [0.3, -0.2, -2.6]
+        rays = camera_rays_opencv(H, W, 1.2 * W, 1.2 * W, W / 2.0, H / 2.0, pose, device=dev)
+        tiles = tiles_from_image_rays(rays.map(lambda x: x.reshape(-1, 3)), H, W, th, tw)
+        gt = torch.rand(tiles.origins.shape, generator=gen, device=dev)
+        for mode in ("bias", "sigmoid"):
+            opts = GridRenderOptions(step_size=0.5, color_mode=mode)
+            cells_, pack, basis, max_steps = tm.march_inputs(bg, tiles, opts, kernel_arrays=cells)
+            for losses, (beta, spars) in BWD_LOSSES.items():
+                g, s_total = bwd_inputs(cells, bg, pack, basis, gt, opts, beta, max_steps)
+                kw = dict(max_steps=max_steps, color_mode=mode, sparsity_scale=spars)
+                got = tm.tile_march_bwd(cells, bg.brick_links, bg.reso, pack, basis, g, s_total, **kw)
+                want = tm.march_backward_reference(cells, bg.brick_links, bg.reso, pack, basis, g, s_total, **kw)
+                torch.cuda.synchronize()
+                n_calls += 1
+                max_abs = max(max_abs, check_bwd(
+                    f"kernel_march_bwd: 32^3, {th}x{tw}-ray tiles, {pack.shape[0]} tiles, {mode}, {losses}", got, want))
+
+    # one training batch of the fog scene: bench.py's plenoxels_train
+    name = "fog"
+    reso, n_tiles = TRAIN_SCENES[name]
+    bg = train_grid(dev, name)
+    opts = GridRenderOptions(step_size=0.5)
+    rays = train_tile_rays(SEED + 2, n_tiles, dev)
+    gt = torch.full(rays.origins.shape, TRAIN_TARGET, device=dev)
+    cells, pack, basis, max_steps = tm.march_inputs(bg, rays, opts)
+    g, s_total = bwd_inputs(cells, bg, pack, basis, gt, opts, 0.0, max_steps)
+    kw = dict(max_steps=max_steps, color_mode=opts.color_mode)
+    got = tm.tile_march_bwd(cells, bg.brick_links, bg.reso, pack, basis, g, s_total, **kw)
+    want = tm.march_backward_reference(cells, bg.brick_links, bg.reso, pack, basis, g, s_total, **kw)
+    torch.cuda.synchronize()
+    n_calls += 1
+    if tm.tile_march_bwd.launches != n_calls:
+        raise AssertionError(f"kernel_march_bwd: {tm.tile_march_bwd.launches} launches counted for {n_calls} calls")
+    T, r = pack.shape[:2]
+    max_abs = max(max_abs, check_bwd(f"kernel_march_bwd: {reso}^3 fog training batch, {T} tiles of {r} rays",
+                                     got, want))
+    # the backward marches until each ray goes inactive (no sparsity loss)
+    _, counts = tm.march_reference(cells, bg.brick_links, bg.reso, pack, basis, counts=True, early_stop=True,
+                                   max_steps=max_steps)
+    counts = {k: int(v.sum()) for k, v in counts.items()}
+
+    ms = time_ms(lambda: tm.tile_march_bwd(cells, bg.brick_links, bg.reso, pack, basis, g, s_total, **kw),
+                 iters=10)
+    probe_ms = time_ms(lambda: tm.tile_march_bwd_probe(cells, bg.brick_links, bg.reso, pack, basis, g, s_total,
+                                                       sigma_thresh=opts.sigma_thresh,
+                                                       stop_thresh=opts.stop_thresh, sparsity_scale=0.0, **kw),
+                       iters=10)
+    zero_ms = time_ms(lambda: (torch.zeros_like(bg.density_bricks), torch.zeros_like(bg.sh_bricks)), iters=10)
+    fwd_ms = time_ms(lambda: tm.tile_march_fwd(cells, bg.brick_links, bg.reso, pack, basis, **kw), iters=10)
+    plain_ms = time_ms(lambda: tm.march_backward_reference(cells, bg.brick_links, bg.reso, pack, basis, g, s_total,
+                                                           **kw), iters=2, warmup=1)
+    b_ms, by, t_ops, t_bytes = march_bwd_bound(counts["touched"], bg.n_bricks, bg.basis_dim, T * r, T, counts, 0.0)
+    issue_bytes_ms = (counts["touched"] * 512 * (1 + 3 * bg.basis_dim) * (2 + 8) + T * r * 64) / H100_HBM_BYTES_S * 1e3
+    atomics = counts["shaded"] * 8 * (1 + 3 * bg.basis_dim)
+    log(f"kernel_march_bwd: {reso}^3 fog training batch ({T * r} rays, {bg.n_bricks} bricks): K4 {ms:.4f} ms "
+        f"(the wrapper: zeroed gradient arrays {zero_ms:.4f} ms, then the kernel); without its atomics "
+        f"{probe_ms:.4f} ms; K3 on the batch {fwd_ms:.4f} ms; {counts['marched']} samples marched, "
+        f"{counts['shaded']} shaded ({atomics} atomic adds), {counts['touched']} bricks touched, by the plain "
+        f"version; plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms (operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms; "
+        f"touched gradients read and written instead of the arrays written: {issue_bytes_ms:.4f} ms), "
+        f"{b_ms / ms:.3f} of bound")
+    del cells, bg, got, want
+    torch.cuda.empty_cache()
+    return {
+        "name": "tile_march_bwd", "route": "cuda",
+        "source": "nerf_projects_tpu_torch/csrc/tile_march_bwd.cu",
+        "replaces": "nerf_projects_tpu/ops/pallas/tile_march.py:1341",
+        "launches": 0, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+    }
+
+
+def phase_train_plenoxels(dev, card: str) -> dict:
+    """train_step_tiles_pallas at the fog 256^3 and shell 512^3 training
+    configurations: one step against the plain versions, then a timed
+    window. Returns the K3 and K4 launches of both windows."""
+    from nerf_projects_tpu_torch.ops.grid import GridRenderOptions
+    from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
+    from nerf_projects_tpu_torch.train import PlenoxelsTrainer
+
+    launches = {"tile_march_fwd": 0, "tile_march_bwd": 0}
+    for name, (reso, n_tiles) in TRAIN_SCENES.items():
+        bg = train_grid(dev, name)
+        torch.cuda.reset_peak_memory_stats(dev)  # the peak from here counts the masters
+        trainer = PlenoxelsTrainer(GridRenderOptions(step_size=0.5), n_iters=128_000, lambda_tv=1e-5,
+                                   lambda_tv_sh=1e-3, device=dev)
+        rays = train_tile_rays(SEED + 2, n_tiles, dev)
+        target = torch.full(rays.origins.shape, TRAIN_TARGET, device=dev)
+        n_rays = target.shape[0] * target.shape[1]
+        tag = f"train_plenoxels: {name} {reso}^3"
+
+        def gen():
+            return torch.Generator(device=dev).manual_seed(SEED + 10)
+
+        # one step: its gradients and updated state against the plain versions
+        gd, gsh, stats = trainer.tiles_pallas_grads(bg, rays, target, gen())
+        with plain_kernels():
+            pd, psh, pstats = trainer.tiles_pallas_grads(bg, rays, target, gen())
+        torch.cuda.synchronize()
+        check_bwd(f"{tag}: one step's gradients (after TV and the cell mask)", (gd, gsh), (pd, psh))
+        keep = [p.abs() > 1e-3 * p.abs().max() for p in (pd, psh)]
+        del gd, gsh, pd, psh
+        rms = trainer.init_rms_bricks(bg)
+        new_k, rms_k, _ = trainer.train_step_tiles_pallas(bg, rms, rays, target, 0, gen())
+        with plain_kernels():
+            new_p, rms_p, _ = trainer.train_step_tiles_pallas(bg, rms, rays, target, 0, gen())
+        errs = []
+        for got, want, m in ((new_k.density_bricks, new_p.density_bricks, keep[0]),
+                             (new_k.sh_bricks, new_p.sh_bricks, keep[1]),
+                             (rms_k.rms_density, rms_p.rms_density, keep[0]), (rms_k.rms_sh, rms_p.rms_sh, keep[1])):
+            errs.append(float((got - want)[m].abs().max() / want[m].abs().max()))
+        mse_k, mse_p = float(stats["mse"]), float(pstats["mse"])
+        log(f"{tag}: one step against the plain versions: mse {mse_k:.6f} (plain {mse_p:.6f}); where "
+            f"|g| > 1e-3 max |g| ({int(keep[0].sum())} + {int(keep[1].sum())} entries) the updated density and SH "
+            f"differ by {errs[0]:.3e} and {errs[1]:.3e} of scale (tolerance {MASTER_TOL}), the rms by {errs[2]:.3e} "
+            f"and {errs[3]:.3e} (tolerance {RMS_TOL})")
+        if not (abs(mse_k - mse_p) < 1e-5 * mse_p and max(errs[:2]) < MASTER_TOL and max(errs[2:]) < RMS_TOL):
+            raise AssertionError(f"{tag}: the step disagrees with the plain versions")
+        del new_k, rms_k, new_p, rms_p, keep
+        torch.cuda.empty_cache()
+
+        tm.tile_march_fwd.launches = tm.tile_march_bwd.launches = 0
+        g_tv = torch.Generator(device=dev).manual_seed(SEED + 11)
+        mses = []
+        step = 0
+        for _ in range(WARM_STEPS):
+            bg, rms, st = trainer.train_step_tiles_pallas(bg, rms, rays, target, step, g_tv)
+            mses.append(st["mse"])
+            step += 1
+        torch.cuda.synchronize()
+        events = [torch.cuda.Event(enable_timing=True)]
+        t0 = time.perf_counter()
+        events[0].record()
+        while time.perf_counter() - t0 < WINDOW_S:
+            bg, rms, st = trainer.train_step_tiles_pallas(bg, rms, rays, target, step, g_tv)
+            mses.append(st["mse"])
+            step += 1
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+        counts = {"tile_march_fwd": tm.tile_march_fwd.launches, "tile_march_bwd": tm.tile_march_bwd.launches}
+        step_ms = [a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])]
+        mses = torch.stack(mses).tolist()
+        n = len(step_ms)
+        log(f"{tag} on {card}: {bg.n_bricks} bricks, peak allocated {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB; "
+            f"{n} timed steps of {n_rays} rays in {window:.6f} s: {n * n_rays / window:.1f} rays/s; step ms median "
+            f"{float(np.median(step_ms)):.4f}, min {min(step_ms):.4f}, max {max(step_ms):.4f}; mse {mses[0]:.6f} -> "
+            f"{mses[-1]:.6f} over {len(mses)} steps; launches {counts} (warm steps included)")
+        if any(v <= 0 for v in counts.values()):
+            raise AssertionError(f"{tag}: the training step launched no {counts} kernel")
+        if not all(np.isfinite(mses)):
+            raise AssertionError(f"{tag}: an MSE is not finite")
+        k = min(10, len(mses) // 4)
+        if not np.mean(mses[-k:]) < np.mean(mses[:k]):
+            raise AssertionError(f"{tag}: the MSE did not fall")
+        for key in launches:
+            launches[key] += counts[key]
+
+        def run_steps(n, state=(bg, rms)):
+            b, r = state
+            for i in range(n):
+                b, r, _ = trainer.train_step_tiles_pallas(b, r, rays, target, step + i, g_tv)
+            return b, r
+
+        profile_steps(run_steps, f"Plenoxels train, {name} {reso}^3")
+        del bg, rms, trainer
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -905,7 +1253,11 @@ def main() -> int:
         entry["launches"] = launches[entry["name"]]
     march = phase_kernel_march(dev)
     march["launches"] = phase_render_plenoxels(dev, card)
-    kernels.append(march)
+    march_bwd = phase_kernel_march_bwd(dev)
+    train_launches = phase_train_plenoxels(dev, card)
+    march["launches"] += train_launches["tile_march_fwd"]
+    march_bwd["launches"] = train_launches["tile_march_bwd"]
+    kernels += [march, march_bwd]
     log(f"chip_smoke: wall {time.perf_counter() - t0:.1f} s, build {build_s:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -48,122 +48,59 @@
 // lines are read only for a sample with sigma > 0 whose ray is still
 // active, decoded per corner with the tile basis and weighted. Empty
 // space still costs its 8 link reads per sample; skipping it by bricks
-// is left for later work.
+// is left for later work. The stepping, the corners and the SH read live
+// in tile_march.cuh, shared with the backward (K4, tile_march_bwd.cu).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tile_march.cuh"
 
 namespace {
 
-constexpr int PACK = 12;   // per-ray floats, see ops/kernels/tile_march.py
-constexpr int CELLS = 512; // cells per 8^3 brick
+using namespace tile_march;
 
 struct Params {
-  const __nv_bfloat16* cells;  // [nb, 512, CP]
-  const int* links;            // [BX, BY, BZ]
-  const float* pack;           // [n_rays, PACK]
-  const float* basis;          // [n_rays / r, B]
-  float* out;                  // [n_rays / r, 8, r]
+  Grid g;
+  const float* pack;   // [n_rays, PACK]
+  const float* basis;  // [n_rays / r, B]
+  float* out;          // [n_rays / r, 8, r]
   long long n_rays;
-  int r, X, Y, Z, BY, BZ, max_steps, sigmoid, early_stop;
+  int r, max_steps, sigmoid, early_stop;
   float sigma_thresh, stop_thresh;
 };
 
-__device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
-
 template <int B>
 __global__ void __launch_bounds__(128) march_kernel(const Params p) {
-  constexpr int CP = ((1 + 3 * B + 7) / 8) * 8;
-  constexpr int NV = CP / 8;  // 16-byte vectors per cell
+  constexpr int CP = Layout<B>::CP;
   const long long ray = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (ray >= p.n_rays) return;
   const long long tile = ray / p.r;
   const int lane = static_cast<int>(ray - tile * p.r);
 
-  const float* pk = p.pack + ray * PACK;
-  const float ox = pk[0], oy = pk[1], oz = pk[2];
-  const float dx = pk[3], dy = pk[4], dz = pk[5];
-  const float dt = pk[6], t0 = pk[7], t1 = pk[8], T0 = pk[9], step_world = pk[10];
+  const Ray r = load_ray(p.pack, ray);
   float basis[B];
 #pragma unroll
   for (int b = 0; b < B; ++b) basis[b] = p.basis[tile * B + b];
 
   float rgb0 = 0.f, rgb1 = 0.f, rgb2 = 0.f, acc = 0.f, depth = 0.f, cum = 0.f, spars = 0.f;
-  if (t1 > t0) {
-    // first candidate step, a little before the entry; the predicate
-    // below decides exactly as the plain version does
-    const float kf = floorf((t0 - T0) / dt) - 2.f;
-    int k = kf > 0.f ? static_cast<int>(fminf(kf, static_cast<float>(p.max_steps))) : 0;
-    for (; k < p.max_steps; ++k) {
-      const float tt = __fadd_rn(T0, __fmul_rn(static_cast<float>(k), dt));
-      if (tt < t0) continue;
-      if (!(tt < t1)) break;
-      const float px = __fadd_rn(ox, __fmul_rn(tt, dx));
-      const float py = __fadd_rn(oy, __fmul_rn(tt, dy));
-      const float pz = __fadd_rn(oz, __fmul_rn(tt, dz));
-      const int lx = clampi(static_cast<int>(floorf(px)), 0, p.X - 2);
-      const int ly = clampi(static_cast<int>(floorf(py)), 0, p.Y - 2);
-      const int lz = clampi(static_cast<int>(floorf(pz)), 0, p.Z - 2);
-      const float wx = fminf(fmaxf(px - static_cast<float>(lx), 0.f), 1.f);
-      const float wy = fminf(fmaxf(py - static_cast<float>(ly), 0.f), 1.f);
-      const float wz = fminf(fmaxf(pz - static_cast<float>(lz), 0.f), 1.f);
-
+  if (r.t1 > r.t0) {
+    for (int k = first_step(r, p.max_steps); k < p.max_steps; ++k) {
+      const float tt = sample_t(r, k);
+      if (tt < r.t0) continue;
+      if (!(tt < r.t1)) break;
       long long off[8];  // element offset of each corner cell, -1 when empty
       float cw[8];
-      float sigma = 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int cx = lx + (c >> 2), cy = ly + ((c >> 1) & 1), cz = lz + (c & 1);
-        cw[c] = ((c >> 2) ? wx : 1.f - wx) * (((c >> 1) & 1) ? wy : 1.f - wy) * ((c & 1) ? wz : 1.f - wz);
-        const int row = __ldg(p.links + ((cx >> 3) * p.BY + (cy >> 3)) * p.BZ + (cz >> 3));
-        off[c] = -1;
-        if (row >= 0) {
-          off[c] = (static_cast<long long>(row) * CELLS + ((cx & 7) * 64 + (cy & 7) * 8 + (cz & 7))) * CP;
-          sigma += cw[c] * __bfloat162float(p.cells[off[c]]);
-        }
-      }
-      if (!(sigma > p.sigma_thresh)) sigma = 0.f;
+      const float sigma = corners<CP>(p.g, r, tt, p.sigma_thresh, off, cw);
       const float T = expf(-cum);
       const bool active = T > p.stop_thresh;
       if (!active && p.early_stop) break;
       spars += log1pf(2.f * sigma * sigma);
       if (!active || sigma == 0.f) continue;
 
-      float c0 = 0.f, c1 = 0.f, c2 = 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        if (off[c] < 0) continue;
-        float wb[B];
-#pragma unroll
-        for (int b = 0; b < B; ++b) wb[b] = cw[c] * basis[b];
-        const uint4* src = reinterpret_cast<const uint4*>(p.cells + off[c]);
-#pragma unroll
-        for (int v = 0; v < NV; ++v) {
-          const uint4 q = __ldg(src + v);
-          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const int j = v * 8 + e - 1;  // SH channel index (c * B + b), -1 = density
-            if (j < 0 || j >= 3 * B) continue;
-            const float2 f = __bfloat1622float2(h[e >> 1]);
-            const float val = (e & 1) ? f.y : f.x;
-            if (j / B == 0) c0 += wb[j % B] * val;
-            else if (j / B == 1) c1 += wb[j % B] * val;
-            else c2 += wb[j % B] * val;
-          }
-        }
-      }
-      if (p.sigmoid) {
-        c0 = 1.f / (1.f + expf(-c0));
-        c1 = 1.f / (1.f + expf(-c1));
-        c2 = 1.f / (1.f + expf(-c2));
-      } else {
-        c0 = fmaxf(c0 + 0.5f, 0.f);
-        c1 = fmaxf(c1 + 0.5f, 0.f);
-        c2 = fmaxf(c2 + 0.5f, 0.f);
-      }
-      const float tau = sigma * step_world;
+      float raw[3];
+      shade<B>(p.g, off, cw, basis, raw);
+      const float c0 = decode(raw[0], p.sigmoid);
+      const float c1 = decode(raw[1], p.sigmoid);
+      const float c2 = decode(raw[2], p.sigmoid);
+      const float tau = sigma * r.step_world;
       const float w = T * (1.f - expf(-tau));
       rgb0 += w * c0;
       rgb1 += w * c1;
@@ -214,18 +151,18 @@ int tile_march_fwd(const void* cells, const void* links, const void* pack, const
                    int early_stop, void* stream) {
   if (n_rays <= 0) return 0;
   Params p;
-  p.cells = static_cast<const __nv_bfloat16*>(cells);
-  p.links = static_cast<const int*>(links);
+  p.g.cells = static_cast<const __nv_bfloat16*>(cells);
+  p.g.links = static_cast<const int*>(links);
+  p.g.X = X;
+  p.g.Y = Y;
+  p.g.Z = Z;
+  p.g.BY = BY;
+  p.g.BZ = BZ;
   p.pack = static_cast<const float*>(pack);
   p.basis = static_cast<const float*>(basis);
   p.out = static_cast<float*>(out);
   p.n_rays = n_rays;
   p.r = r;
-  p.X = X;
-  p.Y = Y;
-  p.Z = Z;
-  p.BY = BY;
-  p.BZ = BZ;
   p.max_steps = max_steps;
   p.sigma_thresh = sigma_thresh;
   p.stop_thresh = stop_thresh;

@@ -20,7 +20,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from nerf_projects_tpu_torch.core.device import resolve_device
+from nerf_projects_tpu_torch.core.device import device_constant, resolve_device
 
 
 def morton_code_3d(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:
@@ -41,10 +41,10 @@ def morton_code_3d(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:
 def _grid_transform(reso, radius, center, device):
     """(scale, offset, radius, center) tensors of the voxel-unit map
     g = (p - center) / radius * reso/2 + reso/2 - 0.5."""
-    reso = torch.as_tensor(np.asarray(reso, np.float32), device=device)
+    reso = device_constant(np.asarray(reso, np.float32), torch.float32, device)
     return (reso * 0.5, reso * 0.5 - 0.5,
-            torch.as_tensor(np.asarray(radius, np.float32), device=device),
-            torch.as_tensor(np.asarray(center, np.float32), device=device))
+            device_constant(np.asarray(radius, np.float32), torch.float32, device),
+            device_constant(np.asarray(center, np.float32), torch.float32, device))
 
 
 def world_to_grid(pts: torch.Tensor, reso, radius, center) -> torch.Tensor:

@@ -101,6 +101,30 @@ def from_sparse_grid(grid: SparseGrid) -> BrickGrid:
     )
 
 
+def brick_grid_from_numpy(brick_links, density_bricks, sh_bricks, cell_mask, brick_coords, reso, radius,
+                          center, basis_dim: int = 9,
+                          device: Optional[Union[str, torch.device]] = None) -> BrickGrid:
+    """A BrickGrid from host arrays, e.g. the fields of a JAX package
+    BrickGrid as numpy arrays (a trained grid carried across), on
+    ``device`` (None: the card)."""
+    dev = resolve_device(device)
+
+    def t(x, dtype):
+        return torch.from_numpy(np.array(x, dtype)).to(dev)
+
+    return BrickGrid(
+        brick_links=t(brick_links, np.int32),
+        density_bricks=t(density_bricks, np.float32),
+        sh_bricks=t(sh_bricks, np.float32),
+        cell_mask=t(cell_mask, np.bool_),
+        brick_coords=t(brick_coords, np.int32),
+        reso=tuple(int(r) for r in reso),
+        radius=np.asarray(radius, np.float32).copy(),
+        center=np.asarray(center, np.float32).copy(),
+        basis_dim=int(basis_dim),
+    )
+
+
 def create_brick_grid(
     reso,
     *,

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from nerf_projects_tpu_torch.core.device import device_constant
 from nerf_projects_tpu_torch.core.rays import Rays
 from nerf_projects_tpu_torch.models.sparse_grid import SparseGrid
 from nerf_projects_tpu_torch.ops.sh import eval_sh_bases
@@ -49,15 +50,14 @@ def trilerp(grid: SparseGrid, data: torch.Tensor, gpts: torch.Tensor) -> torch.T
     [0, reso - 2] and the weights to [0, 1] (svox2.py:598-653), so a
     sample on the upper face reads the last cell and nothing past it."""
     X, Y, Z = grid.reso
-    reso = torch.as_tensor(grid.reso, device=gpts.device)
+    reso = device_constant(grid.reso, torch.int64, gpts.device)
     l = torch.minimum(torch.clamp(torch.floor(gpts).to(torch.int32), min=0), reso - 2)
     w = torch.clamp(gpts - l.to(gpts.dtype), 0.0, 1.0)
     ix, iy, iz = l[..., 0].long(), l[..., 1].long(), l[..., 2].long()
     wx, wy, wz = w[..., 0:1], w[..., 1:2], w[..., 2:3]
 
     base = (ix * Y + iy) * Z + iz
-    offs = torch.tensor([0, 1, Z, Z + 1, Y * Z, Y * Z + 1, Y * Z + Z, Y * Z + Z + 1],
-                        device=gpts.device)
+    offs = device_constant([0, 1, Z, Z + 1, Y * Z, Y * Z + 1, Y * Z + Z, Y * Z + Z + 1], torch.int64, gpts.device)
     links8 = grid.links.reshape(-1)[base[..., None] + offs]  # [..., 8]
     safe = torch.clamp(links8, min=0).long()
     vals = torch.where((links8 >= 0)[..., None], data[safe], 0.0)  # [..., 8, C]
@@ -86,8 +86,8 @@ def ray_grid_geometry(reso, radius, origins_g: torch.Tensor, directions: torch.T
     [t0, t1) the clip against the sample-safe box [0, reso - 1] and
     ``near_clip``."""
     dev = directions.device
-    reso_f = torch.as_tensor(np.asarray(reso, np.float32), device=dev)
-    scale = reso_f * 0.5 / torch.as_tensor(np.asarray(radius, np.float32), device=dev)
+    reso_f = device_constant(np.asarray(reso, np.float32), torch.float32, dev)
+    scale = reso_f * 0.5 / device_constant(np.asarray(radius, np.float32), torch.float32, dev)
     dirs_g = directions * scale
     world_len = torch.linalg.norm(directions, dim=-1)
     gnorm = torch.linalg.norm(dirs_g, dim=-1)

@@ -14,6 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from nerf_projects_tpu_torch.core.device import device_constant
 from nerf_projects_tpu_torch.models.sparse_grid import SparseGrid
 
 
@@ -88,7 +89,7 @@ def active_t_range(occ: OccupancyGrid, origins_g: torch.Tensor, dirs_g: torch.Te
     (see the JAX docstring for when a corner clip can fall between
     probes). Returns (t_enter, t_exit); t_enter > t_exit on a miss."""
     f = float(occ.factor)
-    reso_c = torch.as_tensor(occ.bitmap.shape, device=origins_g.device)
+    reso_c = device_constant(tuple(occ.bitmap.shape), torch.int64, origins_g.device)
     frac = (torch.arange(n_probe, dtype=torch.float32, device=origins_g.device) + 0.5) / n_probe
     t = t0[:, None] + frac[None, :] * (t1 - t0)[:, None]  # [R, P]
     pos = origins_g[:, None, :] + t[..., None] * dirs_g[:, None, :]

@@ -1,11 +1,18 @@
-"""Plenoxels tile march, forward (K3): port of
-``nerf_projects_tpu/ops/pallas/tile_march.py``'s render side.
+"""Plenoxels tile march, forward (K3) and backward (K4): port of
+``nerf_projects_tpu/ops/pallas/tile_march.py``.
 
 The kernel ``tile_march_fwd`` (``csrc/tile_march_fwd.cu``, CUDA C++ for
 sm_90a, built with nvcc and loaded with ctypes) marches tiles of r rays
 (any r) through a brick grid; ``march_reference`` is its plain PyTorch
 version. ``march`` takes the plain version for host tensors and launches
-the kernel, or raises, for CUDA tensors.
+the kernel, or raises, for CUDA tensors. The backward ``tile_march_bwd``
+(``csrc/tile_march_bwd.cu``) re-marches each ray through the same
+stepping (``csrc/tile_march.cuh``) and adds the density and SH gradients
+of the MSE, beta and Cauchy sparsity losses straight into brick-layout
+arrays; ``march_backward_reference`` is its plain version and
+``march_backward`` dispatches as ``march`` does.
+``render_fused_tiles_pallas`` runs both: the fused render + gradient of
+a Plenoxels training step.
 
 What it computes, per tile (from ``_make_fwd_kernel`` and ``_pack_rays``):
 ray geometry in grid space, samples at tt = T0 + k * dt from the tile's
@@ -36,6 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from nerf_projects_tpu_torch.core.device import device_constant
 from nerf_projects_tpu_torch.core.rays import Rays
 from nerf_projects_tpu_torch.ops.brick_grid import BRICK, BrickGrid
 from nerf_projects_tpu_torch.ops.grid import GridRenderOptions, decode_rgb, ray_grid_geometry
@@ -64,6 +72,24 @@ def flops_per_shaded(basis_dim: int) -> int:
     """Float operations a shaded sample adds: 8 corners of 3B SH taps,
     one 3B dot with the basis, the bias activation 6, the composite 15."""
     return 8 * 2 * 3 * basis_dim + 2 * 3 * basis_dim + 6 + 15
+
+
+def bwd_flops_per_shaded(basis_dim: int) -> int:
+    """Float operations the backward adds to a shaded sample (after its
+    re-march, counted as the forward's): c . g 5; w (c . g) and the
+    running sum 2; T e^-tau, its product with c . g, the suffix and the
+    difference 4; times step_world into g_sigma 2; g_rgb = w g decode' 6;
+    then per corner cw g_sigma and its add 2, cw g_rgb 3 and the 3B
+    products with the basis and their adds 6B."""
+    return 5 + 2 + 4 + 2 + 6 + 8 * (2 + 3 + 6 * basis_dim)
+
+
+# The Cauchy sparsity term on a sample with sigma above the threshold:
+# sigma^2, 2 sigma^2, + 1, 4 sigma, the quotient, the scale, the add 7.
+# On a sample that is not shaded (the ray is inactive), its density
+# gradient is scattered alone: 8 corners of a product and an add, 16.
+BWD_FLOPS_SPARSITY = 7
+BWD_FLOPS_SPARSITY_UNSHADED = 16
 
 
 def channels(basis_dim: int) -> int:
@@ -194,11 +220,11 @@ def _corners(brick_links: torch.Tensor, reso, pos: torch.Tensor):
     row, -1 where empty; cell in the brick; trilinear weight). The lower
     corner is clamped to [0, reso - 2] and the weights to [0, 1], as
     ``ops.grid.trilerp``."""
-    reso_t = torch.as_tensor(reso, device=pos.device)
+    reso_t = device_constant(tuple(reso), torch.int64, pos.device)
     l = torch.minimum(torch.clamp(torch.floor(pos).to(torch.int64), min=0), reso_t - 2)
     w = torch.clamp(pos - l.to(pos.dtype), 0.0, 1.0)
     for cx, cy, cz in _CORNERS:
-        c = l + torch.tensor([cx, cy, cz], device=pos.device)
+        c = l + device_constant((cx, cy, cz), torch.int64, pos.device)
         row = brick_links[c[..., 0] >> 3, c[..., 1] >> 3, c[..., 2] >> 3].long()
         o = c & 7
         wt = ((w[..., 0] if cx else 1 - w[..., 0]) * (w[..., 1] if cy else 1 - w[..., 1])
@@ -227,9 +253,10 @@ def march_reference(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: 
     """Plain version of ``tile_march_fwd`` on any device, ``slice_steps``
     steps of every ray at a time: out [T, 8, r] float32 (rgb, acc,
     depth_t, -log_transmit, sparsity, misses (0)). With ``counts``,
-    (out, dict(marched [T, r], shaded [T, r] int32: the samples each ray
-    marches and shades; touched [nb] bool: the bricks their corners
-    read)), the work the kernel does on these inputs."""
+    (out, dict(marched [T, r], shaded [T, r], dense [T, r] int32: the
+    samples each ray marches, shades, and marches with sigma above the
+    threshold; touched [nb] bool: the bricks their corners read)), the
+    work the kernel does on these inputs."""
     T, r, _ = pack.shape
     B = basis.shape[-1]
     p = pack.reshape(T * r, PACK)
@@ -245,6 +272,7 @@ def march_reference(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: 
     rgb_acc = torch.zeros(N, 3, device=dev)
     n_marched = torch.zeros(N, dtype=torch.int32, device=dev)
     n_shaded = torch.zeros(N, dtype=torch.int32, device=dev)
+    n_dense = torch.zeros(N, dtype=torch.int32, device=dev)
     nb = cells.shape[0]
     touched = torch.zeros(nb + 1, dtype=torch.bool, device=dev)  # the last slot takes the unread corners
     for k0 in range(k_start, k_end, slice_steps):
@@ -272,6 +300,7 @@ def march_reference(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: 
         if counts:
             n_marched += live.sum(-1, dtype=torch.int32)
             n_shaded += (valid & active & (sigma > 0)).sum(-1, dtype=torch.int32)
+            n_dense += (live & (sigma > 0)).sum(-1, dtype=torch.int32)
             for row, _, _ in _corners(brick_links, reso, pos):
                 touched.index_fill_(0, torch.where(live & (row >= 0), row, nb).reshape(-1), True)
 
@@ -280,7 +309,84 @@ def march_reference(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: 
     out = out.reshape(8, T, r).permute(1, 0, 2).contiguous()
     if not counts:
         return out
-    return out, dict(marched=n_marched.reshape(T, r), shaded=n_shaded.reshape(T, r), touched=touched[:nb])
+    return out, dict(marched=n_marched.reshape(T, r), shaded=n_shaded.reshape(T, r),
+                     dense=n_dense.reshape(T, r), touched=touched[:nb])
+
+
+def march_backward_reference(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: torch.Tensor,
+                             basis: torch.Tensor, grad_rgb: torch.Tensor, s_total: torch.Tensor, *,
+                             max_steps: int, color_mode: str = "bias", sigma_thresh: float = 1e-8,
+                             stop_thresh: float = 1e-7, sparsity_scale: float = 0.0, slice_steps: int = 32):
+    """Plain version of ``tile_march_bwd`` on any device, ``slice_steps``
+    steps of every ray at a time: the gradients of the march's loss with
+    respect to the cells' density and SH, (grad_density [nb, 512],
+    grad_sh [nb, 512, 3B]) float32, given grad_rgb [T, r, 3] (dL/d rgb_out)
+    and s_total [T, r] (g . rgb_out plus the beta term). The formulas of
+    ``_make_bwd_kernel``: on a sample with sigma above the threshold,
+    dL/dtau = T e^-tau (c . g) - suffix while the ray is active, suffix =
+    s_total minus the inclusive prefix of w (c . g); g_sigma = dL/dtau *
+    step_world, plus sparsity_scale * 4 sigma / (1 + 2 sigma^2) on every
+    valid sample; g_rgb = w g decode'. Each corner receives its trilinear
+    weight's share through ``index_add_``."""
+    T, r, _ = pack.shape
+    B = basis.shape[-1]
+    nb = cells.shape[0]
+    p = pack.reshape(T * r, PACK)
+    og, dg = p[:, 0:3], p[:, 3:6]
+    dt, t0, t1, T0, sw = p[:, 6], p[:, 7], p[:, 8], p[:, 9], p[:, 10]
+    bas = basis.float().repeat_interleave(r, dim=0)  # [N, B]
+    g = grad_rgb.reshape(T * r, 3).float()
+    S = s_total.reshape(T * r).float()
+    N, dev = T * r, pack.device
+    span = _step_range(p, max_steps)
+    k_start, k_end = int(span[:, 0].amin()), int(span[:, 1].amax())
+
+    grad_d = torch.zeros(nb * BRICK**3, device=dev)
+    grad_sh = torch.zeros(nb * BRICK**3, 3 * B, device=dev)
+    cum = torch.zeros(N, device=dev)  # -log T over the active samples
+    P = torch.zeros(N, device=dev)    # inclusive prefix of w (c . g)
+    if nb == 0:
+        return grad_d.reshape(0, BRICK**3), grad_sh.reshape(0, BRICK**3, 3 * B)
+    for k0 in range(k_start, k_end, slice_steps):
+        ks = torch.arange(k0, min(k0 + slice_steps, k_end), dtype=torch.float32, device=dev)
+        tt = T0[:, None] + ks[None, :] * dt[:, None]  # [N, S]
+        valid = (tt >= t0[:, None]) & (tt < t1[:, None])
+        pos = og[:, None, :] + tt[..., None] * dg[:, None, :]
+        vals = trilerp_cells(cells, brick_links, reso, pos)  # [N, S, CP]
+        sig_pos = valid & (vals[..., 0] > sigma_thresh)
+        sigma = torch.where(sig_pos, vals[..., 0], 0.0)
+        raw = torch.sum(vals[..., 1:1 + 3 * B].reshape(N, -1, 3, B) * bas[:, None, None, :], dim=-1)
+        if color_mode == "sigmoid":
+            rgb = torch.sigmoid(raw)
+            gate = rgb * (1.0 - rgb)
+        else:
+            rgb = torch.clamp(raw + 0.5, min=0.0)
+            gate = (raw + 0.5 > 0.0).float()
+
+        tau = sigma * sw[:, None]
+        prefix = cum[:, None] + torch.cat(
+            [torch.zeros_like(tau[:, :1]), torch.cumsum(tau[:, :-1], dim=-1)], dim=-1)
+        Tp = torch.exp(-prefix)
+        active = Tp > stop_thresh
+        e = torch.exp(-tau)
+        w = torch.where(active, Tp * (1.0 - e), 0.0)
+        cdotg = torch.sum(rgb * g[:, None, :], dim=-1)
+        P_in = P[:, None] + torch.cumsum(w * cdotg, dim=-1)
+        gtau = Tp * e * cdotg - (S[:, None] - P_in)
+        gsig = torch.where(active & sig_pos, gtau * sw[:, None], 0.0)
+        if sparsity_scale:
+            gsig = gsig + torch.where(sig_pos, sparsity_scale * (4.0 * sigma / (1.0 + 2.0 * sigma * sigma)), 0.0)
+        g_rgb = w[..., None] * g[:, None, :] * gate  # [N, S, 3]
+        cum += torch.where(active, tau, 0.0).sum(-1)
+        P = P_in[:, -1]
+
+        for row, cell, wt in _corners(brick_links, reso, pos):
+            ok = valid & (row >= 0)
+            idx = (row.clamp(min=0) * BRICK**3 + cell).reshape(-1)
+            grad_d.index_add_(0, idx, torch.where(ok, wt * gsig, 0.0).reshape(-1))
+            gsh = (wt[..., None] * g_rgb)[..., None] * bas[:, None, None, :]  # [N, S, 3, B]
+            grad_sh.index_add_(0, idx, torch.where(ok[..., None, None], gsh, 0.0).reshape(-1, 3 * B))
+    return grad_d.reshape(nb, BRICK**3), grad_sh.reshape(nb, BRICK**3, 3 * B)
 
 
 # ---------------------------------------------------------------------------
@@ -347,9 +453,121 @@ def march(cells, brick_links, reso, pack, basis, **kw):
     return march_reference(cells, brick_links, reso, pack, basis, **kw)
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_library():
+    F = ctypes.c_float
+    args = [_VP] * 6 + [_VP, _VP, _LL] + [_INT] * 8 + [F, F, F, _INT, _VP]
+    return load_library("tile_march_bwd", {
+        "tile_march_bwd": (args, _INT),
+        "tile_march_bwd_probe": (args[:6] + [_VP] + args[8:], _INT),
+        "tile_march_bwd_channels": ([_INT], _INT),
+        "tile_march_bwd_error_string": ([_INT], ctypes.c_char_p),
+    })
+
+
+def _bwd_launch(cells, brick_links, reso, pack, basis, grad_rgb, s_total, outs, *, max_steps, color_mode,
+                sigma_thresh, stop_thresh, sparsity_scale, probe):
+    """Check the inputs and launch ``tile_march_bwd`` into ``outs``
+    (grad_density, grad_sh), or, with ``probe``, ``tile_march_bwd_probe``
+    into ``outs`` (sink,)."""
+    dev = pack.device
+    if dev.type != "cuda":
+        raise ValueError(f"tile_march_bwd runs on a CUDA device, got {dev}")
+    T, r, _ = pack.shape
+    B = basis.shape[-1]
+    if B not in BASIS_DIMS:
+        raise ValueError(f"tile_march_bwd takes basis_dim in {BASIS_DIMS}, got {B}")
+    if color_mode not in ("bias", "sigmoid"):
+        raise NotImplementedError(f"unknown color mode {color_mode!r}")
+    lib = _bwd_library()
+    nb = cells.shape[0]
+    check_tensor(cells, "cells", torch.bfloat16, (nb, BRICK**3, lib.tile_march_bwd_channels(B)), dev)
+    check_tensor(brick_links, "brick_links", torch.int32, tuple(brick_links.shape), dev)
+    check_tensor(pack, "pack", torch.float32, (T, r, PACK), dev)
+    check_tensor(basis, "basis", torch.float32, (T, B), dev)
+    check_tensor(grad_rgb, "grad_rgb", torch.float32, (T, r, 3), dev)
+    check_tensor(s_total, "s_total", torch.float32, (T, r), dev)
+    BX, BY, BZ = brick_links.shape
+    X, Y, Z = (int(v) for v in reso)
+    if not (2 <= X <= BX * BRICK and 2 <= Y <= BY * BRICK and 2 <= Z <= BZ * BRICK):
+        raise ValueError(f"reso {tuple(reso)} does not fit brick_links of shape {(BX, BY, BZ)}")
+    if T * r == 0:
+        return
+    fn = lib.tile_march_bwd_probe if probe else lib.tile_march_bwd
+    with torch.cuda.device(dev):
+        rc = fn(
+            cells.data_ptr(), brick_links.data_ptr(), pack.data_ptr(), basis.data_ptr(), grad_rgb.data_ptr(),
+            s_total.data_ptr(), *(o.data_ptr() for o in outs), T * r, r, X, Y, Z, BY, BZ, B, int(max_steps),
+            float(sigma_thresh), float(stop_thresh), float(sparsity_scale), int(color_mode == "sigmoid"),
+            current_stream(dev),
+        )
+    if rc != 0:
+        raise RuntimeError(f"tile_march_bwd launch failed: {lib.tile_march_bwd_error_string(rc).decode()}")
+
+
+def tile_march_bwd(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: torch.Tensor,
+                   basis: torch.Tensor, grad_rgb: torch.Tensor, s_total: torch.Tensor, *, max_steps: int,
+                   color_mode: str = "bias", sigma_thresh: float = 1e-8, stop_thresh: float = 1e-7,
+                   sparsity_scale: float = 0.0):
+    """Launch the CUDA backward: the inputs of ``tile_march_fwd`` plus
+    grad_rgb float32 [T, r, 3] and s_total float32 [T, r] on one card ->
+    (grad_density [nb, 512], grad_sh [nb, 512, 3B]) float32 as
+    ``march_backward_reference``. The gradients are summed with float32
+    atomics, so their last bits change from run to run."""
+    nb, B = cells.shape[0], basis.shape[-1]
+    grad_d = torch.zeros((nb, BRICK**3), dtype=torch.float32, device=pack.device)
+    grad_sh = torch.zeros((nb, BRICK**3, 3 * B), dtype=torch.float32, device=pack.device)
+    _bwd_launch(cells, brick_links, reso, pack, basis, grad_rgb, s_total, (grad_d, grad_sh),
+                max_steps=max_steps, color_mode=color_mode, sigma_thresh=sigma_thresh,
+                stop_thresh=stop_thresh, sparsity_scale=sparsity_scale, probe=False)
+    if pack.shape[0] * pack.shape[1]:
+        tile_march_bwd.launches += 1
+    return grad_d, grad_sh
+
+
+tile_march_bwd.launches = 0
+
+
+def tile_march_bwd_probe(cells, brick_links, reso, pack, basis, grad_rgb, s_total, **kw) -> torch.Tensor:
+    """The backward kernel with each atomic add summed into one float a
+    ray instead -> [T, r]: the same march and arithmetic without the
+    scatter, to time what the atomics cost. Counts no launch."""
+    sink = torch.empty(pack.shape[:2], dtype=torch.float32, device=pack.device)
+    _bwd_launch(cells, brick_links, reso, pack, basis, grad_rgb, s_total, (sink,), probe=True, **kw)
+    return sink
+
+
+def march_backward(cells, brick_links, reso, pack, basis, grad_rgb, s_total, **kw):
+    """The backward kernel for CUDA tensors, its plain version for host
+    tensors."""
+    if pack.device.type == "cuda":
+        return tile_march_bwd(cells, brick_links, reso, pack, basis, grad_rgb, s_total, **kw)
+    return march_backward_reference(cells, brick_links, reso, pack, basis, grad_rgb, s_total, **kw)
+
+
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
+
+def march_inputs(bg: BrickGrid, rays: Rays, opts: GridRenderOptions, *, n_chunks: Optional[int] = None,
+                 use_occupancy: bool = False, kernel_arrays: Optional[torch.Tensor] = None):
+    """What the march and its backward read, as both entry points build
+    it: (cells, pack, basis, max_steps). The march is n_chunks * SC steps
+    long (default: the grid diagonal; with ``use_occupancy``, the active
+    bricks' box); ``kernel_arrays``, prebuilt cells, or else
+    ``build_kernel_arrays(bg)``."""
+    if opts.color_mode not in ("bias", "sigmoid"):
+        raise NotImplementedError(f"tile march: unknown color mode {opts.color_mode!r}")
+    if n_chunks:
+        C = n_chunks
+    elif use_occupancy:
+        C = active_chunk_bound(bg, opts.step_size)
+    else:
+        C = default_chunks_for(bg, opts)
+    pack, basis = pack_rays(bg, rays, opts, use_occupancy)
+    cells = kernel_arrays if kernel_arrays is not None else build_kernel_arrays(bg)
+    return cells, pack, basis, C * SC
+
 
 def march_outputs(out: torch.Tensor, pack: torch.Tensor, opts: GridRenderOptions,
                   return_depth: bool) -> dict:
@@ -395,18 +613,10 @@ def render_tiles_pallas(
     ``opts.stop_thresh`` are used as given (the TPU kernel compiles in
     the defaults)."""
     del compact_chunks, wps
-    if opts.color_mode not in ("bias", "sigmoid"):
-        raise NotImplementedError(f"tile march: unknown color mode {opts.color_mode!r}")
-    if n_chunks:
-        C = n_chunks
-    elif use_occupancy:
-        C = active_chunk_bound(bg, opts.step_size)
-    else:
-        C = default_chunks_for(bg, opts)
-    pack, basis = pack_rays(bg, rays, opts, use_occupancy)
-    cells = kernel_arrays if kernel_arrays is not None else build_kernel_arrays(bg)
+    cells, pack, basis, max_steps = march_inputs(bg, rays, opts, n_chunks=n_chunks, use_occupancy=use_occupancy,
+                                                 kernel_arrays=kernel_arrays)
     out = march(
-        cells, bg.brick_links, bg.reso, pack, basis, max_steps=C * SC, color_mode=opts.color_mode,
+        cells, bg.brick_links, bg.reso, pack, basis, max_steps=max_steps, color_mode=opts.color_mode,
         sigma_thresh=opts.sigma_thresh, stop_thresh=opts.stop_thresh, early_stop=early_stop,
     )
     result = march_outputs(out, pack, opts, return_depth)
@@ -426,3 +636,68 @@ def render_tiles_pallas_bucketed(bg: BrickGrid, rays: Rays, opts: GridRenderOpti
     out = render_tiles_pallas(bg, rays, opts, kernel_arrays=kernel_arrays, use_occupancy=use_occupancy,
                               return_depth=return_depth)
     return {k: v for k, v in out.items() if k not in ("window_miss", "dropped_active_chunks")}
+
+
+def loss_seeds(out: torch.Tensor, rgb_gt: torch.Tensor, opts: GridRenderOptions, beta_loss: float = 0.0):
+    """From the march's [T, 8, r] block and the target [T, r, 3]: (rgb_out
+    [T, r, 3], the MSE gradient g = 2 (rgb_out - gt) / (3N) [T, r, 3],
+    the backward's suffix seed S_total = g . rgb_out [T, r], plus the beta
+    term (beta / N) (1 - T / (1 - T + 1e-3)) when beta_loss > 0), N the
+    rays of the batch (tile_march.py:2004-2016)."""
+    acc = out[:, 3]
+    rgb_out = out[:, 0:3].transpose(1, 2) + (1.0 - acc[..., None]) * opts.background_brightness
+    n_rays = out.shape[0] * out.shape[2]
+    g = 2.0 * (rgb_out - rgb_gt) / (3.0 * n_rays)
+    s_total = torch.sum(g * rgb_out, dim=-1)
+    if beta_loss > 0:
+        t_fin = torch.exp(-out[:, 5])
+        s_total = s_total + (beta_loss / n_rays) * (1.0 - t_fin / (1.0 - t_fin + 1e-3))
+    return rgb_out, g.contiguous(), s_total.contiguous()
+
+
+def render_fused_tiles_pallas(
+    bg: BrickGrid,
+    rays: Rays,
+    rgb_gt: torch.Tensor,
+    opts: GridRenderOptions = GridRenderOptions(),
+    *,
+    beta_loss: float = 0.0,
+    sparsity_loss: float = 0.0,
+    n_chunks: Optional[int] = None,
+    use_occupancy: bool = False,
+    grad_dtype=torch.float32,
+    compact_chunks: Optional[int] = None,
+    kernel_arrays: Optional[torch.Tensor] = None,
+):
+    """Fused render + gradient over [T, r] tiles, the reference's
+    volume_render_fused (counterpart of ``render_fused_tiles_pallas``):
+    (rgb_out [T, r, 3], grad_density [nb, 512], grad_sh [nb, 512, 3B],
+    aux dict(acc, log_transmit, sparsity_sum, window_miss (0),
+    dropped_active_chunks (0))).
+
+    The march (K3) gives rgb_out; the MSE gradient g = 2 (rgb_out - gt) /
+    (3N) and the suffix seed S_total = g . rgb_out, plus the beta term
+    (beta / N) (1 - T / (1 - T + 1e-3)), are formed here; the backward
+    (K4) re-marches and adds the gradients, with the Cauchy sparsity term
+    ``sparsity_loss`` per sample, into the brick layout. ``grad_dtype``
+    and ``compact_chunks`` are TPU knobs (the dtype of its gradient
+    blocks, its chunk compaction), accepted and ignored: the gradients
+    are float32 and no sample is dropped. ``kernel_arrays``: prebuilt
+    cells (``build_kernel_arrays``, any dtype for the plain versions)."""
+    del grad_dtype, compact_chunks
+    cells, pack, basis, max_steps = march_inputs(bg, rays, opts, n_chunks=n_chunks, use_occupancy=use_occupancy,
+                                                 kernel_arrays=kernel_arrays)
+    kw = dict(max_steps=max_steps, color_mode=opts.color_mode, sigma_thresh=opts.sigma_thresh,
+              stop_thresh=opts.stop_thresh)
+    out = march(cells, bg.brick_links, bg.reso, pack, basis, **kw)
+    rgb_out, g, s_total = loss_seeds(out, rgb_gt, opts, beta_loss)
+    grad_density, grad_sh = march_backward(cells, bg.brick_links, bg.reso, pack, basis, g, s_total,
+                                           sparsity_scale=float(sparsity_loss), **kw)
+    aux = {
+        "acc": out[:, 3],
+        "log_transmit": -out[:, 5],
+        "sparsity_sum": out[:, 6],
+        "window_miss": torch.zeros((), dtype=torch.float32, device=pack.device),
+        "dropped_active_chunks": torch.zeros((), dtype=torch.int32, device=pack.device),
+    }
+    return rgb_out, grad_density, grad_sh, aux

@@ -370,3 +370,29 @@ def test_the_kernel_wrapper_runs_on_a_card_only():
     assert tuple(counts["marched"].shape) == (1, 32) and tuple(counts["touched"].shape) == (bg.n_bricks,)
     with pytest.raises(ValueError, match="CUDA"):
         ttm.tile_march_fwd(cells, bg.brick_links, bg.reso, pack, basis, max_steps=64)
+
+
+def test_pack_rays_copies_no_host_numbers_after_its_first_call(monkeypatch):
+    """The ray geometry of every march takes the grid's constants
+    (resolution, radius, centre) from tensors kept on the device: on the
+    card a copy of host numbers (torch.tensor, torch.as_tensor) waits for
+    the queue to drain, once per call."""
+    _, tg = random_grids(16, 9, seed=18)
+    bg = tbg.from_sparse_grid(tg)
+    _, rays = both(tile_rays(2, 8, 16, seed=19))
+    opts = tgrid.GridRenderOptions()
+    first = ttm.pack_rays(bg, rays, opts)
+    copies = []
+    for name in ("tensor", "as_tensor"):
+        real = getattr(torch, name)
+
+        def counted(*args, _real=real, _name=name, **kwargs):
+            copies.append(_name)
+            return _real(*args, **kwargs)
+
+        monkeypatch.setattr(torch, name, counted)
+    again = ttm.pack_rays(bg, rays, opts)
+    monkeypatch.undo()
+    assert copies == []
+    for a, b in zip(first, again):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
