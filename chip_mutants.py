@@ -2,9 +2,10 @@
 """Mutation check of the kernels on one CUDA card.
 
 Copies the package and chip_smoke.py to a temporary directory, breaks
-one line of a CUDA source there, and runs the chip_smoke.py kernel
-phases that run the broken code (K1b, K2, K3 or K4) on the copy; each
-must fail. Run from the repository root:
+one line of a CUDA source (or of the Python that packs a kernel's
+weights) there, and runs the chip_smoke.py kernel phases that run the
+broken code (K1b, K2, K3, K4 or K5) on the copy; each must fail. Run
+from the repository root:
 
     python3 chip_mutants.py
 
@@ -57,6 +58,24 @@ MUTANTS = {
         "if (!active) break;",
         ("tile_march_bwd",),
     ),
+    "K5's w5 rows left unpermuted (the reference's [h, x] order in the [x | h] tile)": (
+        "nerf_projects_tpu_torch/ops/kernels/fused_sh_mlp.py",
+        "w5=((d[5].weight[:, 256:], 0), (d[5].weight[:, :256], 64)),",
+        "w5=((d[5].weight[:, :256], 0), (d[5].weight[:, 256:], 256)),",
+        ("kernel_sh",),
+    ),
+    "K5f's coefficient head cut to its first 4 columns": (
+        "nerf_projects_tpu_torch/csrc/fused_sh_tile.cuh",
+        "const bool live0 = c < num_rgb, live1 = c + 1 < num_rgb;",
+        "const bool live0 = c < 4, live1 = c + 1 < 4;",
+        ("kernel_sh",),
+    ),
+    "K5b's reduce skips the first split-K partial of dW": (
+        "nerf_projects_tpu_torch/csrc/fused_sh_bwd.cu",
+        "for (int k = 0; k < splits; ++k) s += part[k * mlp::GB0 + i];",
+        "for (int k = 1; k < splits; ++k) s += part[k * mlp::GB0 + i];",
+        ("kernel_sh",),
+    ),
 }
 
 PHASES = r'''
@@ -69,7 +88,8 @@ c.phase_build()
 phases = {"fused_mlp_bwd": lambda: c.phase_kernel_bwd(dev, big_rows=65536),
           "fused_train_level": lambda: c.phase_kernel_train(dev),
           "tile_march_fwd": lambda: c.phase_kernel_march(dev),
-          "tile_march_bwd": lambda: c.phase_kernel_march_bwd(dev)}
+          "tile_march_bwd": lambda: c.phase_kernel_march_bwd(dev),
+          "kernel_sh": lambda: c.phase_kernel_sh(dev)}
 for name in sys.argv[1:]:
     fn = phases[name]
     try:

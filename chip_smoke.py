@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's vanilla-NeRF serving and training paths and its
-Plenoxels serving and training paths on one CUDA card.
+"""Drive the PyTorch port's vanilla-NeRF, Plenoxels and NeRF-SH serving and
+training paths on one CUDA card.
 
 Run from the repository root, with no arguments:
 
@@ -8,7 +8,7 @@ Run from the repository root, with no arguments:
 
 Phases, each of which raises (exit code 1) on failure:
 
-  build   nvcc compiles the five kernel libraries for sm_90a, one
+  build   nvcc compiles the seven kernel libraries for sm_90a, one
           process per source, all at once.
   kernel  each kernel against its plain PyTorch version on the card,
           then timed with CUDA events beside its bound and its plain
@@ -40,9 +40,11 @@ Phases, each of which raises (exit code 1) on failure:
           (use_mega, K2) and the fused MLP under autograd (K1f + K1b) —
           with rays/s, step times, the first and last loss and PSNR, the
           launch counts (zeroed just before, read just after; the loss
-          must fall and stay finite), then a short torch.profiler trace
-          of each route splitting the card's time into the hand-written
-          kernels and the rest.
+          must fall and stay finite), one step's calls that wait for the
+          card (torch.cuda.set_sync_debug_mode: none for the fused train
+          level, at most one a level under autograd), then a short
+          torch.profiler trace of each route splitting the card's time
+          into the hand-written kernels and the rest.
   kernel_march
           the Plenoxels tile march (K3) against its plain PyTorch version
           on the card: a random 32^3 grid (basis_dim 9) with tiles of 128,
@@ -87,6 +89,39 @@ Phases, each of which raises (exit code 1) on failure:
           after each: train rays/s, step ms median, min and max, the K3
           and K4 launches (zeroed just before, read just after), the
           first and last MSE (the loss must fall and stay finite).
+  kernel_sh
+          the fused NeRF-SH trunk (K5f) against its plain PyTorch version
+          on 8192 + 37 rows at each head width the kernel builds (27, 48,
+          75, 128 columns) and at a serving request's fine level
+          (1,572,864 rows, sh_deg 3); its weight-gradient backward (K5b)
+          against its plain version and against float64 sums on 8192 +
+          37 rows, four draws at each width, and at a training step's
+          fine level (196,608 rows), the same bits on a second launch,
+          and a control (dW summed in bf16) that the float64 rule must
+          refuse; both timed with CUDA events beside their bounds and
+          their plain versions.
+  render_nerf_sh
+          requests of 8,192 rays (NeRFSHFlags.chunk; 64x128 patches of the
+          render phase's three cameras) through NeRFSHTrainer.render_eval
+          at the reference's Blender NeRF-SH configuration (sh_deg 3,
+          8x256 trunk, 64 + 128 samples, near 2, far 6, white background;
+          build_model with use_fused_trunk), random weights and biases
+          from a seed. The first request per camera is checked against
+          K5f's plain version (tail flips counted) and the float32
+          modules; then requests back to back for WINDOW_S seconds, with
+          K5f's launches zeroed just before and read just after; then
+          one request under torch.cuda.set_sync_debug_mode, which must
+          make no call that waits for the card.
+  train_nerf_sh
+          NeRFSHTrainer at that configuration on make_dataset(n_views=2,
+          image_size=128), 1,024 rays a step: one step on 64 rays against
+          the host's plain versions with sparsity and weight decay on
+          (both models' gradients; the host step takes the card's fine
+          depths); then 3 warm steps and WINDOW_S seconds at
+          sparsity_weight 0, as bench.py's nerf_sh_train: rays/s, step
+          ms, the first and last loss (it must fall and stay finite), K5f
+          and K5b launches, peak memory; then one step's waiting calls
+          (at most one a level) and a profile of 5 steps.
 
 Output: progress lines, a `{"kernels": [...]}` JSON line, the card's
 name and power limit as nvidia-smi gives them, and last
@@ -103,9 +138,11 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 WATCHDOG_S = 600
@@ -176,7 +213,8 @@ def encodings(n: int, gen: torch.Generator, device) -> tuple:
     return x.to(device), v.to(device)
 
 
-LIBRARIES = ("fused_mlp_fwd", "fused_mlp_bwd", "fused_train", "tile_march_fwd", "tile_march_bwd")
+LIBRARIES = ("fused_mlp_fwd", "fused_mlp_bwd", "fused_train", "tile_march_fwd", "tile_march_bwd", "fused_sh_fwd",
+             "fused_sh_bwd")
 
 
 def phase_build():
@@ -192,7 +230,21 @@ def phase_build():
     return time.perf_counter() - t0
 
 
-def check_grads(tag, got, want, names, exact=None) -> float:
+def noise_ratio(got, want, exact) -> tuple:
+    """The float64 rule's reading: over the gradient tensors, the largest
+    ratio of the kernel's relative Frobenius distance from the float64
+    sums (``exact``) to the float32 plain version's (+ 1e-5), and the
+    field of that tensor."""
+    worst = (0.0, "")
+    for i, (g, w, e) in enumerate(zip(got, want, exact)):
+        e = e.double()
+        en = e.norm() + 1e-30
+        r = float((g.double() - e).norm() / en) / (float((w.double() - e).norm() / en) + 1e-5)
+        worst = max(worst, (r, i))
+    return worst
+
+
+def check_grads(tag, got, want, names, exact=None, noise_factor=NOISE_FACTOR) -> float:
     """Each gradient tensor of the kernel against the plain version's:
     relative Frobenius error below GRAD_FRO_TOL and the largest entry's
     error below GRAD_MAX_TOL of the largest |plain|. The two round to bf16
@@ -200,33 +252,53 @@ def check_grads(tag, got, want, names, exact=None) -> float:
     or a bf16 rounding that flips moves a whole column of dW. With
     ``exact`` (the plain version with float64 sums, on the same output
     gradient), the kernel must also be no further from it than
-    NOISE_FACTOR times the float32 plain version is (+ 1e-5). Returns the
-    largest absolute error."""
-    max_abs, worst = 0.0, {"fro": (0.0, ""), "max": (0.0, ""), "noise": (0.0, "")}
-    for i, (name, g, w) in enumerate(zip(names, got, want)):
+    ``noise_factor`` times the float32 plain version is (+ 1e-5). Returns
+    the largest absolute error."""
+    max_abs, worst = 0.0, {"fro": (0.0, ""), "max": (0.0, "")}
+    for name, g, w in zip(names, got, want):
         if not bool(torch.isfinite(g).all()):
             raise AssertionError(f"{tag}: non-finite gradient {name}")
         d = (g - w).double()
         max_abs = max(max_abs, float(d.abs().max()))
         vals = {"fro": float(d.norm() / (w.double().norm() + 1e-30)),
                 "max": float(d.abs().max() / (w.abs().max().double() + 1e-30))}
-        if exact is not None:
-            e = exact[i].double()
-            en = e.norm() + 1e-30
-            vals["noise"] = float((g.double() - e).norm() / en) / (float((w.double() - e).norm() / en) + 1e-5)
         for k, v in vals.items():
             worst[k] = max(worst[k], (v, name))
     msg = (f"{tag}: grads max_abs_err={max_abs:.3e}; worst relative Frobenius error {worst['fro'][0]:.3e} "
            f"({worst['fro'][1]}, tolerance {GRAD_FRO_TOL}), worst entry {worst['max'][0]:.3e} of scale "
            f"({worst['max'][1]}, tolerance {GRAD_MAX_TOL})")
+    noise = 0.0
     if exact is not None:
-        msg += (f"; against float64 sums the kernel strays {worst['noise'][0]:.3f}x as far as the float32 "
-                f"plain version ({worst['noise'][1]}, tolerance {NOISE_FACTOR}x)")
+        noise, i = noise_ratio(got, want, exact)
+        msg += (f"; against float64 sums the kernel strays {noise:.3f}x as far as the float32 "
+                f"plain version ({names[i]}, tolerance {noise_factor}x)")
     log(msg)
-    if not (worst["fro"][0] < GRAD_FRO_TOL and worst["max"][0] < GRAD_MAX_TOL
-            and worst["noise"][0] <= NOISE_FACTOR):
+    if not (worst["fro"][0] < GRAD_FRO_TOL and worst["max"][0] < GRAD_MAX_TOL and noise <= noise_factor):
         raise AssertionError(f"{tag}: gradients disagree with the plain version")
     return max_abs
+
+
+def check_waits(tag, fn, most: int) -> None:
+    """Run ``fn()`` once under torch.cuda.set_sync_debug_mode("warn"):
+    at most ``most`` of its calls may wait for the card (the mode does not
+    see every such call). Logs them by Python line."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sites = {}
+    for w in rec:
+        if "synchroniz" in str(w.message):
+            key = f"{w.filename}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    log(f"{tag}: {sum(sites.values())} calls wait for the card (at most {most})"
+        + "".join(f"; {k} x{n}" for k, n in sites.items()))
+    if sum(sites.values()) > most:
+        raise AssertionError(f"{tag}: the host waits for the card")
 
 
 def bound(flops: float, nbytes: float) -> tuple:
@@ -514,7 +586,8 @@ def train_window(trainer, state, ds):
 
 
 OUR_KERNELS = ("mlp_fwd_kernel", "mlp_dx_kernel", "mlp_dw_kernel", "mlp_grad_reduce_kernel",
-               "composite_kernel", "march_kernel", "march_bwd_kernel")
+               "composite_kernel", "march_kernel", "march_bwd_kernel", "sh_fwd_kernel", "sh_dx_kernel",
+               "sh_grad_reduce_kernel")
 
 
 def profile_steps(run_steps, route: str, n: int = PROFILE_STEPS):
@@ -636,6 +709,11 @@ def phase_train(dev, card: str) -> dict:
         if not np.mean(losses[-k:]) < np.mean(losses[:k]):
             raise AssertionError(f"train: {route}: the loss did not fall")
         out[mega] = counts
+        # the fused train level reads nothing back; under autograd each
+        # level's torch.cumprod backward tests its input for zeros on the host
+        check_waits(f"train: {route}, one step",
+                    lambda: trainer.scan_steps(state, ds["rays"], ds["pixels"], 1, batch_size=TRAIN_RAYS),
+                    0 if mega else 2)
         profile_steps(lambda n: trainer.scan_steps(state, ds["rays"], ds["pixels"], n, batch_size=TRAIN_RAYS)[0],
                       route)
     return {"fused_train_level": out[True]["fused_train_level"],
@@ -1226,6 +1304,369 @@ def phase_train_plenoxels(dev, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# NeRF-SH: the fused trunk forward (K5f) and backward (K5b)
+# ---------------------------------------------------------------------------
+
+SH_DEG = 3                  # plenoctree/nerf_sh/config/blender.yaml
+SH_RGB = 3 * (SH_DEG + 1) ** 2
+SH_CHUNK = 8192             # rays a serving request (NeRFSHFlags.chunk)
+SH_PATCH = (64, 128)        # 8,192 rays of an 800x800 Blender camera
+SH_COARSE, SH_FINE = 64, 128
+SPARSITY_POINTS = 10_000    # NeRFSHFlags.sparsity_npoints
+# K5b's float64 rule. Its tensor-core float32 sums stray from float64 sums
+# further than cuBLAS's float32 sums: over kernel_sh's 17 draws the worst
+# tensor's ratio read 1.389-3.039 (median 1.859) on an NVIDIA H100 80GB
+# HBM3 at 700 W, so the factor sits 1.3x above the largest; the bf16-reduce
+# control read 58.554 (PERF.md §6)
+SH_NOISE_FACTOR = 4.0
+SH_NOISE_DRAWS = 4          # weight and input draws a head width
+
+
+def sh_points(n: int, gen: torch.Generator, dev):
+    """The block encoding [n, 63] of points uniform in the cube of radius
+    1.5, as the model feeds the trunk."""
+    from nerf_projects_tpu_torch.ops.posenc import posenc
+
+    pts = (torch.rand(n, 3, generator=gen) * 3.0 - 1.5).to(dev)
+    return posenc(pts, 10, ordering="block").contiguous()
+
+
+def mmT_bf16_reduce(a: torch.Tensor, b: torch.Tensor, rows: int = 64) -> torch.Tensor:
+    """fused_mlp._mmT (a [T, I]^T @ b [T, O], bf16 operands) with the sum
+    over rows carried in bf16 from one 64-row tile to the next: a K5b
+    whose split-K reduce lost float32, the control that K5b's float64
+    rule must refuse."""
+    pad = (-a.shape[0]) % rows
+    A = F.pad(a.to(torch.bfloat16).float(), (0, 0, 0, pad)).view(-1, rows, a.shape[1])
+    B = F.pad(b.to(torch.bfloat16).float(), (0, 0, 0, pad)).view(-1, rows, b.shape[1])
+    acc = torch.zeros(a.shape[1], b.shape[1], dtype=torch.bfloat16, device=a.device)
+    for part in torch.bmm(A.transpose(1, 2), B):
+        acc = (acc.float() + part).to(torch.bfloat16)
+    return acc.float()
+
+
+def phase_kernel_sh(dev) -> tuple:
+    """K5f against its plain version on 8192 + 37 rows (each head width the
+    kernel builds: 27, 48, 75 and 128 columns) and at a serving request's
+    fine level (1,572,864 rows, sh_deg 3). K5b against its plain version
+    and against float64 sums (SH_NOISE_FACTOR) on 8192 + 37 rows, for
+    SH_NOISE_DRAWS draws of weights and inputs at each width, and at a
+    training step's fine level (196,608 rows, sh_deg 3); two launches on
+    the same inputs give the same bits, and a plain K5b whose dW sums
+    round to bf16 between 64-row tiles fails the float64 rule. Then both
+    kernels timed at those levels."""
+    from nerf_projects_tpu_torch.models.nerf_sh import CondMLP
+    from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerf_projects_tpu_torch.ops.kernels import fused_sh_mlp as fsm
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    serve_rows, train_rows = SH_CHUNK * (SH_COARSE + SH_FINE), TRAIN_RAYS * (SH_COARSE + SH_FINE)
+    max_fwd = max_bwd = 0.0
+    readings = []
+    for num_rgb in (27, SH_RGB, 75, 128):
+        for draw in range(SH_NOISE_DRAWS):
+            mlp = random_biases(CondMLP(num_rgb_channels=num_rgb).reset_parameters(gen), gen).to(dev)
+            W, wk, wkt = fsm.pack_sh_params(mlp), fsm.kernel_weights(mlp), fsm.kernel_weights_bwd(mlp)
+            headline = num_rgb == SH_RGB and draw == 0
+            for n in ((8192 + 37, serve_rows) if headline else (8192 + 37,) if draw == 0 else ()):
+                x = sh_points(n, gen, dev)
+                got = fsm.fused_sh_fwd(wk, x, num_rgb)
+                want = fsm.fused_sh_mlp_reference(W, x, num_rgb)
+                torch.cuda.synchronize()
+                if not all(bool(torch.isfinite(g).all()) for g in got):
+                    raise AssertionError(f"kernel_sh: non-finite K5f output at n={n}, num_rgb={num_rgb}")
+                err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+                rel = err / (float(torch.cat([w.abs().flatten() for w in want]).mean()) + 1.0)
+                log(f"kernel_sh: fused_sh_fwd n={n} num_rgb={num_rgb} max_abs_err={err:.3e} "
+                    f"err/(mean|plain|+1)={rel:.3e} (tolerance {KERNEL_TOL})")
+                if not rel < KERNEL_TOL:
+                    raise AssertionError(f"kernel_sh: fused_sh_fwd disagrees with its plain version at n={n}, "
+                                         f"num_rgb={num_rgb}")
+                max_fwd = max(max_fwd, err)
+            if headline:
+                fwd_args = (mlp, W, wk, wkt, x)
+            for n in ((8192 + 37, train_rows) if headline else (8192 + 37,)):
+                x = sh_points(n, gen, dev)
+                g_rgb = (torch.randn(n, num_rgb, generator=gen) * 1e-3).to(dev)
+                g_sig = (torch.randn(n, 1, generator=gen) * 1e-3).to(dev)
+                got = fsm.fused_sh_bwd(wk, wkt, x, g_rgb, g_sig)
+                want = fsm.fused_sh_bwd_reference(W, x, g_rgb, g_sig)
+                with fm.float64_sums():
+                    exact = fsm.fused_sh_bwd_reference(W, x, g_rgb, g_sig)
+                tag = f"kernel_sh: fused_sh_bwd n={n} num_rgb={num_rgb} draw {draw}"
+                max_bwd = max(max_bwd, check_grads(tag, got, want, fsm.FusedSHWeights._fields, exact,
+                                                   SH_NOISE_FACTOR))
+                readings.append(noise_ratio(got, want, exact)[0])
+                if draw == 0 and not all(torch.equal(a, b) for a, b in
+                                         zip(got, fsm.fused_sh_bwd(wk, wkt, x, g_rgb, g_sig))):
+                    raise AssertionError(f"{tag}: a second launch gave other bits")
+                if headline and n < train_rows:
+                    saved, fm._mmT = fm._mmT, mmT_bf16_reduce
+                    try:
+                        control = fsm.fused_sh_bwd_reference(W, x, g_rgb, g_sig)
+                    finally:
+                        fm._mmT = saved
+                    ratio, i = noise_ratio(control, want, exact)
+                    log(f"{tag}: the control (dW summed in bf16 between 64-row tiles) strays {ratio:.3f}x as far "
+                        f"as the float32 plain version ({fsm.FusedSHWeights._fields[i]})")
+                    if not ratio > SH_NOISE_FACTOR:
+                        raise AssertionError("kernel_sh: K5b's float64 rule passes a bf16 reduce")
+                del exact
+            if headline:
+                bwd_args = (W, wk, wkt, x, g_rgb, g_sig)
+    log(f"kernel_sh: K5b's float64 rule over {len(readings)} draws: the worst tensor strays "
+        f"{min(readings):.3f}x to {max(readings):.3f}x (median {float(np.median(readings)):.3f}x) as far as the "
+        f"float32 plain version, tolerance {SH_NOISE_FACTOR}x")
+
+    mlp, W, wk, wkt, x = fwd_args
+    ms = time_ms(lambda: fsm.fused_sh_fwd(wk, x, SH_RGB), iters=20)
+    plain_ms = time_ms(lambda: fsm.fused_sh_mlp_reference(W, x, SH_RGB), iters=3, warmup=1)
+    flops = 2.0 * fsm.fwd_macs(SH_RGB) * serve_rows
+    nbytes = fsm.io_bytes(SH_RGB) * serve_rows + wk.numel() * 2
+    b_ms, by, t_ops, t_bytes = bound(flops, nbytes)
+    log(f"kernel_sh: fused_sh_fwd n={serve_rows}: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms (operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms), "
+        f"{b_ms / ms:.3f} of bound")
+    fwd = {"name": "fused_sh_fwd", "route": "cuda", "source": "nerf_projects_tpu_torch/csrc/fused_sh_fwd.cu",
+           "replaces": "nerf_projects_tpu/ops/pallas/fused_sh_mlp.py:215", "launches": 0,
+           "max_abs_err": max_fwd, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+           "library_ms": None}
+
+    W, wk, wkt, x, g_rgb, g_sig = bwd_args
+    ms = time_ms(lambda: fsm.fused_sh_bwd(wk, wkt, x, g_rgb, g_sig), iters=10)
+    plain_ms = time_ms(lambda: fsm.fused_sh_bwd_reference(W, x, g_rgb, g_sig), iters=3, warmup=1)
+    macs = fsm.bwd_macs(SH_RGB)
+    flops = 2.0 * sum(macs.values()) * train_rows
+    nbytes = fsm.io_bytes(SH_RGB) * train_rows + fsm.GRAD_ELEMS * 4 + (wk.numel() + wkt.numel()) * 2
+    b_ms, by, t_ops, t_bytes = bound(flops, nbytes)
+    stash = fsm.STASH_BYTES_PER_ROW * train_rows
+    log(f"kernel_sh: fused_sh_bwd n={train_rows}: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms (operations {t_ops:.4f} ms: multiply-adds a row {macs}; bytes "
+        f"{t_bytes:.4f} ms), {b_ms / ms:.3f} of bound; the stashes hold {stash / 1e9:.3f} GB, written once and "
+        f"read at least once: {2 * stash / H100_HBM_BYTES_S * 1e3:.4f} ms of HBM traffic the bound does not count")
+    bwd = {"name": "fused_sh_bwd", "route": "cuda", "source": "nerf_projects_tpu_torch/csrc/fused_sh_bwd.cu",
+           "replaces": "nerf_projects_tpu/ops/pallas/fused_sh_mlp.py:242", "launches": 0,
+           "max_abs_err": max_bwd, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+           "library_ms": None}
+    return fwd, bwd
+
+
+class plain_sh:
+    """Within the block, the fused SH trunk runs its plain forward on CUDA
+    tensors too (no autograd: serving only)."""
+
+    def __enter__(self):
+        from nerf_projects_tpu_torch.ops.kernels import fused_sh_mlp as fsm
+
+        self.saved = fsm.fused_sh_apply
+        fsm.fused_sh_apply = lambda mlp, x, num_rgb: fsm.fused_sh_mlp_reference(fsm.pack_sh_params(mlp), x, num_rgb)
+        return self
+
+    def __exit__(self, *exc):
+        from nerf_projects_tpu_torch.ops.kernels import fused_sh_mlp as fsm
+
+        fsm.fused_sh_apply = self.saved
+
+
+def sh_trainer(dev, **kwargs):
+    """NeRFSHTrainer over the headline model: build_model of NeRFSHFlags
+    at sh_deg 3 (8x256 trunk, 64 + 128 samples, near 2, far 6, white
+    background) with the fused trunk on."""
+    from nerf_projects_tpu_torch.cli.nerf_sh_flags import NeRFSHFlags, build_model
+    from nerf_projects_tpu_torch.train import NeRFSHTrainer
+
+    flags = NeRFSHFlags(sh_deg=SH_DEG, use_viewdirs=False, use_fused_trunk=True)
+    model = build_model(flags)
+    if not model._fused_trunk_ok():
+        raise AssertionError("nerf_sh: the fused-trunk gate refused the headline configuration")
+    return NeRFSHTrainer(model, device=dev, **kwargs)  # the trainer's defaults are the flags' schedule
+
+
+def phase_render_nerf_sh(dev, card: str) -> int:
+    """Requests of 8,192 rays (64x128 patches of the three Blender cameras
+    of the render phase) through NeRFSHTrainer.render_eval at the headline
+    configuration, random weights and biases from a seed. The first
+    request per camera is checked against the same render through K5f's
+    plain version and through the float32 modules; then requests run back
+    to back for WINDOW_S seconds. K5f's launch counter is zeroed just
+    before and read just after."""
+    from nerf_projects_tpu_torch.core.rays import camera_rays, pose_spherical
+    from nerf_projects_tpu_torch.ops.kernels import fused_sh_mlp as fsm
+
+    trainer = sh_trainer(dev)
+    state = trainer.init_state(SEED)
+    model = random_biases(state.model, torch.Generator().manual_seed(SEED + 21))
+    K = np.array([[FOCAL, 0, SIZE / 2], [0, FOCAL, SIZE / 2], [0, 0, 1]], np.float32)
+    h, w = SH_PATCH
+    requests = []
+    for theta, r0, c0 in REQUESTS:
+        rays = camera_rays(SIZE, SIZE, K, pose_spherical(theta, -30.0, 4.0), device=dev)
+        requests.append(rays.map(lambda t: t[r0:r0 + h, c0:c0 + w].reshape(-1, 3).contiguous()))
+    torch.cuda.synchronize()
+    n_rays = h * w
+
+    fsm.fused_sh_fwd.launches = 0
+    for i, rays in enumerate(requests):
+        t0 = time.perf_counter()
+        out = trainer.render_eval(model, rays)
+        torch.cuda.synchronize()
+        log(f"render_nerf_sh: first request at theta {REQUESTS[i][0]}: {time.perf_counter() - t0:.6f} s")
+        for key in ("rgb", "acc", "disp"):
+            if out[key].shape[0] != n_rays or not bool(torch.isfinite(out[key]).all()):
+                raise AssertionError(f"render_nerf_sh: request {i} {key} is not finite of {n_rays} rays")
+        with torch.no_grad():
+            fine = model(rays, False)[-1]
+            with plain_sh():
+                ref = model(rays, False)[-1]
+        if not torch.equal(fine.rgb, out["rgb"]):
+            raise AssertionError(f"render_nerf_sh: request {i}: render_eval and the model disagree")
+        # the 1e10 tail makes the last sample opaque whenever its density is
+        # above zero: rays whose last weight changes sign are counted, not compared
+        flips = (fine.weights[:, -1] > 0) != (ref.weights[:, -1] > 0)
+        worst = float((fine.rgb - ref.rgb).abs().amax(-1)[~flips].max())
+        log(f"render_nerf_sh: request {i} vs K5f's plain version: max |rgb| diff {worst:.3e} over "
+            f"{int((~flips).sum())} rays, {int(flips.sum())} tail flips")
+        if not worst <= RGB_TOL or int(flips.sum()) > MAX_TAIL_FLIPS * n_rays:
+            raise AssertionError(f"render_nerf_sh: request {i} disagrees with the plain version")
+        model.use_fused_trunk = False
+        f32 = trainer.render_eval(model, rays)["rgb"]
+        model.use_fused_trunk = True
+        d32 = (out["rgb"] - f32).abs()
+        log(f"render_nerf_sh: request {i} vs the float32 modules: max |rgb| diff {float(d32.max()):.3e}, "
+            f"mean {float(d32.mean()):.3e}, rays beyond {RGB_TOL}: {int((d32.amax(-1) > RGB_TOL).sum())}")
+        if not float(d32.mean()) < RGB_TOL:
+            raise AssertionError(f"render_nerf_sh: request {i} is far from the float32 render")
+
+    fsm.fused_sh_fwd.launches = 0
+    secs = []
+    t_window = time.perf_counter()
+    while time.perf_counter() - t_window < WINDOW_S:
+        t0 = time.perf_counter()
+        trainer.render_eval(model, requests[len(secs) % len(requests)])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    window = time.perf_counter() - t_window
+    launches = fsm.fused_sh_fwd.launches
+    log(f"render_nerf_sh on {card}: {len(secs)} timed requests of {n_rays} rays in {window:.6f} s: "
+        f"{len(secs) * n_rays / window:.1f} rays/s; request ms median {np.median(secs) * 1e3:.4f}, "
+        f"min {min(secs) * 1e3:.4f}, max {max(secs) * 1e3:.4f}; {launches} fused_sh_fwd launches")
+    if launches <= 0:
+        raise AssertionError("render_nerf_sh: the main path launched no fused_sh_fwd kernel")
+    check_waits("render_nerf_sh: one request", lambda: trainer.render_eval(model, requests[0]), 0)
+    return launches
+
+
+def phase_train_nerf_sh(dev, card: str) -> dict:
+    """NeRFSHTrainer at the headline configuration, Adam at the reference's
+    log-linear schedule (5e-4 -> 5e-6, delay 2500 steps at 0.01), 1,024
+    rays a step drawn on the card from the 32,768-ray pool of
+    make_dataset(n_views=2, image_size=128). First one step on CHECK_RAYS
+    rays (randomized off, sparsity and weight decay on, 10,000 sparsity
+    points) against the same step on the host through the plain versions;
+    then WARM_STEPS and a WINDOW_S window at sparsity_weight 0 (as
+    bench.py's nerf_sh_train), then a profile. The launch counters are
+    zeroed just before the window and read just after. The host step takes
+    the card's fine depths, and both models' gradients are held to the
+    plain versions'."""
+    import copy as _copy
+
+    from nerf_projects_tpu_torch.data.synthetic import make_dataset
+    from nerf_projects_tpu_torch.models import nerf_sh
+    from nerf_projects_tpu_torch.ops.kernels import fused_sh_mlp as fsm
+    from nerf_projects_tpu_torch.ops.sampling import cast_rays, sample_pdf
+
+    ds = make_dataset(n_views=2, image_size=128, device=dev)
+    torch.cuda.synchronize()
+    idx = torch.arange(CHECK_RAYS, device=dev) * (ds["pixels"].shape[0] // CHECK_RAYS)
+    rays, target = ds["rays"].map(lambda t: t[idx]), ds["pixels"][idx]
+    kw = dict(sparsity_weight=1e-2, sparsity_npoints=SPARSITY_POINTS, weight_decay_mult=1e-3, randomized=False)
+    on_card, on_host = sh_trainer(dev, **kw), sh_trainer("cpu", **kw)
+    model = random_biases(on_card.init_state(SEED).model, torch.Generator().manual_seed(SEED + 22))
+    host_model = _copy.deepcopy(model).cpu()
+    pts = (torch.rand(SPARSITY_POINTS, 3, generator=torch.Generator().manual_seed(SEED + 23)) * 3.0 - 1.5)
+    # the host step takes the card's fine depths: through the resample, bf16
+    # noise in the coarse weights moves the fine samples (ROADMAP, "Limits
+    # of comparison")
+    card_z = []
+
+    def card_sample_pdf(*args, **kwargs):
+        z, points = sample_pdf(*args, **kwargs)
+        card_z.append(z.detach())
+        return z, points
+
+    def host_sample_pdf(generator, bins, weights, origins, directions, z_vals, n, **kwargs):
+        z = card_z[-1].cpu()
+        return z, cast_rays(z, origins, directions)
+
+    fsm.fused_sh_fwd.launches = fsm.fused_sh_bwd.launches = 0
+    try:
+        nerf_sh.sample_pdf = card_sample_pdf
+        stats, grads = on_card.value_and_grad(model, None, rays, target, sparsity_points=pts.to(dev))
+        launched = (fsm.fused_sh_fwd.launches, fsm.fused_sh_bwd.launches)
+        nerf_sh.sample_pdf = host_sample_pdf
+        hstats, hgrads = on_host.value_and_grad(host_model, None, rays.map(lambda t: t.cpu()), target.cpu(),
+                                                sparsity_points=pts)
+    finally:
+        nerf_sh.sample_pdf = sample_pdf
+    tag = f"train_nerf_sh: one step of {CHECK_RAYS} rays with sparsity and weight decay"
+    log(f"{tag}: " + ", ".join(f"{k} {float(stats[k]):.6f} (plain {float(hstats[k]):.6f})" for k in stats)
+        + f"; K5f, K5b launches {launched}")
+    if launched != (3, 3) or not all(abs(float(stats[k]) - float(hstats[k])) <= 3e-3 * abs(float(hstats[k]))
+                                      for k in stats):
+        raise AssertionError(f"{tag}: the loss disagrees with the plain versions")
+    for level in ("coarse", "fine"):
+        names = [k for k in grads if k.startswith(f"mlp_{level}.")]
+        check_grads(f"{tag}, {level} model", [grads[k].cpu() for k in names], [hgrads[k] for k in names], names)
+    del model, host_model, grads, hgrads
+
+    trainer = sh_trainer(dev)
+    state = trainer.init_state(SEED)
+    random_biases(state.model, torch.Generator().manual_seed(SEED + 24))
+    torch.cuda.reset_peak_memory_stats(dev)
+    n_pool = ds["pixels"].shape[0]
+
+    def steps(n):
+        losses = []
+        for _ in range(n):
+            i = torch.randint(0, n_pool, (TRAIN_RAYS,), generator=state.generator, device=dev)
+            _, st = trainer.train_step(state, ds["rays"].map(lambda t: t[i]), ds["pixels"][i])
+            losses.append(st["loss"])
+        return losses
+
+    fsm.fused_sh_fwd.launches = fsm.fused_sh_bwd.launches = 0
+    losses = steps(WARM_STEPS)
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True)]
+    t0 = time.perf_counter()
+    events[0].record()
+    while time.perf_counter() - t0 < WINDOW_S:
+        losses += steps(1)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    counts = {"fused_sh_fwd": fsm.fused_sh_fwd.launches, "fused_sh_bwd": fsm.fused_sh_bwd.launches}
+    step_ms = [a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])]
+    losses = torch.stack(losses).tolist()
+    n = len(step_ms)
+    log(f"train_nerf_sh on {card}: {n} timed steps of {TRAIN_RAYS} rays in {window:.6f} s: "
+        f"{n * TRAIN_RAYS / window:.1f} rays/s; step ms median {float(np.median(step_ms)):.4f}, "
+        f"min {min(step_ms):.4f}, max {max(step_ms):.4f}; loss {losses[0]:.6f} -> {losses[-1]:.6f} over "
+        f"{len(losses)} steps; peak allocated {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB; launches "
+        f"{counts} (warm steps included)")
+    if any(v <= 0 for v in counts.values()):
+        raise AssertionError(f"train_nerf_sh: the training step launched no {counts} kernel")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("train_nerf_sh: a loss is not finite")
+    k = min(10, len(losses) // 4)
+    if not np.mean(losses[-k:]) < np.mean(losses[:k]):
+        raise AssertionError("train_nerf_sh: the loss did not fall")
+    check_waits("train_nerf_sh: one step", lambda: steps(1), 2)  # torch.cumprod's backward, one a level
+    profile_steps(steps, "NeRF-SH train (fused trunk)")
+    return counts
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -1258,6 +1699,12 @@ def main() -> int:
     march["launches"] += train_launches["tile_march_fwd"]
     march_bwd["launches"] = train_launches["tile_march_bwd"]
     kernels += [march, march_bwd]
+    sh_fwd, sh_bwd = phase_kernel_sh(dev)
+    sh_fwd["launches"] = phase_render_nerf_sh(dev, card)
+    sh_counts = phase_train_nerf_sh(dev, card)
+    sh_fwd["launches"] += sh_counts["fused_sh_fwd"]
+    sh_bwd["launches"] = sh_counts["fused_sh_bwd"]
+    kernels += [sh_fwd, sh_bwd]
     log(f"chip_smoke: wall {time.perf_counter() - t0:.1f} s, build {build_s:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

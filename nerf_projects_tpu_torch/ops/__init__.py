@@ -8,6 +8,7 @@ from nerf_projects_tpu_torch.ops.sampling import (
     cast_rays,
     merge_sorted,
     piecewise_constant_pdf,
+    sample_pdf,
     sorted_uniform,
     stratified_sample,
 )
@@ -20,6 +21,7 @@ __all__ = [
     "piecewise_constant_pdf",
     "posenc",
     "posenc_dim",
+    "sample_pdf",
     "sorted_uniform",
     "stratified_sample",
     "volumetric_rendering",

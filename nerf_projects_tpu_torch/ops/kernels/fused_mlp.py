@@ -429,15 +429,15 @@ def _build_kernel_weights_bwd(model: NeRFMLP) -> torch.Tensor:
 _GATHER_INDEX: dict = {}
 
 
-def _gathered(model: NeRFMLP, bwd: bool, raw_layout: bool = False) -> torch.Tensor:
-    """A kernel buffer gathered from the model's parameters, flattened one
-    after another behind a leading 0 (the padding): three launches, no
-    wait for the card, nothing kept but the index. The index is found once
-    per layout, by building the buffer in float64 over a copy of the model
-    whose parameters hold their own positions."""
-    _check_arch(model)
+def gather_weights(model: torch.nn.Module, layout, build) -> torch.Tensor:
+    """A bf16 kernel buffer gathered from the model's parameters, flattened
+    one after another behind a leading 0 (the padding): three launches, no
+    wait for the card, nothing kept but the index. ``build(probe)`` makes
+    the buffer in float64 from a model on the host; the index is found once
+    per ``layout`` key and parameter shapes, by building it over a copy of
+    the model whose parameters hold their own positions."""
     params = [p.detach() for p in model.parameters()]
-    key = (bwd, raw_layout, params[0].device, tuple(p.shape for p in params))
+    key = (layout, params[0].device, tuple(p.shape for p in params))
     index = _GATHER_INDEX.get(key)
     if index is None:
         probe = copy.deepcopy(model).to("cpu", torch.float64)
@@ -446,10 +446,17 @@ def _gathered(model: NeRFMLP, bwd: bool, raw_layout: bool = False) -> torch.Tens
             for p in probe.parameters():
                 p.copy_(torch.arange(at, at + p.numel(), dtype=torch.float64).view(p.shape))
                 at += p.numel()
-        buf = _build_kernel_weights_bwd(probe) if bwd else _build_kernel_weights(probe, raw_layout)
-        index = _GATHER_INDEX[key] = buf.long().to(params[0].device)
+        index = _GATHER_INDEX[key] = build(probe).long().to(params[0].device)
     flat = torch.cat([params[0].new_zeros(1)] + [p.reshape(-1) for p in params])
     return flat.to(torch.bfloat16)[index]
+
+
+def _gathered(model: NeRFMLP, bwd: bool, raw_layout: bool = False) -> torch.Tensor:
+    _check_arch(model)
+    if bwd:
+        return gather_weights(model, ("fused_mlp_bwd",), _build_kernel_weights_bwd)
+    return gather_weights(model, ("fused_mlp", raw_layout),
+                          lambda probe: _build_kernel_weights(probe, raw_layout))
 
 
 def kernel_weights(model: NeRFMLP, raw_layout: bool = False) -> torch.Tensor:

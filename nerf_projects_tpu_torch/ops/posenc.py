@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from nerf_projects_tpu_torch.core.device import device_constant
+
 
 def posenc_dim(in_dim: int, num_freqs: int, include_input: bool = True) -> int:
     """Output feature dim of `posenc`."""
@@ -52,8 +54,9 @@ def posenc(
         f_idx = (j // D) % num_freqs
     else:
         raise ValueError(f"unknown posenc ordering: {ordering!r}")
-    freq_vec = torch.as_tensor(freqs[f_idx], dtype=x.dtype, device=x.device)
-    phase_vec = torch.as_tensor(sc * (0.5 * np.pi), dtype=x.dtype, device=x.device)
+    # kept on the device: a copy of host numbers to the card waits for its queue
+    freq_vec = device_constant(freqs[f_idx], x.dtype, x.device)
+    phase_vec = device_constant(sc * (0.5 * np.pi), x.dtype, x.device)
     xt = x.repeat(*((1,) * (x.ndim - 1)), 2 * num_freqs)
     four = torch.sin(xt * freq_vec + phase_vec)
     if include_input:

@@ -3,7 +3,9 @@
 
 relu density and sigmoid rgb come from the caller; here: dists with a
 1e10 tail scaled by |d|, the exclusive cumprod of (1 - alpha + 1e-10),
-and disp = 1 / max(1e-10, depth / max(1e-10, acc)). All in float32.
+and disp = 1 / max(1e-10, depth / max(1e-10, acc)) ("nerf") or acc /
+depth kept inside (0, 1e10) where acc > 1e-10 ("jaxnerf",
+plenoctree/nerf_sh/nerf/model_utils.py:176-222). All in float32.
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ def volumetric_rendering(
 ) -> RenderOutputs:
     """Composite per-sample rgb [..., N, 3] (activated) and sigma [..., N]
     (activated, >= 0) at depths z_vals [..., N] along dirs [..., 3]."""
-    if disp_mode != "nerf":
+    if disp_mode not in ("nerf", "jaxnerf"):
         raise ValueError(f"unsupported disp_mode: {disp_mode!r}")
     rgb = rgb.float()
     sigma = sigma.float()
@@ -56,7 +58,12 @@ def volumetric_rendering(
     comp_rgb = (weights[..., None] * rgb).sum(-2)
     depth = (weights * z_vals).sum(-1)
     acc = weights.sum(-1)
-    disp = 1.0 / torch.clamp(depth / torch.clamp(acc, min=1e-10), min=1e-10)
+    if disp_mode == "nerf":
+        disp = 1.0 / torch.clamp(depth / torch.clamp(acc, min=1e-10), min=1e-10)
+    else:
+        # jaxnerf: acc / depth where it lies in (0, 1e10) and acc > 1e-10, else 1e10
+        disp = acc / depth
+        disp = torch.where((disp > 0) & (disp < 1e10) & (acc > 1e-10), disp, torch.full_like(disp, 1e10))
     if white_bkgd:
         comp_rgb = comp_rgb + (1.0 - acc[..., None])
     return RenderOutputs(rgb=comp_rgb, disp=disp, acc=acc, weights=weights, depth=depth)

@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+from nerf_projects_tpu_torch.core.device import device_constant
+
 
 def cast_rays(z_vals: torch.Tensor, origins: torch.Tensor, directions: torch.Tensor):
     """Points o + z*d: [..., N] x [..., 3] -> [..., N, 3]."""
@@ -43,8 +45,10 @@ def stratified_sample(
         device = near.device
     device = torch.device("cpu") if device is None else torch.device(device)
     t_vals = torch.linspace(0.0, 1.0, num_samples, dtype=dtype, device=device)
-    near = torch.as_tensor(near, dtype=dtype, device=device)
-    far = torch.as_tensor(far, dtype=dtype, device=device)
+    # scalars come from device_constant: a copy of host numbers to the
+    # card waits for its queue
+    near = near.to(device=device, dtype=dtype) if torch.is_tensor(near) else device_constant(near, dtype, device)
+    far = far.to(device=device, dtype=dtype) if torch.is_tensor(far) else device_constant(far, dtype, device)
     if near.ndim:
         near = near[..., None]
     if far.ndim:
@@ -115,19 +119,33 @@ def piecewise_constant_pdf(
 
     mode="nerf" (reference nerf_helpers.py:372-439): bins [..., M],
     weights [..., M-1]; weights += 1e-5; cdf = [0, cumsum(pdf)];
-    denominators below 1e-5 become 1. Returns [..., num_samples],
-    detached from the graph.
+    denominators below 1e-5 become 1.
+    mode="jaxnerf" (model_utils.py:225-287): the weight sum padded to
+    1e-5; cdf = [0, min(1, cumsum(pdf[:-1])), 1]; deterministic u in
+    [0, 1 - eps]; t through nan_to_num and clip to [0, 1].
+    Returns [..., num_samples], detached from the graph.
 
     ``u`` overrides the uniforms (shape [..., num_samples]); otherwise
-    they are linspace(0, 1) when not randomized, else drawn from
-    ``generator`` (as order statistics when ``sorted_u``).
+    they are linspace(0, 1) (jaxnerf: to 1 - eps) when not randomized,
+    else drawn from ``generator`` (as order statistics when ``sorted_u``).
     """
-    if mode != "nerf":
+    if mode == "nerf":
+        weights = weights + 1e-5
+        pdf = weights / weights.sum(-1, keepdim=True)
+        cdf = torch.cumsum(pdf, dim=-1)
+        cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+        u_max = 1.0
+    elif mode == "jaxnerf":
+        eps = 1e-5
+        weight_sum = weights.sum(-1, keepdim=True)
+        padding = torch.clamp(eps - weight_sum, min=0.0)
+        weights = weights + padding / weights.shape[-1]
+        pdf = weights / (weight_sum + padding)
+        cdf = torch.clamp(torch.cumsum(pdf[..., :-1], dim=-1), max=1.0)
+        cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf, torch.ones_like(cdf[..., :1])], dim=-1)
+        u_max = 1.0 - torch.finfo(torch.float32).eps
+    else:
         raise ValueError(f"unsupported sample_pdf mode: {mode!r}")
-    weights = weights + 1e-5
-    pdf = weights / weights.sum(-1, keepdim=True)
-    cdf = torch.cumsum(pdf, dim=-1)
-    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
     shape = cdf.shape[:-1] + (num_samples,)
     if u is None:
         if randomized:
@@ -136,11 +154,36 @@ def piecewise_constant_pdf(
             draw = sorted_uniform if sorted_u else _uniform
             u = draw(generator, shape, cdf.dtype, cdf.device)
         else:
-            u = torch.linspace(0.0, 1.0, num_samples, dtype=cdf.dtype, device=cdf.device)
+            u = torch.linspace(0.0, u_max, num_samples, dtype=cdf.dtype, device=cdf.device)
             u = u.expand(shape)
     bins_lo, bins_hi, cdf_lo, cdf_hi = _invert_cdf(u, cdf, bins)
-    denom = cdf_hi - cdf_lo
-    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
-    t = (u - cdf_lo) / denom
+    if mode == "nerf":
+        denom = cdf_hi - cdf_lo
+        denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+        t = (u - cdf_lo) / denom
+    else:
+        t = torch.clamp(torch.nan_to_num((u - cdf_lo) / (cdf_hi - cdf_lo), nan=0.0), 0.0, 1.0)
     samples = bins_lo + t * (bins_hi - bins_lo)
     return samples.detach()
+
+
+def sample_pdf(
+    generator: Optional[torch.Generator],
+    bins: torch.Tensor,
+    weights: torch.Tensor,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    z_vals: torch.Tensor,
+    num_samples: int,
+    *,
+    randomized: bool = True,
+    mode: str = "nerf",
+):
+    """Hierarchical sampling: fine samples from the pdf, sorted together
+    with the coarse z_vals (reference model_utils.py:289-314). Returns
+    (z_vals [..., Nc+Nf], points [..., Nc+Nf, 3])."""
+    z_samples = piecewise_constant_pdf(
+        generator, bins, weights, num_samples, randomized=randomized, mode=mode
+    )
+    z_combined = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1).values
+    return z_combined, cast_rays(z_combined, origins, directions)

@@ -1,0 +1,400 @@
+"""The port's fused NeRF-SH trunk (K5, ``ops/kernels/fused_sh_mlp.py``)
+against the JAX package's ``fused_sh_apply`` (CPU).
+
+On the CPU the port runs the plain PyTorch versions of K5f and K5b; the
+JAX side runs its Pallas kernels in interpret mode, as
+tests/test_fused_sh_mlp.py does. Both round to bf16 at the same points
+and sum float32 in other orders. Every bias is drawn from a seeded normal
+(flax zeroes them), so a misplaced bias shows. The CUDA kernels are held
+against the plain versions on the card by chip_smoke.py.
+"""
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import nerf_projects_tpu.ops.pallas.fused_sh_mlp as jfsm
+import nerf_projects_tpu_torch.ops.kernels.fused_mlp as fm
+import nerf_projects_tpu_torch.ops.kernels.fused_sh_mlp as tfsm
+from nerf_projects_tpu.models.nerf_sh import CondMLP as FlaxCondMLP
+from nerf_projects_tpu_torch.models.nerf_sh import CondMLP, cond_mlp_flax_to_state_dict
+from tests.test_torch_fused_mlp import random_biases
+from tests.test_torch_fused_train import assert_grads_close
+
+# The forward against JAX's, of scale (the largest |entry|): both round
+# the same operands to bf16 and sum float32 in other orders. Where a sum
+# sits on a bf16 rounding boundary the two round it apart, and that row's
+# later layers carry bf16-level noise: on these inputs JAX's kernel itself
+# strays up to 2.1e-3 from float64 sums of the same products, and the
+# plain version up to 2.7e-3 from JAX's (4 entries of 15,903 beyond 2e-3).
+# So every entry is held within FWD_MAX_TOL and all but 0.1% (or one)
+# within FWD_TOL; the relative Frobenius error, which those few rows move little
+# (at most 2.8e-4 here), is held within FWD_FRO_TOL, and a product that
+# misses one rounding point moves every row (1.3e-3 to 5e-3,
+# test_rules_catch_a_missing_rounding_point).
+FWD_TOL = 2e-3
+FWD_MAX_TOL = 5e-3
+FWD_FRO_TOL = 6e-4
+HEADS = {"sh_deg 2": 27, "sh_deg 3": 48, "sg_dim 4": 12}
+N = jfsm.TILE + 77  # a ragged tail on the JAX side
+
+
+# Gradients end to end (jax.grad through the custom VJP against autograd):
+# relative Frobenius error and worst entry (of the tensor's largest
+# |entry|), chip_smoke.py's GRAD_FRO_TOL and GRAD_MAX_TOL. Each side
+# recomputes the forward, and a row that rounds apart there flips relu
+# masks, which moves whole columns of dW: on these inputs the plain K5b
+# strays up to 7e-3 (Frobenius) and 3.3e-2 (worst entry) from JAX's, with
+# up to 3.9% of a bias's entries beyond 5e-3, so assert_grads_close's
+# entrywise count cannot hold. The backward's own rounding points are held
+# apart from that noise: with the recompute taken from JAX's, the plain
+# K5b meets assert_grads_close and BWD_FRO_TOL (at most 5.7e-4 here),
+# which a product that misses one rounding point exceeds (1.8e-3 to
+# 5.3e-3).
+GRAD_FRO_TOL = 2e-2
+GRAD_MAX_TOL = 5e-2
+BWD_FRO_TOL = 1e-3
+
+
+def assert_grads_near(got, want, name):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, name
+    fro = np.linalg.norm(got - want) / (np.linalg.norm(want) + 1e-30)
+    worst = np.abs(got - want).max() / (np.abs(want).max() + 1e-30)
+    assert fro < GRAD_FRO_TOL and worst < GRAD_MAX_TOL, (name, float(fro), float(worst))
+
+
+@pytest.fixture(autouse=True)
+def interpret_mode():
+    old = jfsm.INTERPRET
+    jfsm.INTERPRET = True
+    yield
+    jfsm.INTERPRET = old
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def mlps():
+    """Per head: the flax CondMLP's params (random biases) and the port's
+    CondMLP holding them."""
+    out = {}
+    for seed, (name, num_rgb) in enumerate(HEADS.items()):
+        params = jax.jit(FlaxCondMLP(num_rgb_channels=num_rgb).init)(jax.random.PRNGKey(seed), jnp.zeros((1, 63)))
+        tree = random_biases(jax.tree_util.tree_map(np.asarray, params), seed)
+        port = CondMLP(num_rgb_channels=num_rgb)
+        port.load_state_dict(cond_mlp_flax_to_state_dict(tree), strict=True)
+        out[name] = (tree, port, num_rgb)
+    return out
+
+
+def _inputs(seed, num_rgb):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((N, 63)).astype(np.float32)
+    cot_rgb = rng.standard_normal((N, num_rgb)).astype(np.float32)
+    cot_sig = rng.standard_normal((N, 1)).astype(np.float32)
+    return x, cot_rgb, cot_sig
+
+
+def _assert_scaled(got, want, tol, name):
+    """Within tol of the largest |want| everywhere."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, name
+    d = np.abs(got - want) / np.abs(want).max()
+    assert d.max() < tol, (name, float(d.max()))
+
+
+def assert_forward_near(got, want, name):
+    """The forward rule: every entry within FWD_MAX_TOL of scale, all but
+    0.1% (or one, in a small tensor) within FWD_TOL, relative Frobenius
+    error within FWD_FRO_TOL."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, name
+    d = np.abs(got - want) / np.abs(want).max()
+    fro = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert d.max() < FWD_MAX_TOL and (d > FWD_TOL).sum() <= max(1, 1e-3 * d.size) and fro < FWD_FRO_TOL, (
+        name, float(d.max()), int((d > FWD_TOL).sum()), float(fro))
+
+
+@pytest.fixture(scope="module")
+def jax_forward(mlps):
+    """Per head: JAX's fused_sh_apply on the forward test's inputs."""
+    out = {}
+    for head, (tree, _, num_rgb) in mlps.items():
+        x, _, _ = _inputs(1, num_rgb)
+        old = jfsm.INTERPRET
+        jfsm.INTERPRET = True
+        try:
+            out[head] = [np.asarray(a) for a in jfsm.fused_sh_apply(tree["params"], jnp.asarray(x), num_rgb)]
+        finally:
+            jfsm.INTERPRET = old
+    return out
+
+
+def _plain_forward(mlps, head):
+    _, port, num_rgb = mlps[head]
+    x, _, _ = _inputs(1, num_rgb)
+    with torch.no_grad():
+        return tfsm.fused_sh_apply(port, torch.from_numpy(x), num_rgb)
+
+
+@pytest.mark.parametrize("head", list(HEADS))
+def test_plain_forward_matches_jax(mlps, jax_forward, head):
+    _, port, num_rgb = mlps[head]
+    want_rgb, want_sig = jax_forward[head]
+    got_rgb, got_sig = _plain_forward(mlps, head)
+    assert_forward_near(got_rgb, want_rgb, "rgb")
+    assert_forward_near(got_sig, want_sig, "sigma")
+    # and the float32 modules are near: bf16 products, not another function
+    x, _, _ = _inputs(1, num_rgb)
+    with torch.no_grad():
+        f32_rgb, f32_sig = port(torch.from_numpy(x))
+    _assert_scaled(got_rgb, f32_rgb, 5e-2, "rgb vs float32")
+
+
+@pytest.mark.parametrize("head", list(HEADS))
+def test_weight_grads_match_jax(mlps, head):
+    """jax.grad through the reference's custom VJP (K5b in interpret mode)
+    against autograd through the port's Function (the plain K5b)."""
+    tree, port, num_rgb = mlps[head]
+    x, cot_rgb, cot_sig = _inputs(2, num_rgb)
+
+    def loss(p):
+        r, s = jfsm.fused_sh_apply(p, jnp.asarray(x), num_rgb)
+        return jnp.sum(r * cot_rgb) + jnp.sum(s * cot_sig)
+
+    want = jax.grad(loss)(tree["params"])
+    port.zero_grad(set_to_none=True)
+    r, s = tfsm.fused_sh_apply(port, torch.from_numpy(x), num_rgb)
+    (torch.sum(r * torch.from_numpy(cot_rgb)) + torch.sum(s * torch.from_numpy(cot_sig))).backward()
+    for i, layer in enumerate(port.dense):
+        assert_grads_near(layer.weight.grad.T.numpy(), want[f"Dense_{i}"]["kernel"], f"Dense_{i} kernel")
+        assert_grads_near(layer.bias.grad.numpy(), want[f"Dense_{i}"]["bias"], f"Dense_{i} bias")
+
+
+@pytest.fixture(scope="module")
+def jax_backward(mlps):
+    """Per head, on the backward test's inputs: JAX's _fused_sh_bwd on the
+    padded weights and rows, and the activations of its recompute, which
+    is _fwd_tile run tile by tile (its outputs are the kernel's bit for
+    bit)."""
+    tile = jax.jit(jfsm._fwd_tile)
+    out = {}
+    for head, (tree, _, num_rgb) in mlps.items():
+        x, cot_rgb, cot_sig = _inputs(3, num_rgb)
+        n_pad = 2 * jfsm.TILE
+        xp = np.zeros((n_pad, 64), np.float32)
+        xp[:N, :63] = x
+        g_rgb = np.zeros((n_pad, 128), np.float32)
+        g_rgb[:N, :num_rgb] = cot_rgb
+        g_sig = np.zeros((n_pad, 8), np.float32)
+        g_sig[:N, :1] = cot_sig
+        W = jfsm.pack_sh_params(tree["params"])
+        old = jfsm.INTERPRET
+        jfsm.INTERPRET = True
+        try:
+            rgb, sig = jfsm._fused_sh_impl(W, jnp.asarray(xp))
+            want, _ = jfsm._fused_sh_bwd((W, jnp.asarray(xp)), (jnp.asarray(g_rgb), jnp.asarray(g_sig)))
+        finally:
+            jfsm.INTERPRET = old
+        tiles = [tile(jnp.asarray(xp[i: i + jfsm.TILE]), W) for i in range(0, n_pad, jfsm.TILE)]
+        np.testing.assert_array_equal(np.concatenate([np.asarray(t[0]) for t in tiles]), np.asarray(rgb))
+        np.testing.assert_array_equal(np.concatenate([np.asarray(t[1])[:, :8] for t in tiles]), np.asarray(sig))
+        acts = {k: torch.from_numpy(np.concatenate([np.asarray(t[2][k]) for t in tiles])[:N]) for k in tiles[0][2]}
+        out[head] = ({f: np.asarray(getattr(want, f)) for f in jfsm.FusedSHWeights._fields}, acts)
+    return out
+
+
+def _plain_backward(mlps, jax_backward, head):
+    """The plain K5b's padded gradients on the backward test's inputs, its
+    forward recompute replaced by JAX's activations."""
+    _, port, num_rgb = mlps[head]
+    x, cot_rgb, cot_sig = _inputs(3, num_rgb)
+    acts = jax_backward[head][1]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tfsm, "_fwd_tile", lambda W, xp: (None, None, acts))
+        return tfsm.fused_sh_bwd_reference(tfsm.pack_sh_params(port), torch.from_numpy(x),
+                                           torch.from_numpy(cot_rgb), torch.from_numpy(cot_sig))
+
+
+def assert_backward_near(got, want):
+    """The backward rule, field by field: assert_grads_close and a relative
+    Frobenius error within BWD_FRO_TOL."""
+    for name in tfsm.FusedSHWeights._fields:
+        g, w = getattr(got, name).numpy(), want[name]
+        assert_grads_close(g, w, name)
+        fro = np.linalg.norm(g.astype(np.float64) - w) / (np.linalg.norm(w.astype(np.float64)) + 1e-30)
+        assert fro < BWD_FRO_TOL, (name, float(fro))
+
+
+@pytest.mark.parametrize("head", list(HEADS))
+def test_backward_reference_matches_jax_padded_grads(mlps, jax_backward, head):
+    """The plain K5b's padded gradients, field by field, against the
+    reference's _fused_sh_bwd on the same padded weights, both sides on
+    JAX's recomputed activations."""
+    assert_backward_near(_plain_backward(mlps, jax_backward, head), jax_backward[head][0])
+
+
+ORIGINAL_MM = fm._mm
+
+
+def _mm_unrounded_at(at):
+    """fused_mlp._mm with its bf16 rounding left out at the ``at``-th call
+    of one forward (5: dense 5, 9: the coefficient head)."""
+    calls = [0]
+
+    def mm(a, w):
+        i, calls[0] = calls[0], calls[0] + 1
+        return a.float() @ w.float() if i == at else ORIGINAL_MM(a, w)
+
+    return mm
+
+
+# a fused_mlp product with one bf16 rounding left out: (its name, a maker)
+MISSING_ROUNDING = {
+    "dense 5's input": ("_mm", lambda: _mm_unrounded_at(5)),
+    "the coefficient head's input": ("_mm", lambda: _mm_unrounded_at(9)),
+    "g in the dX products": ("_mmBT", lambda: lambda g, w: g.float() @ w.float().T),
+    "activations in dW": ("_mmT", lambda: lambda a, b: a.float().T @ b.to(torch.bfloat16).float()),
+    "g in dW": ("_mmT", lambda: lambda a, b: a.to(torch.bfloat16).float().T @ b.float()),
+}
+
+
+@pytest.mark.parametrize("fault", list(MISSING_ROUNDING))
+def test_rules_catch_a_missing_rounding_point(mlps, jax_forward, jax_backward, fault):
+    """A plain version that leaves out one bf16 rounding fails the rule
+    that holds the right one (sh_deg 3)."""
+    attr, make = MISSING_ROUNDING[fault]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fm, attr, make())
+        with pytest.raises(AssertionError):
+            if attr == "_mm":
+                want_rgb, want_sig = jax_forward["sh_deg 3"]
+                got_rgb, got_sig = _plain_forward(mlps, "sh_deg 3")
+                assert_forward_near(got_rgb, want_rgb, "rgb")
+                assert_forward_near(got_sig, want_sig, "sigma")
+            else:
+                assert_backward_near(_plain_backward(mlps, jax_backward, "sh_deg 3"), jax_backward["sh_deg 3"][0])
+
+
+def test_pack_sh_params_matches_jax(mlps):
+    tree, port, _ = mlps["sh_deg 3"]
+    want = jfsm.pack_sh_params(tree["params"])
+    got = tfsm.pack_sh_params(port)
+    for name in tfsm.FusedSHWeights._fields:
+        np.testing.assert_array_equal(getattr(got, name).float().numpy(),
+                                      np.asarray(getattr(want, name).astype(jnp.float32)), err_msg=name)
+
+
+def test_w5_permutation_round_trip(mlps):
+    """The kernel buffer holds dense 5's input columns as [x | h]; the
+    kernel's gradient of w5, in that row order, un-permutes to the
+    reference's [h | x] rows (split_kernel_grads), and the padded
+    gradients map back onto the parameters (unpack_sh_grads)."""
+    _, port, num_rgb = mlps["sh_deg 3"]
+    w5 = port.dense[5].weight.detach()
+    wk = tfsm.kernel_weights(port)
+    at = {}
+    total = 0
+    for name, rows, cols in tfsm.KERNEL_LAYOUT:
+        at[name] = (total, rows, cols)
+        total += rows * cols
+    assert wk.numel() == total
+    o, r, c = at["w5"]
+    block = wk[o: o + r * c].view(r, c)
+    torch.testing.assert_close(block[:, :63], w5[:, 256:].bfloat16(), rtol=0, atol=0)
+    assert not block[:, 63].any()
+    torch.testing.assert_close(block[:, 64:], w5[:, :256].bfloat16(), rtol=0, atol=0)
+
+    # the kernel's layout of the gradient buffer: FusedSHWeights' padded
+    # shapes with w5's rows in the tile's order; fill w5 with the kernel
+    # buffer's own block ([in][out]) and every other field with its pack
+    packed = tfsm.pack_sh_params(port, dtype=torch.float32)
+    flat = torch.cat([block.float().T.reshape(-1) if name == "w5" else getattr(packed, name).reshape(-1)
+                      for name in tfsm.FusedSHWeights._fields])
+    assert flat.numel() == tfsm.GRAD_ELEMS
+    split = tfsm.split_kernel_grads(flat)
+    torch.testing.assert_close(split.w5, packed.w5.bfloat16().float(), rtol=0, atol=0)
+    named = tfsm.unpack_sh_grads(packed, port)
+    for name, p in port.named_parameters():
+        torch.testing.assert_close(named[name], p.detach(), rtol=0, atol=0)
+
+
+def _constants(src):
+    """The ``constexpr`` integer constants of a CUDA source under csrc/;
+    ``mlp::X`` reads mlp_tile.cuh's X."""
+    csrc = Path(tfsm.__file__).resolve().parents[2] / "csrc"
+    pattern = r"(?m)^constexpr (?:long long|int) (\w+) = ([^;]+);"
+    mlp = {}
+    for k, expr in re.findall(pattern, (csrc / "mlp_tile.cuh").read_text()):
+        mlp[k] = eval(expr, {}, dict(mlp))
+    env = {f"mlp_{k}": v for k, v in mlp.items()}
+    for k, expr in re.findall(pattern, (csrc / src).read_text().replace("mlp::", "mlp_")):
+        env[k] = eval(expr, {}, dict(env))
+    return env
+
+
+def test_kernel_layouts_match_cuda_source(mlps):
+    """KERNEL_LAYOUT, kernel_layout_bwd and GRAD_SHAPES are the OFF_*,
+    OFFT_* and GW* constants of csrc/fused_sh_tile.cuh."""
+    env = _constants("fused_sh_tile.cuh")
+    offsets, total = {}, 0
+    for name, rows, cols in tfsm.KERNEL_LAYOUT:
+        offsets[name] = total
+        total += rows * cols
+    assert env["N_WEIGHTS"] == total
+    for name in ("w0", "w1", "w5", "w6", "wsig", "wrgb", "bsig", "brgb"):
+        assert env[f"OFF_{name.upper()}"] == offsets[name], name
+    assert env["OFF_B"] == offsets["b0"]
+    _, port, num_rgb = mlps["sh_deg 3"]
+    layout = tfsm.kernel_layout_bwd(num_rgb)
+    assert [n for n, _, _ in layout] == ["wsig", "w7", "w6", "w5", "w4", "w3", "w2", "w1", "wrgb"]
+    assert layout[0][1] * layout[0][2] == env["OFFT_W7"]
+    assert sum(r * c for _, r, c in layout[:-1]) == env["OFFT_WRGB"]
+    assert layout[-1][1:] == (256, 64)
+    assert tfsm.kernel_weights_bwd(port).numel() == env["OFFT_WRGB"] + 256 * 64
+    assert env["GRAD_ELEMS"] == tfsm.GRAD_ELEMS
+    assert env["GB0"] == sum(r * c for r, c in tfsm.GRAD_SHAPES[:10])
+
+
+def test_kernel_weights_bwd_holds_the_transposed_weights(mlps):
+    _, port, num_rgb = mlps["sg_dim 4"]
+    wkt = tfsm.kernel_weights_bwd(port)
+    d = port.dense
+    want = {"wsig": d[8].weight, "w5": d[5].weight[:, :256].T, "wrgb": d[9].weight.T}
+    want.update({f"w{i}": d[i].weight.T for i in (1, 2, 3, 4, 6, 7)})
+    at = 0
+    for name, rows, cols in tfsm.kernel_layout_bwd(num_rgb):
+        piece = wkt[at: at + rows * cols].view(rows, cols)
+        w = want[name].detach().bfloat16()
+        torch.testing.assert_close(piece[:, : w.shape[1]], w, rtol=0, atol=0)
+        assert not piece[:, w.shape[1]:].any()
+        at += rows * cols
+    assert at == wkt.numel()
+
+
+def test_kernels_refuse_host_tensors(mlps):
+    _, port, num_rgb = mlps["sh_deg 2"]
+    wk = tfsm.kernel_weights(port)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfsm.fused_sh_fwd(wk, torch.zeros(8, 63), num_rgb)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfsm.fused_sh_bwd(wk, tfsm.kernel_weights_bwd(port), torch.zeros(8, 63), torch.zeros(8, num_rgb),
+                          torch.zeros(8, 1))
+
+
+def test_fused_trunk_refuses_other_architectures():
+    with pytest.raises(ValueError, match="fused SH trunk"):
+        tfsm.fused_sh_apply(CondMLP(net_depth=4, net_width=64, num_rgb_channels=27), torch.zeros(4, 63), 27)
+    with pytest.raises(ValueError, match="fused SH trunk"):
+        tfsm.fused_sh_apply(CondMLP(in_ch_condition=27, num_rgb_channels=3), torch.zeros(4, 63), 3)

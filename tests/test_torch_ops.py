@@ -185,3 +185,31 @@ def test_volumetric_rendering_matches(white_bkgd):
     got = trender.volumetric_rendering(*(_t(a) for a in (rgb, sigma, z, d)), white_bkgd=white_bkgd)
     for name in want._fields:
         _close(getattr(got, name), getattr(want, name))
+
+
+def test_posenc_and_stratified_sample_copy_no_host_numbers_after_their_first_call(monkeypatch):
+    """posenc's frequency and phase tables and stratified_sample's scalar
+    near and far come from tensors kept on the device: on the card a
+    copy of host numbers (torch.tensor, torch.as_tensor) waits for the
+    queue to drain, once per call."""
+    x = _t(np.random.default_rng(5).standard_normal((7, 3)))
+
+    def run():
+        return (posenc(x, 10, ordering="block"), posenc(x, 4),
+                tsampling.stratified_sample(None, 16, 2.0, 6.0, (7,), randomized=False))
+
+    first = run()
+    copies = []
+    for name in ("tensor", "as_tensor"):
+        real = getattr(torch, name)
+
+        def counted(*args, _real=real, _name=name, **kwargs):
+            copies.append(_name)
+            return _real(*args, **kwargs)
+
+        monkeypatch.setattr(torch, name, counted)
+    again = run()
+    monkeypatch.undo()
+    assert copies == []
+    for a, b in zip(first, again):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
