@@ -4,7 +4,8 @@
 Copies the package and chip_smoke.py to a temporary directory, breaks
 one line of a CUDA source (or of the Python that packs a kernel's
 weights) there, and runs the chip_smoke.py kernel phases that run the
-broken code (K1b, K2, K3, K4 or K5) on the copy; each must fail. Run
+broken code (K1b, K2, K3, K4, K5, K1r or the raw-points training step)
+on the copy; each must fail. Run
 from the repository root:
 
     python3 chip_mutants.py
@@ -76,6 +77,31 @@ MUTANTS = {
         "for (int k = 1; k < splits; ++k) s += part[k * mlp::GB0 + i];",
         ("kernel_sh",),
     ),
+    "trunk_0's rows left unpermuted in unpack_grads' raw layout": (
+        "nerf_projects_tpu_torch/ops/kernels/fused_mlp.py",
+        "w0, w5x, wvv = unperm(w0, 10), unperm(w5x, 10), unperm(wvv, 4)",
+        "w0, w5x, wvv = w0, unperm(w5x, 10), unperm(wvv, 4)",
+        ("kernel_raw",),
+    ),
+    "the in-kernel view encoder at 3 frequencies instead of 4": (
+        "nerf_projects_tpu_torch/csrc/mlp_tile.cuh",
+        "val = RAW ? encode_col(vrow, c, 4) : vrow[c];",
+        "val = RAW ? encode_col(vrow, c, 3) : vrow[c];",
+        ("kernel_raw", "fused_train_level"),
+    ),
+    "the encoding stash (A_X) written as zeros": (
+        "nerf_projects_tpu_torch/csrc/mlp_tile.cuh",
+        "stash_cols(act, AS, COL_X, 64, stash, A_X, ld, row_base);",
+        "for (int i = threadIdx.x; i < 64 * BM; i += THREADS) "
+        "stash[(A_X + i / BM) * ld + row_base + i % BM] = __float2bfloat16_rn(0.f);",
+        ("kernel_raw", "fused_mlp_bwd", "fused_train_level"),
+    ),
+    "the transmittance's backward without its division by the factor": (
+        "nerf_projects_tpu_torch/ops/render.py",
+        "return torch.flip(torch.cumsum(torch.flip(g * c, (-1,)), dim=-1), (-1,)) / f",
+        "return torch.flip(torch.cumsum(torch.flip(g * c, (-1,)), dim=-1), (-1,))",
+        ("train_raw",),
+    ),
 }
 
 PHASES = r'''
@@ -89,7 +115,9 @@ phases = {"fused_mlp_bwd": lambda: c.phase_kernel_bwd(dev, big_rows=65536),
           "fused_train_level": lambda: c.phase_kernel_train(dev),
           "tile_march_fwd": lambda: c.phase_kernel_march(dev),
           "tile_march_bwd": lambda: c.phase_kernel_march_bwd(dev),
-          "kernel_sh": lambda: c.phase_kernel_sh(dev)}
+          "kernel_sh": lambda: c.phase_kernel_sh(dev),
+          "kernel_raw": lambda: c.phase_kernel_raw(dev, serve_rows=65536, train_rows=65536),
+          "train_raw": lambda: c.phase_train_raw(dev, c.nvidia_smi())}
 for name in sys.argv[1:]:
     fn = phases[name]
     try:

@@ -8,7 +8,7 @@ Run from the repository root, with no arguments:
 
 Phases, each of which raises (exit code 1) on failure:
 
-  build   nvcc compiles the seven kernel libraries for sm_90a, one
+  build   nvcc compiles the nine kernel libraries for sm_90a, one
           process per source, all at once.
   kernel  each kernel against its plain PyTorch version on the card,
           then timed with CUDA events beside its bound and its plain
@@ -41,10 +41,9 @@ Phases, each of which raises (exit code 1) on failure:
           with rays/s, step times, the first and last loss and PSNR, the
           launch counts (zeroed just before, read just after; the loss
           must fall and stay finite), one step's calls that wait for the
-          card (torch.cuda.set_sync_debug_mode: none for the fused train
-          level, at most one a level under autograd), then a short
-          torch.profiler trace of each route splitting the card's time
-          into the hand-written kernels and the rest.
+          card (torch.cuda.set_sync_debug_mode: none on either route),
+          then a short torch.profiler trace of each route splitting the
+          card's time into the hand-written kernels and the rest.
   kernel_march
           the Plenoxels tile march (K3) against its plain PyTorch version
           on the card: a random 32^3 grid (basis_dim 9) with tiles of 128,
@@ -53,6 +52,42 @@ Phases, each of which raises (exit code 1) on failure:
           frame's march timed with CUDA events beside its bound (the
           bricks it touches and its rays over HBM bandwidth, its samples'
           float operations over the float32 rate) and the plain version.
+  kernel_raw
+          the fused MLP on raw points, posenc in the kernel: its forward
+          (K1rf) against its plain version on 8192 + 37 rows and at the
+          render's fine level (786,432 rows), and against K1f fed the same
+          rows' encodings (_encode_tile) and the same raw-layout weights;
+          its weight-gradient backward (K1rb) against its plain version
+          on 8192 + 37 rows (also against float64 sums) and at a training
+          step's fine level (294,912 rows); the parameter gradients of
+          the raw route (fused_apply_raw, through unpack_grads'
+          raw layout) against the encoded route's (K1f + K1b). Points
+          U[-4, 4], unit view directions, random biases. Both timed with
+          CUDA events beside their bounds, their plain versions and K1f
+          or K1b on the same rows.
+  render_raw
+          the render phase's requests (lego configuration, 4096 rays,
+          three cameras, random weights and biases from a seed) through
+          render_rays(..., randomized=False) with a tagged
+          fused_apply_raw (the reference's accepts_raw_points route):
+          the first request per camera checked against the same render
+          through K1rf's plain version (tail flips counted) and, on
+          average, against the encoded route (K1f); then requests back
+          to back for WINDOW_S seconds, K1rf's launches zeroed just
+          before the first request and read just after the window.
+  train_raw
+          the train phase's flagship configuration with the MLP on raw
+          points (K1rf + K1rb under autograd): render_rays with a tagged
+          fused_apply_raw, MSE(fine) + MSE(coarse), torch.autograd.grad
+          and Adam through NeRFTrainer. First the transmittance's
+          gradient (ops/render.py) against autograd through
+          torch.cumprod at a training step's shapes, and one step on 64
+          rays against the plain versions on the host (the coarse
+          model's gradients at the gradient gates); then 3 warm steps
+          and WINDOW_S seconds: rays/s, step ms, the first and last loss
+          (it must fall and stay finite), K1rf and K1rb launches (zeroed
+          just before, read just after), one step's waiting calls (none)
+          and a profile of 5 steps.
   render_plenoxels
           render_frame_pallas (one K3 launch a frame, per-ray early stop)
           at bench.py's two frame configurations: 512^3, basis_dim 9,
@@ -62,8 +97,9 @@ Phases, each of which raises (exit code 1) on failure:
           density U[500, 1500]); both grids are built on the card. Frames
           run back to back for WINDOW_S seconds; frames/s, ms a frame,
           bricks, GB on the card, K3 launches (zeroed just before, read
-          just after) and samples marched; a few tiles of the first frame
-          of each scene are checked against the plain version.
+          just after) and samples marched; every frame of each scene is
+          checked against the plain version; K3 alone timed on frame 0
+          with CUDA events.
   kernel_march_bwd
           the tile march's backward (K4) against its plain PyTorch
           version on the card: a random 32^3 grid whose rays stop
@@ -88,7 +124,8 @@ Phases, each of which raises (exit code 1) on failure:
           steps and steps back to back for WINDOW_S seconds, a CUDA event
           after each: train rays/s, step ms median, min and max, the K3
           and K4 launches (zeroed just before, read just after), the
-          first and last MSE (the loss must fall and stay finite).
+          first and last MSE (the loss must fall and stay finite); K3
+          alone timed on the batch with CUDA events.
   kernel_sh
           the fused NeRF-SH trunk (K5f) against its plain PyTorch version
           on 8192 + 37 rows at each head width the kernel builds (27, 48,
@@ -121,7 +158,7 @@ Phases, each of which raises (exit code 1) on failure:
           sparsity_weight 0, as bench.py's nerf_sh_train: rays/s, step
           ms, the first and last loss (it must fall and stay finite), K5f
           and K5b launches, peak memory; then one step's waiting calls
-          (at most one a level) and a profile of 5 steps.
+          (none) and a profile of 5 steps.
 
 Output: progress lines, a `{"kernels": [...]}` JSON line, the card's
 name and power limit as nvidia-smi gives them, and last
@@ -214,7 +251,7 @@ def encodings(n: int, gen: torch.Generator, device) -> tuple:
 
 
 LIBRARIES = ("fused_mlp_fwd", "fused_mlp_bwd", "fused_train", "tile_march_fwd", "tile_march_bwd", "fused_sh_fwd",
-             "fused_sh_bwd")
+             "fused_sh_bwd", "fused_mlp_raw_fwd", "fused_mlp_raw_bwd")
 
 
 def phase_build():
@@ -709,15 +746,328 @@ def phase_train(dev, card: str) -> dict:
         if not np.mean(losses[-k:]) < np.mean(losses[:k]):
             raise AssertionError(f"train: {route}: the loss did not fall")
         out[mega] = counts
-        # the fused train level reads nothing back; under autograd each
-        # level's torch.cumprod backward tests its input for zeros on the host
+        # neither route reads anything back: the transmittance's backward
+        # (ops/render.py::_Cumprod) tests nothing on the host
         check_waits(f"train: {route}, one step",
-                    lambda: trainer.scan_steps(state, ds["rays"], ds["pixels"], 1, batch_size=TRAIN_RAYS),
-                    0 if mega else 2)
+                    lambda: trainer.scan_steps(state, ds["rays"], ds["pixels"], 1, batch_size=TRAIN_RAYS), 0)
         profile_steps(lambda n: trainer.scan_steps(state, ds["rays"], ds["pixels"], n, batch_size=TRAIN_RAYS)[0],
                       route)
     return {"fused_train_level": out[True]["fused_train_level"],
             "fused_mlp_bwd": out[False]["fused_mlp_bwd"]}
+
+
+# ---------------------------------------------------------------------------
+# Vanilla NeRF on raw points: the fused MLP with posenc in the kernel (K1rf, K1rb)
+# ---------------------------------------------------------------------------
+
+TRANSMITTANCE_TOL = 1e-6    # of scale: the same reverse cumulative sum over the factor as torch.cumprod's backward
+
+
+def raw_inputs(n: int, gen: torch.Generator, dev) -> tuple:
+    """Raw points U[-4, 4] (2^9 |p| reaches ~2,000 rad) and unit view
+    directions [n, 8], columns 0..2 live, as fused_apply_raw pads them."""
+    p = torch.zeros(n, 8)
+    p[:, :3] = torch.rand(n, 3, generator=gen) * 8.0 - 4.0
+    d = torch.randn(n, 3, generator=gen)
+    v = torch.zeros(n, 8)
+    v[:, :3] = d / d.norm(dim=-1, keepdim=True)
+    return p.to(dev), v.to(dev)
+
+
+def tagged(fn):
+    """A wrapper of ``fn`` tagged ``accepts_raw_points``: render_rays then
+    hands it raw points and per-row view directions."""
+    def apply(params, pts, viewdirs):
+        return fn(params, pts, viewdirs)
+    apply.accepts_raw_points = True
+    return apply
+
+
+def model_grads(model, run, cot) -> dict:
+    """The model's parameter gradients of sum(run() * cot)."""
+    model.zero_grad(set_to_none=True)
+    (run() * cot).sum().backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def phase_kernel_raw(dev, serve_rows: int, train_rows: int) -> tuple:
+    """K1rf against its plain version on a ragged size and at the render's
+    fine level, and against K1f fed the port's encodings of the same rows
+    (the encoder alone differs); K1rb against its plain version (and
+    float64 sums) on a ragged size and at a training step's fine level;
+    the raw route's parameter gradients against the encoded route's. Then
+    both timed beside their bounds, their plain versions and K1f / K1b."""
+    from nerf_projects_tpu_torch.models.nerf import NeRFMLP
+    from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerf_projects_tpu_torch.ops.posenc import posenc
+
+    gen = torch.Generator().manual_seed(SEED + 30)
+    model = NeRFMLP(depth=8, width=256, use_viewdirs=True).reset_parameters(gen)
+    model = random_biases(model, gen).to(dev)
+    W = fm.pack_params(model, raw_layout=True)
+    wk, wkt = fm.kernel_weights(model, raw_layout=True), fm.kernel_weights_bwd(model)
+    max_fwd = max_bwd = 0.0
+    for n in (8192 + 37, serve_rows):
+        p, v = raw_inputs(n, gen, dev)
+        got = fm.fused_mlp_raw_fwd(wk, p, v)
+        want = fm.fused_nerf_mlp_raw_reference(W, p, v)
+        x, ve = fm._encode_raw(p, v)
+        enc = fm.fused_mlp_fwd(wk, x, ve)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"kernel_raw: non-finite K1rf output at n={n}")
+        scale = float(want.abs().mean()) + 1.0
+        err, err_enc = float((got - want).abs().max()), float((got - enc).abs().max())
+        # the kernel's sinf and torch.sin on the card give the same bits, so
+        # the two kernels see the same bf16 encodings and must agree exactly
+        same = float((got == enc).all(-1).float().mean())
+        log(f"kernel_raw: fused_mlp_raw_fwd n={n} max_abs_err={err:.3e} err/(mean|plain|+1)={err / scale:.3e} "
+            f"(tolerance {KERNEL_TOL}); against K1f on the port's encodings of the same rows: max |diff| "
+            f"{err_enc:.3e}, {same:.6f} of rows the same bits (all must be)")
+        if not (err / scale < KERNEL_TOL and torch.equal(got, enc)):
+            raise AssertionError(f"kernel_raw: fused_mlp_raw_fwd disagrees at n={n}")
+        max_fwd = max(max_fwd, err)
+    fwd_args = (p, v, x, ve)
+
+    for n in (8192 + 37, train_rows):
+        p, v = raw_inputs(n, gen, dev)
+        g = (torch.randn(n, 8, generator=gen) * 1e-3).to(dev)
+        got = fm.fused_mlp_raw_bwd(wk, wkt, p, v, g)
+        want = fm.fused_mlp_raw_bwd_reference(W, p, v, g)
+        exact = None
+        if n < train_rows:
+            with fm.float64_sums():
+                exact = fm.fused_mlp_raw_bwd_reference(W, p, v, g)
+        torch.cuda.synchronize()
+        max_bwd = max(max_bwd, check_grads(f"kernel_raw: fused_mlp_raw_bwd n={n}", got, want,
+                                           fm.FusedMLPWeights._fields, exact))
+    bwd_args = (p, v, g)
+
+    # the raw route maps K1rb's gradients back through unpack_grads' raw
+    # layout, which its plain version shares: held against the encoded
+    # route (K1f + K1b, the model's layout) on the same points
+    n = 8192 + 37
+    p, v = raw_inputs(n, gen, dev)
+    pts, vd = p[:, :3].contiguous(), v[:, :3].contiguous()
+    cot = (torch.randn(n, 4, generator=gen) * 1e-3).to(dev)
+    raw = model_grads(model, lambda: fm.fused_apply_raw(model, pts, vd), cot)
+    enc = model_grads(model, lambda: fm.fused_apply(model, posenc(pts, 10), posenc(vd, 4)), cot)
+    names = list(raw)
+    max_bwd = max(max_bwd, check_grads(f"kernel_raw: the raw route's parameter gradients (n={n}) against the "
+                                       "encoded route's", [raw[k] for k in names], [enc[k] for k in names], names))
+
+    p, v, x, ve = fwd_args
+    ms = time_ms(lambda: fm.fused_mlp_raw_fwd(wk, p, v), iters=20)
+    k1f_ms = time_ms(lambda: fm.fused_mlp_fwd(wk, x, ve), iters=20)
+    plain_ms = time_ms(lambda: fm.fused_nerf_mlp_raw_reference(W, p, v), iters=5, warmup=1)
+    flops = 2.0 * fm.LIVE_MACS_PER_SAMPLE * serve_rows
+    b_ms, by, t_ops, t_bytes = bound(flops, fm.RAW_IO_BYTES_PER_SAMPLE * serve_rows + wk.numel() * 2)
+    log(f"kernel_raw: fused_mlp_raw_fwd n={serve_rows}: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), K1f on the "
+        f"same rows' encodings {k1f_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms (operations "
+        f"{t_ops:.4f} ms, bytes {t_bytes:.4f} ms), {b_ms / ms:.3f} of bound")
+    fwd = {"name": "fused_mlp_raw_fwd", "route": "cuda", "source": "nerf_projects_tpu_torch/csrc/fused_mlp_raw_fwd.cu",
+           "replaces": "nerf_projects_tpu/ops/pallas/fused_mlp.py:534", "launches": 0, "max_abs_err": max_fwd,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+    p, v, g = bwd_args
+    x, ve = fm._encode_raw(p, v)
+    ms = time_ms(lambda: fm.fused_mlp_raw_bwd(wk, wkt, p, v, g), iters=10)
+    k1b_ms = time_ms(lambda: fm.fused_mlp_bwd(wk, wkt, x, ve, g), iters=10)
+    plain_ms = time_ms(lambda: fm.fused_mlp_raw_bwd_reference(W, p, v, g), iters=3, warmup=1)
+    flops = 3 * 2.0 * fm.LIVE_MACS_PER_SAMPLE * train_rows
+    nbytes = fm.RAW_IO_BYTES_PER_SAMPLE * train_rows + fm.GRAD_ELEMS * 4 + (wk.numel() + wkt.numel()) * 2
+    b_ms, by, t_ops, t_bytes = bound(flops, nbytes)
+    log(f"kernel_raw: fused_mlp_raw_bwd n={train_rows}: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), K1b on the "
+        f"same rows' encodings {k1b_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms (operations "
+        f"{t_ops:.4f} ms, bytes {t_bytes:.4f} ms), {b_ms / ms:.3f} of bound")
+    bwd = {"name": "fused_mlp_raw_bwd", "route": "cuda", "source": "nerf_projects_tpu_torch/csrc/fused_mlp_raw_bwd.cu",
+           "replaces": "nerf_projects_tpu/ops/pallas/fused_mlp.py:559", "launches": 0, "max_abs_err": max_bwd,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+    return fwd, bwd
+
+
+def phase_render_raw(dev, card: str) -> int:
+    """The render phase's requests through render_rays with a tagged
+    fused_apply_raw (K1rf): one request per camera, checked against K1rf's
+    plain version and the encoded route, then requests back to back for
+    WINDOW_S seconds. Returns K1rf's launches, zeroed just before the
+    first request and read just after the window."""
+    from nerf_projects_tpu_torch.core.rays import camera_rays, pose_spherical
+    from nerf_projects_tpu_torch.models.pipeline import NeRFRenderConfig, render_rays
+    from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerf_projects_tpu_torch.train import NeRFTrainer
+
+    cfg = NeRFRenderConfig(
+        num_coarse_samples=64, num_fine_samples=128, multires=10, multires_views=4,
+        use_viewdirs=True, white_bkgd=True, perturb=False,
+    )
+    trainer = NeRFTrainer(cfg, depth=8, width=256, use_fused_mlp=True, device=dev)
+    gen = torch.Generator().manual_seed(SEED + 31)
+    params = tuple(random_biases(m, gen) for m in trainer.init_params(SEED))
+    K = np.array([[FOCAL, 0, SIZE / 2], [0, FOCAL, SIZE / 2], [0, 0, 1]], np.float32)
+    requests = []
+    for theta, r0, c0 in REQUESTS:
+        rays = camera_rays(SIZE, SIZE, K, pose_spherical(theta, -30.0, 4.0), device=dev)
+        requests.append(rays.map(lambda t: t[r0:r0 + PATCH, c0:c0 + PATCH].reshape(-1, 3).contiguous()))
+    torch.cuda.synchronize()
+    n_rays = PATCH * PATCH
+    apply = tagged(fm.fused_apply_raw)
+
+    @torch.no_grad()
+    def serve(rays, fn=apply, p=params):
+        return render_rays(None, p[0], p[1], fn, rays, trainer.near, trainer.far, cfg, randomized=False)
+
+    fm.fused_mlp_raw_fwd.launches = 0
+    outs = []
+    for rays in requests:
+        t0 = time.perf_counter()
+        outs.append(serve(rays))
+        torch.cuda.synchronize()
+        log(f"render_raw: first request at theta {REQUESTS[len(outs) - 1][0]}: {time.perf_counter() - t0:.6f} s")
+    secs = []
+    t_window = time.perf_counter()
+    while time.perf_counter() - t_window < WINDOW_S:
+        t0 = time.perf_counter()
+        serve(requests[len(secs) % len(requests)])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    window = time.perf_counter() - t_window
+    launches = fm.fused_mlp_raw_fwd.launches
+    log(f"render_raw on {card}: {len(secs)} timed requests of {n_rays} rays in {window:.6f} s: "
+        f"{len(secs) * n_rays / window:.1f} rays/s; request ms median {np.median(secs) * 1e3:.4f}, "
+        f"min {min(secs) * 1e3:.4f}, max {max(secs) * 1e3:.4f}; "
+        f"{launches} fused_mlp_raw_fwd launches in {len(requests) + len(secs)} requests")
+    if launches <= 0:
+        raise AssertionError("render_raw: the main path launched no fused_mlp_raw_fwd kernel")
+
+    packed = tuple(fm.pack_params(m, raw_layout=True) for m in params)
+    for i, (rays, out) in enumerate(zip(requests, outs)):
+        for key in ("rgb", "acc", "depth", "disp"):
+            if out[key].shape[0] != n_rays or not bool(torch.isfinite(out[key]).all()):
+                raise AssertionError(f"render_raw: request {i} {key} is not finite of {n_rays} rays")
+        ref = serve(rays, tagged(fm.fused_apply_raw_reference), packed)
+        # rays whose last sample's weight changes sign (the 1e10 tail) are counted, not compared
+        flips = (out["weights"][:, -1] > 0) != (ref["weights"][:, -1] > 0)
+        worst = float((out["rgb"] - ref["rgb"]).abs().amax(-1)[~flips].max())
+        log(f"render_raw: request {i} vs K1rf's plain version: max |rgb| diff {worst:.3e} over "
+            f"{int((~flips).sum())} rays, {int(flips.sum())} tail flips")
+        if not worst <= RGB_TOL or int(flips.sum()) > MAX_TAIL_FLIPS * n_rays:
+            raise AssertionError(f"render_raw: request {i} disagrees with the plain version")
+        d_enc = (out["rgb"] - trainer.render_image(params, rays, chunk=n_rays, use_kernel=True)["rgb"]).abs()
+        log(f"render_raw: request {i} vs the encoded route (K1f): max |rgb| diff {float(d_enc.max()):.3e}, "
+            f"mean {float(d_enc.mean()):.3e}, rays beyond {RGB_TOL}: {int((d_enc.amax(-1) > RGB_TOL).sum())}")
+        if not float(d_enc.mean()) < RGB_TOL:
+            raise AssertionError(f"render_raw: request {i} is far from the encoded route")
+    return launches
+
+
+def check_transmittance(dev) -> None:
+    """The weights' gradient through compute_alpha_weights (a backward
+    that reads nothing to the host) against autograd through
+    torch.cumprod, at a training step's fine-level shapes: the same
+    weights, the gradient within TRANSMITTANCE_TOL of its scale. The last
+    sample's gradient is left out: its distance is the 1e10 tail, so
+    where its sigma is 0 its own gradient is ~1e10 and would hide the
+    transmittance's part."""
+    from nerf_projects_tpu_torch.ops import render
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    shape = (TRAIN_RAYS, COARSE + FINE)
+    sigma = torch.relu(torch.randn(shape, generator=gen, device=dev)) * 4.0
+    z = torch.sort(2.0 + 4.0 * torch.rand(shape, generator=gen, device=dev), dim=-1).values
+    dirs = torch.randn(TRAIN_RAYS, 3, generator=gen, device=dev)
+    cot = torch.randn(shape, generator=gen, device=dev)
+    res = []
+    for fn in (render.compute_alpha_weights, render.compute_alpha_weights_reference):
+        s = sigma.clone().requires_grad_(True)
+        _, w = fn(s, z, dirs)
+        res.append((w.detach(), torch.autograd.grad((w * cot).sum(), s)[0][:, :-1]))
+    (w, g), (w_ref, g_ref) = res
+    err = float((g - g_ref).abs().max() / g_ref.abs().max())
+    log(f"train_raw: the transmittance's gradient against torch.cumprod's autograd at {shape}: weights the same "
+        f"bits {torch.equal(w, w_ref)}, gradient max |err| {err:.3e} of scale (tolerance {TRANSMITTANCE_TOL})")
+    if not (torch.equal(w, w_ref) and err < TRANSMITTANCE_TOL):
+        raise AssertionError("train_raw: the transmittance's gradient disagrees with torch.cumprod's")
+
+
+def phase_train_raw(dev, card: str) -> dict:
+    """The train phase's flagship configuration with the MLP on raw points:
+    NeRFTrainer.loss_fn's render through a tagged fused_apply_raw (K1rf
+    and K1rb under autograd). First the transmittance's gradient and one
+    step of CHECK_RAYS rays against the plain versions on the host, then
+    WARM_STEPS and a WINDOW_S window with the launch counters zeroed just
+    before and read just after, the waiting calls of one step and a
+    profile."""
+    from nerf_projects_tpu_torch.data.synthetic import make_dataset
+    from nerf_projects_tpu_torch.models.pipeline import NeRFRenderConfig
+    from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerf_projects_tpu_torch.train import NeRFTrainer
+
+    check_transmittance(dev)
+    apply = tagged(fm.fused_apply_raw)
+
+    class RawTrainer(NeRFTrainer):
+        """NeRFTrainer whose loss_fn renders through the raw-points MLP."""
+
+        @property
+        def apply_fn(self):
+            return apply
+
+    cfg = NeRFRenderConfig(
+        num_coarse_samples=COARSE, num_fine_samples=FINE, multires=10, multires_views=4,
+        use_viewdirs=True, white_bkgd=True, perturb=True, raw_noise_std=0.0, resample_sorted=False,
+    )
+
+    def make(config=cfg, device=dev):
+        return RawTrainer(config, depth=8, width=256, near=2.0, far=6.0, lrate=5e-4, lrate_decay=250,
+                          compute_dtype=torch.bfloat16, use_fused_mlp=True, device=device)
+
+    ds = make_dataset(n_views=2, image_size=128, device=dev)
+    torch.cuda.synchronize()
+    check = cfg._replace(perturb=False)
+    idx = torch.arange(CHECK_RAYS, device=dev) * (ds["pixels"].shape[0] // CHECK_RAYS)
+    rays, target = ds["rays"].map(lambda t: t[idx]), ds["pixels"][idx]
+    on_card, on_host = make(check), make(check, "cpu")
+    gen = torch.Generator().manual_seed(SEED + 33)
+    params = tuple(random_biases(m, gen) for m in on_card.init_params(SEED))
+    host_params = tuple(copy.deepcopy(m).cpu() for m in params)
+    fm.fused_mlp_raw_fwd.launches = fm.fused_mlp_raw_bwd.launches = 0
+    (loss, mse), grads = on_card._value_and_grad(params, None, rays, target)
+    launched = (fm.fused_mlp_raw_fwd.launches, fm.fused_mlp_raw_bwd.launches)
+    (hloss, hmse), hgrads = on_host._value_and_grad(host_params, None, rays.map(lambda t: t.cpu()), target.cpu())
+    tag = f"train_raw: one raw-points autograd step of {CHECK_RAYS} rays"
+    log(f"{tag}: loss {float(loss):.6f} (plain {float(hloss):.6f}), fine mse {float(mse):.6f} "
+        f"(plain {float(hmse):.6f}); K1rf, K1rb launches {launched}")
+    if launched != (2, 2) or not (abs(float(loss) - float(hloss)) < 3e-3 * float(hloss)
+                                  and abs(float(mse) - float(hmse)) < 3e-3 * float(hmse)):
+        raise AssertionError(f"{tag}: the loss disagrees with the plain versions")
+    names = list(grads[0])
+    check_grads(f"{tag}, coarse model", [grads[0][k].cpu() for k in names], [hgrads[0][k] for k in names], names)
+
+    trainer = make()
+    state = trainer.init_state(SEED)
+    fm.fused_mlp_raw_fwd.launches = fm.fused_mlp_raw_bwd.launches = 0
+    state, window, step_ms, losses, psnrs = train_window(trainer, state, ds)
+    counts = {"fused_mlp_raw_fwd": fm.fused_mlp_raw_fwd.launches, "fused_mlp_raw_bwd": fm.fused_mlp_raw_bwd.launches}
+    n = len(step_ms)
+    log(f"train_raw: raw-points MLP under autograd on {card}: {n} timed steps of {TRAIN_RAYS} rays in {window:.6f} s: "
+        f"{n * TRAIN_RAYS / window:.1f} rays/s; step ms median {float(np.median(step_ms)):.4f}, "
+        f"min {min(step_ms):.4f}, max {max(step_ms):.4f}; loss {losses[0]:.6f} -> {losses[-1]:.6f}, "
+        f"psnr {psnrs[0]:.4f} -> {psnrs[-1]:.4f} over {len(losses)} steps; launches {counts} (warm steps included)")
+    if any(v <= 0 for v in counts.values()):
+        raise AssertionError(f"train_raw: the training step launched no {counts} kernel")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("train_raw: a loss is not finite")
+    k = min(10, len(losses) // 4)
+    if not np.mean(losses[-k:]) < np.mean(losses[:k]):
+        raise AssertionError("train_raw: the loss did not fall")
+    check_waits("train_raw: one step",
+                lambda: trainer.scan_steps(state, ds["rays"], ds["pixels"], 1, batch_size=TRAIN_RAYS), 0)
+    profile_steps(lambda n: trainer.scan_steps(state, ds["rays"], ds["pixels"], n, batch_size=TRAIN_RAYS)[0],
+                  "raw-points MLP under autograd")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -944,11 +1294,12 @@ def phase_render_plenoxels(dev, card: str) -> int:
             if not (float(out["acc"].min()) >= -1e-6 and float(out["acc"].max()) <= 1 + 1e-5):
                 raise AssertionError(f"render_plenoxels: {name} frame {i}: acc outside [0, 1]")
         # every frame against the plain version, which also counts its samples
-        per_pose = []
+        per_pose, work = [], []
         for i, f in enumerate(frames):
             pack, basis = tm.pack_rays(bg, f, opts)
-            plain, (marched, _, _) = plain_march(cells, bg, pack, basis, counts=True, max_steps=C * tm.SC,
-                                                 early_stop=True)
+            plain, (marched, shaded, touched) = plain_march(cells, bg, pack, basis, counts=True, max_steps=C * tm.SC,
+                                                            early_stop=True)
+            work.append((touched, bg.basis_dim, pack.shape[0] * pack.shape[1], pack.shape[0], marched, shaded))
             ref = tm.march_outputs(plain, pack, opts, False)
             err = max(float((first[i][k] - ref[k]).abs().max()) for k in ("rgb", "acc"))
             log(f"render_plenoxels: {name}: frame {i} against the plain version: max |rgb, acc err| {err:.3e} "
@@ -956,6 +1307,10 @@ def phase_render_plenoxels(dev, card: str) -> int:
             if not err < MARCH_TOL:
                 raise AssertionError(f"render_plenoxels: {name}: frame {i} disagrees with the plain version")
             per_pose.append(marched)
+        pack, basis = tm.pack_rays(bg, frames[0], opts)
+        k3_ms = time_ms(lambda: tm.tile_march_fwd(cells, bg.brick_links, bg.reso, pack, basis, max_steps=C * tm.SC,
+                                                  early_stop=True), iters=5)
+        k3_bound = march_bound(*work[0])[0]
 
         tm.tile_march_fwd.launches = 0
         secs, marched = [], 0
@@ -975,7 +1330,8 @@ def phase_render_plenoxels(dev, card: str) -> int:
             f"{len(secs)} frames of {FRAME}x{FRAME} in {window:.6f} s: {len(secs) / window:.4f} frames/s; ms a frame "
             f"median {np.median(secs) * 1e3:.4f}, min {min(secs) * 1e3:.4f}, max {max(secs) * 1e3:.4f}; "
             f"{n_launch} tile_march_fwd launches; {marched} samples marched (counted by the plain version) "
-            f"({marched / len(secs) / 1e6:.3f} M a frame); mean acc of frame 0 {mean_acc:.4f}")
+            f"({marched / len(secs) / 1e6:.3f} M a frame); mean acc of frame 0 {mean_acc:.4f}; K3 alone on frame 0 "
+            f"{k3_ms:.4f} ms (CUDA events), bound {k3_bound:.4f} ms")
         if n_launch <= 0:
             raise AssertionError(f"render_plenoxels: {name}: the main path launched no tile_march_fwd kernel")
         del cells, bg, first
@@ -1291,6 +1647,16 @@ def phase_train_plenoxels(dev, card: str) -> dict:
             raise AssertionError(f"{tag}: the MSE did not fall")
         for key in launches:
             launches[key] += counts[key]
+        cells, pack, basis, max_steps = tm.march_inputs(bg, rays, trainer.opts)
+        kw = dict(max_steps=max_steps, color_mode=trainer.opts.color_mode, sigma_thresh=trainer.opts.sigma_thresh,
+                  stop_thresh=trainer.opts.stop_thresh)
+        k3_ms = time_ms(lambda: tm.tile_march_fwd(cells, bg.brick_links, bg.reso, pack, basis, **kw), iters=10)
+        _, (marched, shaded, touched) = plain_march(cells, bg, pack, basis, counts=True, **kw)
+        k3_bound = march_bound(touched, bg.basis_dim, n_rays, pack.shape[0], marched, shaded)[0]
+        log(f"{tag}: K3 alone on a step's batch ({n_rays} rays): {k3_ms:.4f} ms (CUDA events), bound {k3_bound:.4f} ms "
+            f"({marched} samples marched, {shaded} shaded, {touched} bricks touched); {counts['tile_march_fwd']} "
+            f"launches in the window above")
+        del cells
 
         def run_steps(n, state=(bg, rms)):
             b, r = state
@@ -1662,7 +2028,7 @@ def phase_train_nerf_sh(dev, card: str) -> dict:
     k = min(10, len(losses) // 4)
     if not np.mean(losses[-k:]) < np.mean(losses[:k]):
         raise AssertionError("train_nerf_sh: the loss did not fall")
-    check_waits("train_nerf_sh: one step", lambda: steps(1), 2)  # torch.cumprod's backward, one a level
+    check_waits("train_nerf_sh: one step", lambda: steps(1), 0)
     profile_steps(steps, "NeRF-SH train (fused trunk)")
     return counts
 
@@ -1692,6 +2058,12 @@ def main() -> int:
     launches = phase_train(dev, card)
     for entry in kernels[1:]:
         entry["launches"] = launches[entry["name"]]
+    raw_fwd, raw_bwd = phase_kernel_raw(dev, serve_rows=PATCH * PATCH * (64 + 128),
+                                        train_rows=TRAIN_RAYS * (COARSE + FINE))
+    raw_fwd["launches"] = phase_render_raw(dev, card)
+    raw_counts = phase_train_raw(dev, card)
+    raw_fwd["launches"] += raw_counts["fused_mlp_raw_fwd"]
+    raw_bwd["launches"] = raw_counts["fused_mlp_raw_bwd"]
     march = phase_kernel_march(dev)
     march["launches"] = phase_render_plenoxels(dev, card)
     march_bwd = phase_kernel_march_bwd(dev)
@@ -1704,7 +2076,7 @@ def main() -> int:
     sh_counts = phase_train_nerf_sh(dev, card)
     sh_fwd["launches"] += sh_counts["fused_sh_fwd"]
     sh_bwd["launches"] = sh_counts["fused_sh_bwd"]
-    kernels += [sh_fwd, sh_bwd]
+    kernels += [sh_fwd, sh_bwd, raw_fwd, raw_bwd]
     log(f"chip_smoke: wall {time.perf_counter() - t0:.1f} s, build {build_s:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,5 +1,6 @@
 // Shared device code of the fused NeRF MLP kernels for Hopper (sm_90a):
-// fused_mlp_fwd.cu (K1f), fused_mlp_bwd.cu (K1b) and fused_train.cu (K2).
+// fused_mlp_fwd.cu (K1f), fused_mlp_bwd.cu (K1b), fused_train.cu (K2),
+// fused_mlp_raw_fwd.cu and fused_mlp_raw_bwd.cu (K1rf, K1rb).
 //
 // The MLP is the 8x256 viewdirs NeRF MLP of models/nerf.py: trunk_0..7
 // with the [x, h] concat after trunk_4's relu, the sigma head, the
@@ -327,7 +328,7 @@ __device__ __forceinline__ float encode_col(const float* p, int c, int n_freqs) 
   return 0.f;
 }
 
-// K2's raw points: x_raw [n, 8] (xyz 0..2) -> encoded columns 0..63.
+// Raw points (K2, K1r): x_raw [n, 8] (xyz 0..2) -> encoded columns 0..63.
 __device__ __forceinline__ void encode_points(bf16* act, const float* x, long long row_base,
                                               long long n) {
   for (int i = threadIdx.x; i < BM * 64; i += THREADS) {
@@ -340,7 +341,8 @@ __device__ __forceinline__ void encode_points(bf16* act, const float* x, long lo
 
 // K2's per-ray view inputs: row -> ray = row / S -> vt[ray / R][ray % R];
 // raw [.., 8] (direction 0..2) is encoded with 4 frequencies, encoded
-// [.., 32] is read as is; columns from 27 on are zero either way.
+// [.., 32] is read as is; columns from 27 on are zero either way. With
+// S = 1 and R = 8, vt is a per-row [n, 8] or [n, 32] array (K1r).
 template <bool RAW>
 __device__ __forceinline__ void load_views(bf16* act, const float* vt, long long row_base,
                                            long long n, int S, int R) {
@@ -408,7 +410,8 @@ __device__ __forceinline__ void forward_tile(bf16* act, bf16* wbuf, const bf16* 
 enum InMode { IN_ENCODED = 0, IN_TRAIN_RAW = 1, IN_TRAIN_ENC = 2 };
 
 // IN_ENCODED: x [n, 64], v [n, 32] float32 per row. IN_TRAIN_RAW: x [n, 8]
-// raw points, v = vt [T, 8, 8]. IN_TRAIN_ENC: x [n, 64], v = vt [T, 8, 32].
+// raw points, v = vt [T, 8, 8] (per row at S = 1, R = 8: K1r). IN_TRAIN_ENC:
+// x [n, 64], v = vt [T, 8, 32].
 template <int MODE>
 __global__ void __launch_bounds__(THREADS, 2)
     mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ v,

@@ -4,6 +4,8 @@
     stratified z -> posenc -> coarse MLP -> composite -> inverse-CDF fine
     samples (detached) -> merge/sort -> fine MLP -> composite
 
+(posenc is skipped for an MLP that encodes raw points itself.)
+
 The MLP runs on flattened [rays*samples, features] batches. Sigma noise
 is added to the raw logit before the relu, as reference `raw2outputs`.
 """
@@ -45,9 +47,18 @@ class NeRFRenderConfig(NamedTuple):
 
 
 def _query_mlp(apply_fn, params, pts, viewdirs, cfg: NeRFRenderConfig):
-    """Encode and evaluate the MLP at [R, N, 3] points -> raw [R, N, 4]."""
+    """Encode and evaluate the MLP at [R, N, 3] points -> raw [R, N, 4].
+    An ``apply_fn`` tagged ``accepts_raw_points`` (a wrapper of
+    ``ops/kernels/fused_mlp.fused_apply_raw``, which encodes in the kernel)
+    gets the flat raw points and each row's view direction instead, and
+    the config's posenc settings do not apply."""
     r, n = pts.shape[0], pts.shape[1]
-    pts_enc = posenc(pts.reshape(r * n, 3), cfg.multires, ordering=cfg.posenc_ordering)
+    flat_pts = pts.reshape(r * n, 3)
+    if getattr(apply_fn, "accepts_raw_points", False):
+        vd = viewdirs[:, None, :].expand(r, n, 3).reshape(r * n, 3)
+        raw = apply_fn(params, flat_pts, vd)
+        return raw.reshape(r, n, raw.shape[-1])
+    pts_enc = posenc(flat_pts, cfg.multires, ordering=cfg.posenc_ordering)
     if cfg.use_viewdirs:
         vd = viewdirs[:, None, :].expand(r, n, 3).reshape(r * n, 3)
         views_enc = posenc(vd, cfg.multires_views, ordering=cfg.posenc_ordering)
@@ -86,7 +97,10 @@ def render_rays(
     randomized: bool = True,
 ):
     """Render a [R] ray batch; ``apply_fn(params, pts_enc, views_enc)``
-    evaluates the MLP. Returns a dict with rgb, disp, acc, depth and
+    evaluates the MLP, or ``apply_fn(params, pts, viewdirs)`` on raw
+    [R*N, 3] points and per-row view directions when ``apply_fn`` has a
+    true ``accepts_raw_points`` attribute (the in-kernel encoding route,
+    ``fused_apply_raw``). Returns a dict with rgb, disp, acc, depth and
     weights (plus rgb0/disp0/acc0/z_std when num_fine_samples > 0).
 
     ``randomized=False`` is the serving path: linspace depths, linspace

@@ -17,14 +17,22 @@ with ctypes), each with a launch counter and its plain PyTorch version:
   weight gradients from the inputs and the output gradient, recomputing
   the forward; plain: ``fused_mlp_bwd_reference`` over
   ``mlp_backward_reference``, with the same bf16 rounding points.
+- ``fused_mlp_raw_fwd`` / ``fused_mlp_raw_bwd`` (``csrc/fused_mlp_raw_fwd.cu``
+  and ``fused_mlp_raw_bwd.cu``, K1rf and K1rb): K1f and K1b on raw points
+  and view directions [N, 8] (3 live), encoded in the kernel
+  (``_encode_tile``: 10 and 4 frequencies, block layout) over
+  ``kernel_weights(model, raw_layout=True)``; plain:
+  ``fused_nerf_mlp_raw_reference`` and ``fused_mlp_raw_bwd_reference``.
 
-``fused_nerf_mlp`` and ``fused_apply`` take a ``NeRFMLP`` and are
+``fused_nerf_mlp`` / ``fused_apply`` (encodings) and ``fused_nerf_mlp_raw``
+/ ``fused_apply_raw`` (raw points) take a ``NeRFMLP`` and are
 differentiable: an autograd Function runs the kernels on a card and the
 plain versions on the CPU (no fallback from one to the other), and maps
 the padded gradients back onto the ``nn.Linear`` parameters. The inputs
 get no gradient, as on the TPU. ``pack_params`` / ``unpack_grads`` with
 ``raw_layout=True`` permute the encoded-input rows to the block layout of
-the in-kernel encoder (``_encode_tile``) that the fused train level uses.
+the in-kernel encoder (``_encode_tile``) that K1r and the fused train
+level use.
 """
 from __future__ import annotations
 
@@ -48,6 +56,8 @@ LIVE_MACS_PER_SAMPLE = (
     + 256 + 256 * 256 + 283 * 128 + 128 * 3
 )
 IO_BYTES_PER_SAMPLE = (64 + 32 + 8) * 4
+# K1r's: raw points p [8] and view directions v [8] in, [8] out
+RAW_IO_BYTES_PER_SAMPLE = (8 + 8 + 8) * 4
 
 
 class FusedMLPWeights(NamedTuple):
@@ -343,6 +353,29 @@ def fused_mlp_bwd_reference(W: FusedMLPWeights, x: torch.Tensor, v: torch.Tensor
     return mlp_backward_reference(x, W, acts, *_head_grads(g))
 
 
+def _encode_raw(p: torch.Tensor, v: torch.Tensor):
+    """Raw points and view directions [N, >=3] -> the encodings K1r makes
+    in the kernel: x [N, 64] (10 frequencies), v [N, 32] (4)."""
+    return _encode_tile(p, 10, 64), _encode_tile(v, 4, 32)
+
+
+def fused_nerf_mlp_raw_reference(W: FusedMLPWeights, p: torch.Tensor, v: torch.Tensor):
+    """Plain version of K1rf: p, v [N, 8] float32 raw points and view
+    directions (columns 0..2 live) -> [N, 8], as ``fused_nerf_mlp_reference``
+    on the block encodings of ``_encode_tile``; ``W`` from
+    ``pack_params(model, raw_layout=True)``."""
+    return fused_nerf_mlp_reference(W, *_encode_raw(p, v))
+
+
+def fused_mlp_raw_bwd_reference(W: FusedMLPWeights, p: torch.Tensor, v: torch.Tensor,
+                                g: torch.Tensor) -> FusedMLPWeights:
+    """Plain version of K1rb: the padded float32 gradients of the
+    raw-layout ``W`` from raw p, v [N, 8] and the output gradient g [N, 8].
+    The encodings are recomputed, as the reference's ``_bwd_raw_kernel``
+    does, and dW0 = mmT(x, g) rounds them to bf16."""
+    return fused_mlp_bwd_reference(W, *_encode_raw(p, v), g)
+
+
 # ---------------------------------------------------------------------------
 # The kernel
 # ---------------------------------------------------------------------------
@@ -497,23 +530,25 @@ _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    return load_library("fused_mlp_fwd", {
-        "fused_mlp_fwd": ([_VP, _VP, _VP, _VP, _LL, _VP], _INT),
-        "fused_mlp_fwd_weight_elems": ([], _LL),
-        "fused_mlp_fwd_error_string": ([_INT], ctypes.c_char_p),
+def _fwd_library(name: str):
+    """``csrc/<name>.cu`` of a forward kernel (K1f, K1rf)."""
+    return load_library(name, {
+        name: ([_VP, _VP, _VP, _VP, _LL, _VP], _INT),
+        f"{name}_weight_elems": ([], _LL),
+        f"{name}_error_string": ([_INT], ctypes.c_char_p),
     })
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_library():
-    return load_library("fused_mlp_bwd", {
-        "fused_mlp_bwd": ([_VP] * 6 + [_LL, _VP, _VP], _INT),
-        "fused_mlp_bwd_weight_elems": ([], _LL),
-        "fused_mlp_bwd_weight_t_elems": ([], _LL),
-        "fused_mlp_bwd_grad_elems": ([], _LL),
-        "fused_mlp_bwd_workspace_bytes": ([_LL], _LL),
-        "fused_mlp_bwd_error_string": ([_INT], ctypes.c_char_p),
+def _bwd_library(name: str):
+    """``csrc/<name>.cu`` of a weight-gradient kernel (K1b, K1rb)."""
+    return load_library(name, {
+        name: ([_VP] * 6 + [_LL, _VP, _VP], _INT),
+        f"{name}_weight_elems": ([], _LL),
+        f"{name}_weight_t_elems": ([], _LL),
+        f"{name}_grad_elems": ([], _LL),
+        f"{name}_workspace_bytes": ([_LL], _LL),
+        f"{name}_error_string": ([_INT], ctypes.c_char_p),
     })
 
 
@@ -532,87 +567,122 @@ def current_stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def fused_mlp_fwd(wk: torch.Tensor, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Launch the forward kernel: wk a ``kernel_weights`` buffer, x [N, 64]
-    and v [N, 32] float32 on one card -> [N, 8] float32. Any N >= 0."""
+def _launch_fwd(launcher, wk, x, v, x_cols: int, v_cols: int) -> torch.Tensor:
+    """The body of a forward launcher (``fused_mlp_fwd``, ``fused_mlp_raw_fwd``,
+    whose name is its library's): checks, out [N, 8] float32, the launch,
+    and one more on ``launcher.launches``."""
+    name = launcher.__name__
     if x.device.type != "cuda":
-        raise ValueError(f"fused_mlp_fwd runs on a CUDA device, got {x.device}")
-    lib = _library()
-    n = x.shape[0]
-    check_tensor(x, "x", torch.float32, (n, 64), x.device)
-    check_tensor(v, "v", torch.float32, (n, 32), x.device)
-    check_tensor(wk, "weights", torch.bfloat16, (lib.fused_mlp_fwd_weight_elems(),), x.device)
-    out = torch.empty((n, 8), dtype=torch.float32, device=x.device)
+        raise ValueError(f"{name} runs on a CUDA device, got {x.device}")
+    lib = _fwd_library(name)
+    n, dev = x.shape[0], x.device
+    check_tensor(x, "x", torch.float32, (n, x_cols), dev)
+    check_tensor(v, "v", torch.float32, (n, v_cols), dev)
+    check_tensor(wk, "weights", torch.bfloat16, (getattr(lib, f"{name}_weight_elems")(),), dev)
+    out = torch.empty((n, 8), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    with torch.cuda.device(x.device):
-        rc = lib.fused_mlp_fwd(x.data_ptr(), v.data_ptr(), wk.data_ptr(), out.data_ptr(), n,
-                               current_stream(x.device))
+    with torch.cuda.device(dev):
+        rc = getattr(lib, name)(x.data_ptr(), v.data_ptr(), wk.data_ptr(), out.data_ptr(), n, current_stream(dev))
     if rc != 0:
-        raise RuntimeError(f"fused_mlp_fwd launch failed: {lib.fused_mlp_fwd_error_string(rc).decode()}")
-    fused_mlp_fwd.launches += 1
+        raise RuntimeError(f"{name} launch failed: {getattr(lib, f'{name}_error_string')(rc).decode()}")
+    launcher.launches += 1
     return out
 
 
-fused_mlp_fwd.launches = 0
+def _launch_bwd(launcher, wk, wkt, x, v, g, x_cols: int, v_cols: int) -> FusedMLPWeights:
+    """The body of a weight-gradient launcher (``fused_mlp_bwd``,
+    ``fused_mlp_raw_bwd``), as ``_launch_fwd``: the padded float32
+    gradients, views into one buffer."""
+    name = launcher.__name__
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on a CUDA device, got {x.device}")
+    lib = _bwd_library(name)
+    n, dev = x.shape[0], x.device
+    check_tensor(x, "x", torch.float32, (n, x_cols), dev)
+    check_tensor(v, "v", torch.float32, (n, v_cols), dev)
+    check_tensor(g, "g", torch.float32, (n, 8), dev)
+    check_tensor(wk, "weights", torch.bfloat16, (getattr(lib, f"{name}_weight_elems")(),), dev)
+    check_tensor(wkt, "weights_bwd", torch.bfloat16, (getattr(lib, f"{name}_weight_t_elems")(),), dev)
+    grads = torch.empty(getattr(lib, f"{name}_grad_elems")(), dtype=torch.float32, device=dev)
+    if n == 0:
+        return split_grads(grads.zero_())
+    ws = torch.empty(getattr(lib, f"{name}_workspace_bytes")(n), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        rc = getattr(lib, name)(x.data_ptr(), v.data_ptr(), g.data_ptr(), wk.data_ptr(), wkt.data_ptr(),
+                                grads.data_ptr(), n, ws.data_ptr(), current_stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: {getattr(lib, f'{name}_error_string')(rc).decode()}")
+    launcher.launches += 1
+    return split_grads(grads)
+
+
+def fused_mlp_fwd(wk: torch.Tensor, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Launch the forward kernel (K1f): wk a ``kernel_weights`` buffer,
+    x [N, 64] and v [N, 32] float32 on one card -> [N, 8] float32. Any
+    N >= 0."""
+    return _launch_fwd(fused_mlp_fwd, wk, x, v, 64, 32)
 
 
 def fused_mlp_bwd(wk: torch.Tensor, wkt: torch.Tensor, x: torch.Tensor, v: torch.Tensor,
                   g: torch.Tensor) -> FusedMLPWeights:
-    """Launch the backward kernel: wk / wkt the ``kernel_weights`` /
+    """Launch the backward kernel (K1b): wk / wkt the ``kernel_weights`` /
     ``kernel_weights_bwd`` buffers, x [N, 64], v [N, 32] and the output
     gradient g [N, 8] float32 on one card -> the padded float32 weight
     gradients (views into one buffer). Any N >= 0."""
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mlp_bwd runs on a CUDA device, got {x.device}")
-    lib = _bwd_library()
-    n, dev = x.shape[0], x.device
-    check_tensor(x, "x", torch.float32, (n, 64), dev)
-    check_tensor(v, "v", torch.float32, (n, 32), dev)
-    check_tensor(g, "g", torch.float32, (n, 8), dev)
-    check_tensor(wk, "weights", torch.bfloat16, (lib.fused_mlp_bwd_weight_elems(),), dev)
-    check_tensor(wkt, "weights_bwd", torch.bfloat16, (lib.fused_mlp_bwd_weight_t_elems(),), dev)
-    grads = torch.empty(lib.fused_mlp_bwd_grad_elems(), dtype=torch.float32, device=dev)
-    if n == 0:
-        return split_grads(grads.zero_())
-    ws = torch.empty(lib.fused_mlp_bwd_workspace_bytes(n), dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.fused_mlp_bwd(x.data_ptr(), v.data_ptr(), g.data_ptr(), wk.data_ptr(), wkt.data_ptr(),
-                               grads.data_ptr(), n, ws.data_ptr(), current_stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"fused_mlp_bwd launch failed: {lib.fused_mlp_bwd_error_string(rc).decode()}")
-    fused_mlp_bwd.launches += 1
-    return split_grads(grads)
+    return _launch_bwd(fused_mlp_bwd, wk, wkt, x, v, g, 64, 32)
 
 
-fused_mlp_bwd.launches = 0
+def fused_mlp_raw_fwd(wk: torch.Tensor, p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Launch K1rf: wk a ``kernel_weights(model, raw_layout=True)`` buffer,
+    p and v [N, 8] float32 raw points and view directions (columns 0..2
+    live) on one card -> [N, 8] float32. Any N >= 0."""
+    return _launch_fwd(fused_mlp_raw_fwd, wk, p, v, 8, 8)
+
+
+def fused_mlp_raw_bwd(wk: torch.Tensor, wkt: torch.Tensor, p: torch.Tensor, v: torch.Tensor,
+                      g: torch.Tensor) -> FusedMLPWeights:
+    """Launch K1rb: wk / wkt the ``kernel_weights(model, raw_layout=True)``
+    / ``kernel_weights_bwd(model)`` buffers, p and v [N, 8] raw inputs and
+    the output gradient g [N, 8] float32 on one card -> the padded float32
+    weight gradients in the raw layout. Any N >= 0."""
+    return _launch_bwd(fused_mlp_raw_bwd, wk, wkt, p, v, g, 8, 8)
+
+
+fused_mlp_fwd.launches = fused_mlp_bwd.launches = 0
+fused_mlp_raw_fwd.launches = fused_mlp_raw_bwd.launches = 0
 
 
 class _FusedNeRFMLP(torch.autograd.Function):
-    """Forward: the forward kernel (card) or its plain version (CPU).
-    Backward: the backward kernel or its plain version, whose padded
-    gradients are mapped onto the model's parameters; x and v get none."""
+    """Forward: K1f on encodings or, with ``raw``, K1rf on raw points (a
+    card), or its plain version (the CPU). Backward: K1b / K1rb or the
+    plain version, whose padded gradients are mapped onto the model's
+    parameters (through the raw layout with ``raw``); x and v get none."""
 
     @staticmethod
-    def forward(ctx, model, x, v, *params):
-        ctx.model = model
+    def forward(ctx, model, raw, x, v, *params):
+        ctx.model, ctx.raw = model, raw
         ctx.save_for_backward(x, v)
         if x.device.type == "cuda":
-            ctx.wk = kernel_weights(model)  # the backward reuses the forward's buffer
-            return fused_mlp_fwd(ctx.wk, x, v)
-        return fused_nerf_mlp_reference(pack_params(model), x, v)
+            ctx.wk = kernel_weights(model, raw_layout=raw)  # the backward reuses the forward's buffer
+            return (fused_mlp_raw_fwd if raw else fused_mlp_fwd)(ctx.wk, x, v)
+        plain = fused_nerf_mlp_raw_reference if raw else fused_nerf_mlp_reference
+        return plain(pack_params(model, raw_layout=raw), x, v)
 
     @staticmethod
     def backward(ctx, g):
         x, v = ctx.saved_tensors
-        model = ctx.model
+        model, raw = ctx.model, ctx.raw
         g = g.float().contiguous()
         if x.device.type == "cuda":
-            grads = fused_mlp_bwd(ctx.wk, kernel_weights_bwd(model), x, v, g)
+            # the dX products' weights have no raw layout: they take trunk_5's
+            # h rows and view_0's bottleneck rows, never the permuted input rows
+            grads = (fused_mlp_raw_bwd if raw else fused_mlp_bwd)(ctx.wk, kernel_weights_bwd(model), x, v, g)
         else:
-            grads = fused_mlp_bwd_reference(pack_params(model), x, v, g)
-        named = unpack_grads(grads, model)
-        return (None, None, None, *(named[name] for name, _ in model.named_parameters()))
+            plain = fused_mlp_raw_bwd_reference if raw else fused_mlp_bwd_reference
+            grads = plain(pack_params(model, raw_layout=raw), x, v, g)
+        named = unpack_grads(grads, model, raw_layout=raw)
+        return (None, None, None, None, *(named[name] for name, _ in model.named_parameters()))
 
 
 def fused_nerf_mlp(model: NeRFMLP, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -621,28 +691,54 @@ def fused_nerf_mlp(model: NeRFMLP, x: torch.Tensor, v: torch.Tensor) -> torch.Te
     kernels on a card, the plain versions on the CPU; differentiable in
     the model's parameters."""
     x, v = x.float().contiguous(), v.float().contiguous()
-    return _FusedNeRFMLP.apply(model, x, v, *model.parameters())
+    return _FusedNeRFMLP.apply(model, False, x, v, *model.parameters())
+
+
+def fused_nerf_mlp_raw(model: NeRFMLP, p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``fused_nerf_mlp`` on p, v [N, 8] raw points and unit view
+    directions (columns 0..2 live), the positional encoding (10 / 4
+    frequencies) done in the kernel."""
+    p, v = p.float().contiguous(), v.float().contiguous()
+    return _FusedNeRFMLP.apply(model, True, p, v, *model.parameters())
 
 
 def _pad_inputs(pts_enc: torch.Tensor, views_enc: torch.Tensor):
     n = pts_enc.shape[0]
-    x = pts_enc.new_zeros((n, 64), dtype=torch.float32)
-    x[:, :63] = pts_enc
-    v = views_enc.new_zeros((n, 32), dtype=torch.float32)
-    v[:, :27] = views_enc
-    return x, v
+    return _pad_to(pts_enc.float(), n, 64), _pad_to(views_enc.float(), n, 32)
+
+
+def _pad_raw(pts: torch.Tensor, viewdirs: torch.Tensor):
+    n = pts.shape[0]
+    return _pad_to(pts.float(), n, 8), _pad_to(viewdirs.float(), n, 8)
+
+
+def _rgb_sigma(out: torch.Tensor) -> torch.Tensor:
+    return torch.cat([out[:, 0:3], out[:, 4:5]], dim=-1)
 
 
 def fused_apply(model: NeRFMLP, pts_enc: torch.Tensor, views_enc: torch.Tensor):
     """Drop-in for ``model(pts_enc, views_enc)`` on [N, 63] / [N, 27]
     encodings -> [N, 4] (rgb logits, sigma logit), in bf16 products. No
     row padding: the kernel masks the tail."""
-    out = fused_nerf_mlp(model, *_pad_inputs(pts_enc, views_enc))
-    return torch.cat([out[:, 0:3], out[:, 4:5]], dim=-1)
+    return _rgb_sigma(fused_nerf_mlp(model, *_pad_inputs(pts_enc, views_enc)))
 
 
 def fused_apply_reference(W: FusedMLPWeights, pts_enc: torch.Tensor, views_enc: torch.Tensor):
     """``fused_apply`` through the plain version over ``pack_params``
     weights, on any device."""
-    out = fused_nerf_mlp_reference(W, *_pad_inputs(pts_enc, views_enc))
-    return torch.cat([out[:, 0:3], out[:, 4:5]], dim=-1)
+    return _rgb_sigma(fused_nerf_mlp_reference(W, *_pad_inputs(pts_enc, views_enc)))
+
+
+def fused_apply_raw(model: NeRFMLP, pts: torch.Tensor, viewdirs: torch.Tensor):
+    """The MLP on raw [N, 3] points and [N, 3] unit view directions ->
+    [N, 4] (rgb logits, sigma logit), encoding in the kernel (multires
+    10 / 4). No row padding: the kernel masks the tail. It carries no
+    ``accepts_raw_points`` tag, as the reference's does not: a caller of
+    ``render_rays`` tags a wrapper of its own."""
+    return _rgb_sigma(fused_nerf_mlp_raw(model, *_pad_raw(pts, viewdirs)))
+
+
+def fused_apply_raw_reference(W: FusedMLPWeights, pts: torch.Tensor, viewdirs: torch.Tensor):
+    """``fused_apply_raw`` through K1rf's plain version over
+    ``pack_params(raw_layout=True)`` weights, on any device."""
+    return _rgb_sigma(fused_nerf_mlp_raw_reference(W, *_pad_raw(pts, viewdirs)))

@@ -22,17 +22,52 @@ class RenderOutputs(NamedTuple):
     depth: torch.Tensor    # [...] expected depth
 
 
-def compute_alpha_weights(sigma: torch.Tensor, z_vals: torch.Tensor, dirs: torch.Tensor):
-    """sigma, z_vals [..., N] and dirs [..., 3] -> (alpha, weights), [..., N]."""
-    eps = 1e-10
+class _Cumprod(torch.autograd.Function):
+    """``torch.cumprod`` over the last dimension of factors that are never
+    zero, with a backward that reads nothing to the host: for c = cumprod(f),
+    dL/df_j = sum_{k >= j} g_k c_k / f_j, a reverse cumulative sum divided
+    by the factor. (``torch.cumprod``'s own backward tests its input for
+    zeros on the host, so on a card it waits for the queue to drain.)"""
+
+    @staticmethod
+    def forward(ctx, f):
+        c = torch.cumprod(f, dim=-1)
+        ctx.save_for_backward(f, c)
+        return c
+
+    @staticmethod
+    def backward(ctx, g):
+        f, c = ctx.saved_tensors
+        return torch.flip(torch.cumsum(torch.flip(g * c, (-1,)), dim=-1), (-1,)) / f
+
+
+def _alpha(sigma: torch.Tensor, z_vals: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     dists = torch.cat(
         [z_vals[..., 1:] - z_vals[..., :-1], torch.full_like(z_vals[..., :1], 1e10)],
         dim=-1,
     )
     dists = dists * torch.linalg.norm(dirs[..., None, :], dim=-1)
-    alpha = 1.0 - torch.exp(-sigma * dists)
+    return 1.0 - torch.exp(-sigma * dists)
+
+
+def compute_alpha_weights(sigma: torch.Tensor, z_vals: torch.Tensor, dirs: torch.Tensor):
+    """sigma, z_vals [..., N] and dirs [..., 3] -> (alpha, weights), [..., N].
+    The exclusive transmittance's factors 1 - alpha + 1e-10 are never zero
+    (alpha <= 1), so its gradient needs no test for zeros (``_Cumprod``)."""
+    alpha = _alpha(sigma, z_vals, dirs)
     trans = torch.cat(
-        [torch.ones_like(alpha[..., :1]), torch.cumprod(1.0 - alpha[..., :-1] + eps, dim=-1)],
+        [torch.ones_like(alpha[..., :1]), _Cumprod.apply(1.0 - alpha[..., :-1] + 1e-10)],
+        dim=-1,
+    )
+    return alpha, alpha * trans
+
+
+def compute_alpha_weights_reference(sigma: torch.Tensor, z_vals: torch.Tensor, dirs: torch.Tensor):
+    """``compute_alpha_weights`` through ``torch.cumprod`` and its own
+    backward (which waits for the card): the yardstick of ``_Cumprod``."""
+    alpha = _alpha(sigma, z_vals, dirs)
+    trans = torch.cat(
+        [torch.ones_like(alpha[..., :1]), torch.cumprod(1.0 - alpha[..., :-1] + 1e-10, dim=-1)],
         dim=-1,
     )
     return alpha, alpha * trans

@@ -175,6 +175,72 @@ def test_compute_alpha_weights_matches():
         _close(g, w)
 
 
+def _grad_of_weights(fn, sigma, z, d, cot):
+    """The weights and, but for the last sample's, the gradient of
+    sum(weights * cot) in sigma: the last sample's distance is the 1e10
+    tail, so where its sigma is 0 its own gradient is ~1e10 and would
+    hide the transmittance's part in any bound relative to the largest."""
+    sigma = _t(sigma).requires_grad_(True)
+    _, w = fn(sigma, _t(z), _t(d))
+    (g,) = torch.autograd.grad((w * _t(cot)).sum(), sigma)
+    return w, g[..., :-1]
+
+
+def _alpha_inputs(seed):
+    """Rays whose samples run from transparent to opaque (alpha near 1:
+    factors 1 - alpha + 1e-10 near 1e-10), and one empty ray."""
+    rng = np.random.default_rng(seed)
+    _, sigma, z, d = _render_inputs(rng)
+    sigma[0] = 0.0
+    sigma[1, 5:] = 1e4
+    cot = rng.standard_normal(sigma.shape).astype(np.float32)
+    return sigma, z, d, cot
+
+
+def test_transmittance_gradient_needs_no_cumprod_backward():
+    """torch.cumprod's backward tests its input for zeros on the host, so
+    on a card it waits for the queue; the weights' graph holds none."""
+    sigma, z, d, _ = _alpha_inputs(8)
+    _, w = trender.compute_alpha_weights(_t(sigma).requires_grad_(True), _t(z), _t(d))
+    seen, todo = set(), [w.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        todo += [f for f, _ in fn.next_functions]
+    names = {type(fn).__name__ for fn in seen}
+    assert "CumprodBackward0" not in names and any("Cumprod" in n for n in names), names
+
+
+def test_transmittance_matches_torch_cumprod_autograd():
+    """The weights are the same bits as through torch.cumprod, and their
+    gradient equals autograd's through torch.cumprod: both are the reverse
+    cumulative sum of g * trans over the factor, so only the order of
+    float32 sums differs: 1e-6 of the gradient's scale."""
+    sigma, z, d, cot = _alpha_inputs(9)
+    w, g = _grad_of_weights(trender.compute_alpha_weights, sigma, z, d, cot)
+    w_ref, g_ref = _grad_of_weights(trender.compute_alpha_weights_reference, sigma, z, d, cot)
+    assert torch.equal(w, w_ref)
+    assert float(g.abs().max()) > 0
+    scale = float(g_ref.abs().max())
+    np.testing.assert_allclose(g.numpy(), g_ref.numpy(), rtol=0, atol=1e-6 * scale)
+
+
+def test_transmittance_gradient_matches_jax():
+    """The weights' gradient against jax.grad of JAX's
+    compute_alpha_weights (its cumprod differentiates through a scan):
+    float32 both sides, 1e-5 of the gradient's scale."""
+    sigma, z, d, cot = _alpha_inputs(10)
+    _, g = _grad_of_weights(trender.compute_alpha_weights, sigma, z, d, cot)
+    want = jax.grad(lambda s: jnp.sum(jrender.compute_alpha_weights(s, jnp.asarray(z), jnp.asarray(d))[1]
+                                      * jnp.asarray(cot)))(jnp.asarray(sigma))
+    want = np.asarray(want)[..., :-1]
+    scale = float(np.abs(want).max())
+    assert scale > 0
+    np.testing.assert_allclose(g.numpy(), want, rtol=0, atol=1e-5 * scale)
+
+
 @pytest.mark.parametrize("white_bkgd", [False, True])
 def test_volumetric_rendering_matches(white_bkgd):
     rgb, sigma, z, d = _render_inputs(np.random.default_rng(7))

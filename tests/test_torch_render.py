@@ -111,6 +111,82 @@ def test_render_rays_matches_jax_fused_mlp():
     _compare(got, want, 1e-2, depth_tol=1e-2 * 6.0)
 
 
+def _tagged(fn):
+    """A wrapper tagged ``accepts_raw_points``, as a caller of render_rays
+    tags its raw apply (neither package's fused_apply_raw carries it)."""
+    def apply(params, pts, viewdirs):
+        return fn(params, pts, viewdirs)
+    apply.accepts_raw_points = True
+    return apply
+
+
+def test_query_mlp_hands_a_tagged_apply_raw_points():
+    """An apply tagged accepts_raw_points gets the flat raw sample points
+    and each row's view direction, whatever the config's posenc settings
+    (the reference's _query_mlp); an untagged one gets the encodings."""
+    from nerf_projects_tpu_torch.ops.sampling import cast_rays, stratified_sample
+
+    cfg = NeRFRenderConfig(num_coarse_samples=5, num_fine_samples=0, multires=6,
+                           posenc_ordering="block", use_viewdirs=False, perturb=False)
+    rays = _image_rays(2, 3).map(lambda t: t.reshape(-1, 3))
+    seen = []
+
+    def raw_apply(params, pts, viewdirs):
+        seen.append((pts, viewdirs))
+        return torch.zeros(pts.shape[0], 4)
+
+    raw_apply.accepts_raw_points = True
+    render_rays(None, None, None, raw_apply, rays, 2.0, 6.0, cfg, randomized=False)
+    z = stratified_sample(None, 5, 2.0, 6.0, (6,), randomized=False, device="cpu")
+    pts = cast_rays(z, rays.origins, rays.directions)
+    (got_pts, got_vd), = seen
+    torch.testing.assert_close(got_pts, pts.reshape(30, 3), rtol=0, atol=0)
+    torch.testing.assert_close(got_vd, rays.viewdirs.repeat_interleave(5, dim=0), rtol=0, atol=0)
+
+    seen.clear()
+    render_rays(None, None, None, lambda params, x: seen.append((x,)) or torch.zeros(x.shape[0], 4),
+                rays, 2.0, 6.0, cfg, randomized=False)
+    assert seen[0][0].shape == (30, 3 * (2 * 6 + 1))
+
+
+def test_render_rays_raw_route_matches_jax(monkeypatch):
+    """The raw-points route, coarse + fine at 8x256: the port's render_rays
+    with a tagged fused_apply_raw (K1rf's plain version) against JAX's
+    render_rays with a tagged fused_apply_raw (its Pallas kernel in
+    interpret mode), 16 rays at 16 + 32 samples, randomized=False. Both
+    sides take the port's fine depths (patched into JAX's pipeline): bf16
+    noise in the coarse weights moves the resample (ROADMAP, limits of
+    comparison). With the depths shared only the MLP's order noise is
+    left (an activation now and then rounding to the other bf16
+    neighbour; below 1e-4 here): rgb and acc within 2e-3, depth within
+    2e-3 of far."""
+    import nerf_projects_tpu.models.pipeline as jpipe
+    import nerf_projects_tpu_torch.models.pipeline as tpipe
+
+    cfg = dict(num_coarse_samples=16, num_fine_samples=32, white_bkgd=True, perturb=False)
+    _, trees, ports = _flax_and_port(8, 256, seeds=(3, 4))
+    o, d, vd = _blender_rays(16, seed=5)
+    port_pdf, fine_z = tpipe.piecewise_constant_pdf, []
+
+    def recording_pdf(*args, **kwargs):
+        fine_z.append(port_pdf(*args, **kwargs))
+        return fine_z[-1]
+
+    monkeypatch.setattr(tpipe, "piecewise_constant_pdf", recording_pdf)
+    got = render_rays(
+        None, ports[0], ports[1], _tagged(tfm.fused_apply_raw),
+        Rays(*(torch.from_numpy(a) for a in (o, d, vd))), 2.0, 6.0,
+        NeRFRenderConfig(**cfg), randomized=False,
+    )
+    monkeypatch.setattr(jpipe, "piecewise_constant_pdf",
+                        lambda *args, **kwargs: jnp.asarray(fine_z[0].numpy()))
+    want = _jax_render(
+        _tagged(lambda p, x, v: jfm.fused_apply_raw(jfm.pack_params(p, raw_layout=True), x, v)),
+        trees, (o, d, vd), cfg)
+    _compare(got, want, 2e-3, depth_tol=2e-3 * 6.0)
+    assert float(np.abs(np.asarray(want["acc"])).max()) > 0.1
+
+
 def _cfg(**kw):
     base = dict(num_coarse_samples=8, num_fine_samples=16, white_bkgd=True, perturb=False)
     base.update(kw)
