@@ -5,7 +5,10 @@ Copies the package and chip_smoke.py to a temporary directory, breaks
 one line of a CUDA source (or of the Python that packs a kernel's
 weights) there, and runs the chip_smoke.py kernel phases that run the
 broken code (K1b, K2, K3, K4, K5, K1r or the raw-points training step)
-on the copy; each must fail. Run
+on the copy; each must fail. K3's mutants include its empty-space skip
+(the reach rule without the upper-neighbour bricks) and its cache of a
+brick's link rows (kept when the lower corner crosses into another brick
+along y or z). Run
 from the repository root:
 
     python3 chip_mutants.py
@@ -37,8 +40,20 @@ MUTANTS = {
     ),
     "inclusive instead of exclusive transmittance in the tile march": (
         "nerf_projects_tpu_torch/csrc/tile_march_fwd.cu",
-        "const float T = expf(-cum);",
-        "const float T = expf(-(cum + sigma * r.step_world));",
+        "const float w = T * (1.f - expf(-tau));\n      rgb0 += w * c0;",
+        "const float w = expf(-(cum + tau)) * (1.f - expf(-tau));\n      rgb0 += w * c0;",
+        ("tile_march_fwd",),
+    ),
+    "the tile march's reach rule without the upper-neighbour bricks": (
+        "nerf_projects_tpu_torch/csrc/tile_march_fwd.cu",
+        "any |= nb[c] >= 0;",
+        "any |= nb[0] >= 0;",
+        ("tile_march_fwd",),
+    ),
+    "the tile march's cached link rows kept when the lower corner crosses into another brick along y or z": (
+        "nerf_projects_tpu_torch/csrc/tile_march_fwd.cu",
+        "if ((lx >> 3) != bx || (ly >> 3) != by || (lz >> 3) != bz) {",
+        "if ((lx >> 3) != bx) {",
         ("tile_march_fwd",),
     ),
     "y and z taps swapped in the tile march's cell offset": (

@@ -47,11 +47,17 @@ Phases, each of which raises (exit code 1) on failure:
   kernel_march
           the Plenoxels tile march (K3) against its plain PyTorch version
           on the card: a random 32^3 grid (basis_dim 9) with tiles of 128,
-          256 and 512 rays, then one 800x800 frame at 512^3 (the fog scene
-          below) in 16x32-ray tiles, compared tile by tile; then that
-          frame's march timed with CUDA events beside its bound (the
-          bricks it touches and its rays over HBM bandwidth, its samples'
-          float operations over the float32 rate) and the plain version.
+          256 and 512 rays; a 32^3 grid built to stress the kernel's
+          empty-space skip (data only in the central 2x2x2 bricks and one
+          brick on the upper x face) on camera tiles, rays grazing the
+          bricks' faces and rays entering through the upper face; then
+          one 800x800 frame at 512^3 (the fog scene below) in 16x32-ray
+          tiles, compared tile by tile; then that frame's march timed with
+          CUDA events beside its bound (the bricks it touches and its rays
+          over HBM bandwidth, the float operations of the samples that can
+          reach data, the shaded ones and a brick step per skipped brick
+          over the float32 rate; the first port's bound, every marched
+          sample, beside it) and the plain version.
   kernel_raw
           the fused MLP on raw points, posenc in the kernel: its forward
           (K1rf) against its plain version on 8192 + 37 rows and at the
@@ -99,7 +105,9 @@ Phases, each of which raises (exit code 1) on failure:
           bricks, GB on the card, K3 launches (zeroed just before, read
           just after) and samples marched; every frame of each scene is
           checked against the plain version; K3 alone timed on frame 0
-          with CUDA events.
+          with CUDA events, with and without early stop, beside the first
+          port's per-sample march cut after its link reads, after its
+          densities and whole (tile_march_fwd_probe).
   kernel_march_bwd
           the tile march's backward (K4) against its plain PyTorch
           version on the card: a random 32^3 grid whose rays stop
@@ -125,7 +133,8 @@ Phases, each of which raises (exit code 1) on failure:
           after each: train rays/s, step ms median, min and max, the K3
           and K4 launches (zeroed just before, read just after), the
           first and last MSE (the loss must fall and stay finite); K3
-          alone timed on the batch with CUDA events.
+          and K4 alone timed on the batch with CUDA events beside their
+          bounds.
   kernel_sh
           the fused NeRF-SH trunk (K5f) against its plain PyTorch version
           on 8192 + 37 rows at each head width the kernel builds (27, 48,
@@ -159,6 +168,11 @@ Phases, each of which raises (exit code 1) on failure:
           ms, the first and last loss (it must fall and stay finite), K5f
           and K5b launches, peak memory; then one step's waiting calls
           (none) and a profile of 5 steps.
+
+Each MLP kernel is also timed at every level size its main paths launch
+it at (a serving request's and a training step's coarse and fine
+levels), and a "rule2:" line orders the kernels by launches x (ms -
+bound) summed over those sizes.
 
 Output: progress lines, a `{"kernels": [...]}` JSON line, the card's
 name and power limit as nvidia-smi gives them, and last
@@ -343,6 +357,44 @@ def bound(flops: float, nbytes: float) -> tuple:
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), t_ops, t_bytes
 
 
+SIZE_TIMES = {}  # kernel name -> {shape: (ms, bound ms)}, each shape a main path launches it at
+
+
+def time_sizes(name: str, main_shape: str, main: tuple, shapes, launch, work) -> None:
+    """Record a kernel's time and bound at main_shape, then time it with
+    CUDA events at each (shape, rows) of ``shapes``: launch(rows) makes
+    the inputs and returns a call of the kernel on them, work(rows) the
+    (flops, bytes) of its bound."""
+    SIZE_TIMES.setdefault(name, {})[main_shape] = main
+    for shape, rows in shapes:
+        fn = launch(rows)
+        ms = time_ms(fn, iters=10)
+        b_ms = bound(*work(rows))[0]
+        SIZE_TIMES[name][shape] = (ms, b_ms)
+        log(f"kernel sizes: {name} at a {shape} level ({rows} rows): {ms:.4f} ms, bound {b_ms:.4f} ms, "
+            f"{b_ms / ms:.3f} of bound")
+        del fn
+    torch.cuda.empty_cache()
+
+
+def rule2(paths: dict) -> None:
+    """Log each kernel's launches x (ms - bound), summed over the shapes
+    its main paths launched it at (paths: kernel name -> {shape:
+    launches}), and the kernels in that order."""
+    order = []
+    for name, shapes in paths.items():
+        terms = [(shape, n) + SIZE_TIMES[name][shape] for shape, n in shapes.items()]
+        total = sum(n * (ms - b) for _, n, ms, b in terms)
+        order.append((total, name))
+        log(f"rule2: {name}: {total:.1f} ms = " + " + ".join(
+            f"{n:g} x ({ms:.4f} - {b:.4f}) [{shape}]" for shape, n, ms, b in terms))
+    log("rule2: order: " + ", ".join(f"{name} {t:.1f}" for t, name in sorted(order, reverse=True)))
+
+
+SERVE_COARSE, SERVE_FINE = PATCH * PATCH * 64, PATCH * PATCH * (64 + 128)
+TRAIN_COARSE, TRAIN_FINE = TRAIN_RAYS * COARSE, TRAIN_RAYS * (COARSE + FINE)
+
+
 def phase_kernel(dev, fine_rows: int) -> dict:
     from nerf_projects_tpu_torch.models.nerf import NeRFMLP
     from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
@@ -378,6 +430,16 @@ def phase_kernel(dev, fine_rows: int) -> dict:
     log(f"kernel: fused_mlp_fwd n={fine_rows}: {ms:.4f} ms ({ms / fine_rows * 1e6:.4f} ms per 1M samples, "
         f"{flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"(operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms), {bound_ms / ms:.3f} of bound")
+    del x, v
+
+    def launch(n):
+        xv = encodings(n, gen, dev)
+        return lambda: fm.fused_mlp_fwd(wk, *xv)
+
+    time_sizes("fused_mlp_fwd", "serving fine", (ms, bound_ms),
+               (("serving coarse", SERVE_COARSE), ("training coarse", TRAIN_COARSE), ("training fine", TRAIN_FINE)),
+               launch, lambda n: (2.0 * fm.LIVE_MACS_PER_SAMPLE * n,
+                                  fm.IO_BYTES_PER_SAMPLE * n + wk.numel() * wk.element_size()))
     return {
         "name": "fused_mlp_fwd",
         "route": "cuda",
@@ -426,6 +488,15 @@ def phase_kernel_bwd(dev, big_rows: int) -> dict:
     bound_ms, by, t_ops, t_bytes = bound(flops, nbytes)
     log(f"kernel: fused_mlp_bwd n={big_rows}: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms (operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms), {bound_ms / ms:.3f} of bound")
+
+    def launch(n):
+        xv = encodings(n, gen, dev)
+        gn = (torch.randn(n, 8, generator=gen) * 1e-3).to(dev)
+        return lambda: fm.fused_mlp_bwd(wk, wkt, *xv, gn)
+
+    time_sizes("fused_mlp_bwd", "training fine", (ms, bound_ms), (("training coarse", TRAIN_COARSE),), launch,
+               lambda n: (3 * 2.0 * fm.LIVE_MACS_PER_SAMPLE * n,
+                          (64 + 32 + 8) * 4 * n + fm.GRAD_ELEMS * 4 + (wk.numel() + wkt.numel()) * 2))
     return {
         "name": "fused_mlp_bwd", "route": "cuda",
         "source": "nerf_projects_tpu_torch/csrc/fused_mlp_bwd.cu",
@@ -514,6 +585,7 @@ def phase_kernel_train(dev) -> dict:
     ms, plain_ms, b_ms = (sum(t[i] for t in timed.values()) for i in range(3))
     log(f"kernel: fused_train_level per step (coarse + fine): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms, {b_ms / ms:.3f} of bound")
+    SIZE_TIMES["fused_train_level"] = {"training step": (ms, b_ms)}
     return {
         "name": "fused_train_level", "route": "cuda",
         "source": "nerf_projects_tpu_torch/csrc/fused_train.cu",
@@ -753,7 +825,7 @@ def phase_train(dev, card: str) -> dict:
         profile_steps(lambda n: trainer.scan_steps(state, ds["rays"], ds["pixels"], n, batch_size=TRAIN_RAYS)[0],
                       route)
     return {"fused_train_level": out[True]["fused_train_level"],
-            "fused_mlp_bwd": out[False]["fused_mlp_bwd"]}
+            "fused_mlp_bwd": out[False]["fused_mlp_bwd"], "fused_mlp_fwd": out[False]["fused_mlp_fwd"]}
 
 
 # ---------------------------------------------------------------------------
@@ -867,6 +939,16 @@ def phase_kernel_raw(dev, serve_rows: int, train_rows: int) -> tuple:
     log(f"kernel_raw: fused_mlp_raw_fwd n={serve_rows}: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), K1f on the "
         f"same rows' encodings {k1f_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms (operations "
         f"{t_ops:.4f} ms, bytes {t_bytes:.4f} ms), {b_ms / ms:.3f} of bound")
+    del p, v, x, ve
+
+    def launch_fwd(n):
+        pv = raw_inputs(n, gen, dev)
+        return lambda: fm.fused_mlp_raw_fwd(wk, *pv)
+
+    time_sizes("fused_mlp_raw_fwd", "serving fine", (ms, b_ms),
+               (("serving coarse", SERVE_COARSE), ("training coarse", TRAIN_COARSE), ("training fine", TRAIN_FINE)),
+               launch_fwd, lambda n: (2.0 * fm.LIVE_MACS_PER_SAMPLE * n,
+                                      fm.RAW_IO_BYTES_PER_SAMPLE * n + wk.numel() * 2))
     fwd = {"name": "fused_mlp_raw_fwd", "route": "cuda", "source": "nerf_projects_tpu_torch/csrc/fused_mlp_raw_fwd.cu",
            "replaces": "nerf_projects_tpu/ops/pallas/fused_mlp.py:534", "launches": 0, "max_abs_err": max_fwd,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": None}
@@ -882,6 +964,15 @@ def phase_kernel_raw(dev, serve_rows: int, train_rows: int) -> tuple:
     log(f"kernel_raw: fused_mlp_raw_bwd n={train_rows}: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), K1b on the "
         f"same rows' encodings {k1b_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms (operations "
         f"{t_ops:.4f} ms, bytes {t_bytes:.4f} ms), {b_ms / ms:.3f} of bound")
+
+    def launch_bwd(n):
+        pv = raw_inputs(n, gen, dev)
+        gn = (torch.randn(n, 8, generator=gen) * 1e-3).to(dev)
+        return lambda: fm.fused_mlp_raw_bwd(wk, wkt, *pv, gn)
+
+    time_sizes("fused_mlp_raw_bwd", "training fine", (ms, b_ms), (("training coarse", TRAIN_COARSE),), launch_bwd,
+               lambda n: (3 * 2.0 * fm.LIVE_MACS_PER_SAMPLE * n, fm.RAW_IO_BYTES_PER_SAMPLE * n + fm.GRAD_ELEMS * 4
+                          + (wk.numel() + wkt.numel()) * 2))
     bwd = {"name": "fused_mlp_raw_bwd", "route": "cuda", "source": "nerf_projects_tpu_torch/csrc/fused_mlp_raw_bwd.cu",
            "replaces": "nerf_projects_tpu/ops/pallas/fused_mlp.py:559", "launches": 0, "max_abs_err": max_bwd,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": None}
@@ -1116,24 +1207,31 @@ def random_cells(bg, gen: torch.Generator, opaque_sigma=None, chunk: int = 8192)
     return cells
 
 
-def shell_select(bg, r_lo: float = 0.85, r_hi: float = 1.02):
-    """bench.py's _shell_select: keep the bricks whose centre lies at
-    radius r_lo..r_hi of the unit sphere, rows renumbered."""
+def select_bricks(bg, keep: np.ndarray):
+    """bg with only its active bricks where ``keep`` (bool, one per
+    active brick in row order) holds, rows renumbered."""
     links = bg.brick_links.cpu().numpy()
     coords = np.argwhere(links >= 0)
-    centers = (coords * 8.0 + 4.0) / bg.reso[0] * 2.0 - 1.0
-    rad = np.linalg.norm(centers, axis=1)
-    keep = (rad >= r_lo) & (rad <= r_hi)
-    if not keep.any():  # a grid too coarse for the band keeps every brick
-        keep[:] = True
     old_rows = links[coords[:, 0], coords[:, 1], coords[:, 2]]
     new_links = np.full_like(links, -1)
     kept = coords[keep]
     new_links[kept[:, 0], kept[:, 1], kept[:, 2]] = np.arange(int(keep.sum()), dtype=np.int32)
     sel = torch.from_numpy(old_rows[keep]).long().to(bg.device)
     return dataclasses.replace(bg, brick_links=torch.from_numpy(new_links).to(bg.device), cell_mask=bg.cell_mask[sel],
-                      brick_coords=bg.brick_coords[sel], density_bricks=bg.density_bricks[sel],
-                      sh_bricks=bg.sh_bricks[sel])
+                               brick_coords=bg.brick_coords[sel], density_bricks=bg.density_bricks[sel],
+                               sh_bricks=bg.sh_bricks[sel])
+
+
+def shell_select(bg, r_lo: float = 0.85, r_hi: float = 1.02):
+    """bench.py's _shell_select: keep the bricks whose centre lies at
+    radius r_lo..r_hi of the unit sphere, rows renumbered."""
+    coords = np.argwhere(bg.brick_links.cpu().numpy() >= 0)
+    centers = (coords * 8.0 + 4.0) / bg.reso[0] * 2.0 - 1.0
+    rad = np.linalg.norm(centers, axis=1)
+    keep = (rad >= r_lo) & (rad <= r_hi)
+    if not keep.any():  # a grid too coarse for the band keeps every brick
+        keep[:] = True
+    return select_bricks(bg, keep)
 
 
 def scene_grid(dev, shell: bool):
@@ -1150,22 +1248,26 @@ def scene_grid(dev, shell: bool):
 
 def plain_march(cells, bg, pack, basis, counts=False, **kw):
     """The plain version in batches of PLAIN_BATCH_TILES tiles: out, or
-    with ``counts`` (out, (samples marched, samples shaded, bricks
-    touched)) over all the tiles."""
+    with ``counts`` (out, dict of its counts summed over all the tiles:
+    marched, shaded, dense, reach, brick_steps, and touched, the bricks
+    touched)."""
     from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
 
-    outs, marched, shaded, touched = [], 0, 0, None
+    outs, total = [], {}
+    reach = tm.reachable_bricks(bg.brick_links, bg.reso) if counts else None
     for i in range(0, pack.shape[0], PLAIN_BATCH_TILES):
         got = tm.march_reference(cells, bg.brick_links, bg.reso, pack[i:i + PLAIN_BATCH_TILES],
-                                 basis[i:i + PLAIN_BATCH_TILES], counts=counts, **kw)
+                                 basis[i:i + PLAIN_BATCH_TILES], counts=counts, reach=reach, **kw)
         if counts:
             got, c = got
-            marched += int(c["marched"].sum())
-            shaded += int(c["shaded"].sum())
-            touched = c["touched"] if touched is None else touched | c["touched"]
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + int(v.sum()) if k != "touched" else total.get(k, False) | v
         outs.append(got)
     out = torch.cat(outs)
-    return (out, (marched, shaded, int(touched.sum()))) if counts else out
+    if not counts:
+        return out
+    total["touched"] = int(total["touched"].sum())
+    return out, total
 
 
 def compare_march(tag, out, ref) -> float:
@@ -1184,25 +1286,96 @@ def compare_march(tag, out, ref) -> float:
     return max_abs
 
 
-def march_bound(touched_bricks: int, basis_dim: int, n_rays: int, n_tiles: int, marched: int, shaded: int):
-    """(bound ms, "bytes" | "operations", ops ms, bytes ms) of one march:
-    the touched bricks' live channels (1 + 3B bf16 a cell) and each ray's
-    pack and outputs and each tile's basis once over HBM; the samples'
-    float operations over the float32 rate."""
+def march_bound(c: dict, basis_dim: int, n_rays: int, n_tiles: int, skip: bool = True):
+    """(bound ms, "bytes" | "operations", ops ms, bytes ms) of one march
+    with the plain version's counts ``c``: the touched bricks' live
+    channels (1 + 3B bf16 a cell) and each ray's pack and outputs and each
+    tile's basis once over HBM; the float operations over the float32
+    rate of the samples that can reach data, the shaded ones and a brick
+    step per run of samples in an unreachable brick (with ``skip``), or,
+    as the first port counted them, of every marched sample."""
     from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
 
-    nbytes = (touched_bricks * 512 * (1 + 3 * basis_dim) * 2 + n_rays * (tm.PACK * 4 + 8 * 4)
+    nbytes = (c["touched"] * 512 * (1 + 3 * basis_dim) * 2 + n_rays * (tm.PACK * 4 + 8 * 4)
               + n_tiles * basis_dim * 4)
-    flops = marched * tm.FLOPS_PER_SAMPLE + shaded * tm.flops_per_shaded(basis_dim)
+    flops = c["shaded"] * tm.flops_per_shaded(basis_dim)
+    if skip:
+        flops += c["reach"] * tm.FLOPS_PER_SAMPLE + c["brick_steps"] * tm.FLOPS_PER_BRICK_STEP
+    else:
+        flops += c["marched"] * tm.FLOPS_PER_SAMPLE
     t_ops, t_bytes = flops / H100_FP32_FLOPS * 1e3, nbytes / H100_HBM_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), t_ops, t_bytes
 
 
+def bound_text(c: dict, basis_dim: int, n_rays: int, n_tiles: int) -> str:
+    """The new bound beside the first port's, for a log line."""
+    new, old = march_bound(c, basis_dim, n_rays, n_tiles), march_bound(c, basis_dim, n_rays, n_tiles, skip=False)
+    return (f"bound {new[0]:.4f} ms ({new[1]}; operations {new[2]:.4f} ms, bytes {new[3]:.4f} ms; {c['reach']} samples "
+            f"reach data, {c['brick_steps']} brick steps), the first port's bound {old[0]:.4f} ms ({c['marched']} "
+            f"samples marched, {c['shaded']} shaded)")
+
+
+def march_probes(tag, cells, bg, pack, basis, max_steps: int) -> dict:
+    """K3 against the first port's per-sample march cut after its link
+    reads, after its densities and whole (tile_march_fwd_probe), all
+    without early stop so that each marches the same samples, timed with
+    CUDA events. Returns the times."""
+    from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
+
+    kw = dict(max_steps=max_steps, early_stop=False)
+    times = {f"probe {name}": time_ms(lambda m=mode: tm.tile_march_fwd_probe(cells, bg.brick_links, bg.reso, pack,
+                                                                             basis, mode=m, **kw), iters=5)
+             for mode, name in enumerate(("links", "links + density", "whole"))}
+    times["probe whole, early stop"] = time_ms(lambda: tm.tile_march_fwd_probe(
+        cells, bg.brick_links, bg.reso, pack, basis, mode=2, max_steps=max_steps, early_stop=True), iters=5)
+    log(f"{tag}: the first port's per-sample march (tile_march_fwd_probe, no early stop): "
+        + ", ".join(f"{k[6:]} {v:.4f} ms" for k, v in times.items()))
+    return times
+
+
+# The skip case's grid, 32^3: the central 2x2x2 bricks and brick (3, 1, 1)
+# on the upper x face hold data; every face of each borders an empty brick.
+SKIP_BRICKS = {(x, y, z) for x in (1, 2) for y in (1, 2) for z in (1, 2)} | {(3, 1, 1)}
+
+
+def skip_rays(dev):
+    """Tiles of 8 rays [6, 8] through the skip grid (a 32^3 grid of radius
+    1: world = (grid + 0.5) / 16 - 1): rays along y grazing the block's
+    x faces (grid x 7.99, 8, 8.01, 15.99, 16, 23.99, 24, 24.01) at three
+    depths, two tiles of them tilted by 1e-3; one tile entering through
+    the upper x face into brick (3, 1, 1); two tiles of random
+    directions through the block. The CPU tests march the same rays."""
+    from nerf_projects_tpu_torch.core.rays import Rays
+
+    def world(g):
+        return (np.asarray(g, np.float32) + 0.5) / 16.0 - 1.0
+
+    xs = [7.99, 8.0, 8.01, 15.99, 16.0, 23.99, 24.0, 24.01]
+    os_, ds = [], []
+    for z, tilt in ((12.5, 0.0), (8.0, 1e-3), (23.99, -1e-3)):
+        os_.append([world([x, -6.0, z]) for x in xs])
+        ds.append([[tilt, 1.0, 0.5 * tilt]] * 8)
+    os_.append([world([40.0, 8.5 + i, 9.0 + 0.7 * i]) for i in range(8)])
+    ds.append([[-1.0, 0.01 * i, -0.02 * i] for i in range(8)])
+    rng = np.random.default_rng(7)
+    for _ in range(2):
+        o = rng.standard_normal(3)
+        o = 2.5 * o / np.linalg.norm(o)
+        os_.append([o] * 8)
+        ds.append(list(world([16.0, 16.0, 16.0]) + rng.uniform(-0.35, 0.35, (8, 3)) - o))
+    o, d = (np.asarray(x, np.float32) for x in (os_, ds))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = (torch.from_numpy(x).to(dev) for x in (o, d))
+    return Rays(o, d, d)
+
+
 def phase_kernel_march(dev) -> dict:
     """K3 against its plain version: a random 32^3 grid with 128-, 256-
-    and 512-ray tiles, then a whole 800x800 frame of the 512^3 fog scene,
-    whose plain run also counts the work of the bound; then that frame's
-    march timed, and the plain version's."""
+    and 512-ray tiles; the skip grid (SKIP_BRICKS) on grazing rays, rays
+    through the upper face and camera tiles, with and without early stop;
+    then a whole 800x800 frame of the 512^3 fog scene, whose plain run
+    also counts the work of the bound; then that frame's march timed, and
+    the plain version's."""
     from nerf_projects_tpu_torch.core.rays import camera_rays_opencv
     from nerf_projects_tpu_torch.ops.brick_grid import create_brick_grid
     from nerf_projects_tpu_torch.ops.grid import GridRenderOptions
@@ -1213,23 +1386,39 @@ def phase_kernel_march(dev) -> dict:
     max_abs = 0.0
     bg = create_brick_grid(32, basis_dim=GRID_BASIS, use_sphere_bound=True, alloc_data=False, device=dev)
     cells = random_cells(bg, torch.Generator(device=dev).manual_seed(SEED + 4), opaque_sigma=40.0)
+    full = create_brick_grid(32, basis_dim=GRID_BASIS, use_sphere_bound=False, alloc_data=False, device=dev)
+    coords = [tuple(c) for c in full.brick_coords.cpu().numpy().tolist()]
+    skip_bg = select_bricks(full, np.array([c in SKIP_BRICKS for c in coords]))
+    skip_cells = random_cells(skip_bg, torch.Generator(device=dev).manual_seed(SEED + 12), opaque_sigma=8.0)
     C = tm.default_chunks_for(bg, opts)
     tm.tile_march_fwd.launches = 0
+    n_calls = 0
+    cases = []
     for th, tw in ((8, 16), (16, 16), (16, 32)):
         H, W = 4 * th, 4 * tw
         pose = np.eye(4, dtype=np.float32)
         pose[:3, 3] = [0.3, -0.2, -2.6]
         rays = camera_rays_opencv(H, W, 1.2 * W, 1.2 * W, W / 2.0, H / 2.0, pose, device=dev)
         tiles = tiles_from_image_rays(rays.map(lambda x: x.reshape(-1, 3)), H, W, th, tw)
-        pack, basis = tm.pack_rays(bg, tiles, opts)
+        cases.append((f"32^3, {th}x{tw}-ray tiles", bg, cells, tiles))
+        if th == 16:
+            cases.append((f"32^3 skip grid, {th}x{tw}-ray camera tiles", skip_bg, skip_cells, tiles))
+    cases.append(("32^3 skip grid, grazing and upper-face rays", skip_bg, skip_cells, skip_rays(dev)))
+    for name, g, c, tiles in cases:
+        pack, basis = tm.pack_rays(g, tiles, opts)
         for early_stop in (False, True):
             kw = dict(max_steps=C * tm.SC, early_stop=early_stop)
-            got = tm.tile_march_fwd(cells, bg.brick_links, bg.reso, pack, basis, **kw)
-            want = tm.march_reference(cells, bg.brick_links, bg.reso, pack, basis, **kw)
+            got = tm.tile_march_fwd(c, g.brick_links, g.reso, pack, basis, **kw)
+            want = tm.march_reference(c, g.brick_links, g.reso, pack, basis, **kw)
             torch.cuda.synchronize()
+            n_calls += 1
             max_abs = max(max_abs, compare_march(
-                f"kernel_march: 32^3, {th}x{tw}-ray tiles, {pack.shape[0]} tiles, early_stop {early_stop}",
-                got, want))
+                f"kernel_march: {name}, {pack.shape[0]} tiles, early_stop {early_stop}", got, want))
+            if g is skip_bg and not early_stop:
+                _, cnt = tm.march_reference(c, g.brick_links, g.reso, pack, basis, counts=True, **kw)
+                log(f"kernel_march: {name}: mean acc {float(want[:, 3].mean()):.4f}; "
+                    f"{int(cnt['marched'].sum())} samples marched, {int(cnt['reach'].sum())} reach data, "
+                    f"{int(cnt['brick_steps'].sum())} brick steps")
 
     bg, cells = scene_grid(dev, shell=False)
     tiles = frame_tiles(0, dev)
@@ -1237,10 +1426,11 @@ def phase_kernel_march(dev) -> dict:
     kw = dict(max_steps=tm.default_chunks_for(bg, opts) * tm.SC, early_stop=True)
     got = tm.tile_march_fwd(cells, bg.brick_links, bg.reso, pack, basis, **kw)
     torch.cuda.synchronize()
-    if tm.tile_march_fwd.launches != 7:
-        raise AssertionError(f"kernel_march: {tm.tile_march_fwd.launches} launches counted for 7 kernel calls")
+    n_calls += 1
+    if tm.tile_march_fwd.launches != n_calls:
+        raise AssertionError(f"kernel_march: {tm.tile_march_fwd.launches} launches counted for {n_calls} kernel calls")
     T = pack.shape[0]
-    want, (marched, shaded, n_touched) = plain_march(cells, bg, pack, basis, counts=True, **kw)
+    want, cnt = plain_march(cells, bg, pack, basis, counts=True, **kw)
     max_abs = max(max_abs, compare_march(
         f"kernel_march: {GRID_RESO}^3 fog frame, {T} tiles of {pack.shape[1]} rays", got, want))
 
@@ -1249,11 +1439,11 @@ def phase_kernel_march(dev) -> dict:
     plain_march(cells, bg, pack, basis, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    b_ms, by, t_ops, t_bytes = march_bound(n_touched, bg.basis_dim, T * pack.shape[1], T, marched, shaded)
+    b_ms, by, _, _ = march_bound(cnt, bg.basis_dim, T * pack.shape[1], T)
     log(f"kernel_march: {GRID_RESO}^3 fog frame ({FRAME}x{FRAME}, {T} tiles): {ms:.4f} ms a frame "
-        f"({marched / ms / 1e6:.3f} G samples/s; {marched} samples marched, {shaded} shaded, by the plain version; "
-        f"{n_touched} of {bg.n_bricks} bricks touched), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"(operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms), {b_ms / ms:.3f} of bound")
+        f"({cnt['marched'] / ms / 1e6:.3f} G samples/s marched by the plain version; {cnt['touched']} of "
+        f"{bg.n_bricks} bricks touched), plain {plain_ms:.4f} ms, "
+        f"{bound_text(cnt, bg.basis_dim, T * pack.shape[1], T)}; {b_ms / ms:.3f} of bound")
     del cells, bg
     torch.cuda.empty_cache()
     return {
@@ -1263,6 +1453,20 @@ def phase_kernel_march(dev) -> dict:
         "launches": 0, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": by, "library_ms": None,
     }
+
+
+def profile_march(dev) -> None:
+    """march_probes on frame 0 of the fog and the shell scene, alone."""
+    from nerf_projects_tpu_torch.ops.grid import GridRenderOptions
+    from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
+
+    opts = GridRenderOptions(step_size=0.5)
+    for name, shell in (("fog", False), ("shell", True)):
+        bg, cells = scene_grid(dev, shell)
+        pack, basis = tm.pack_rays(bg, frame_tiles(0, dev), opts)
+        march_probes(f"profile_march: {name} frame 0", cells, bg, pack, basis, tm.default_chunks_for(bg, opts) * tm.SC)
+        del bg, cells
+        torch.cuda.empty_cache()
 
 
 def phase_render_plenoxels(dev, card: str) -> int:
@@ -1275,7 +1479,7 @@ def phase_render_plenoxels(dev, card: str) -> int:
 
     opts = GridRenderOptions(step_size=0.5)
     frames = [frame_tiles(i, dev) for i in range(4)]
-    launches = 0
+    launches = {}
     for name, shell in (("fog", False), ("shell", True)):
         torch.cuda.reset_peak_memory_stats(dev)
         bg, cells = scene_grid(dev, shell)
@@ -1297,20 +1501,23 @@ def phase_render_plenoxels(dev, card: str) -> int:
         per_pose, work = [], []
         for i, f in enumerate(frames):
             pack, basis = tm.pack_rays(bg, f, opts)
-            plain, (marched, shaded, touched) = plain_march(cells, bg, pack, basis, counts=True, max_steps=C * tm.SC,
-                                                            early_stop=True)
-            work.append((touched, bg.basis_dim, pack.shape[0] * pack.shape[1], pack.shape[0], marched, shaded))
+            plain, cnt = plain_march(cells, bg, pack, basis, counts=True, max_steps=C * tm.SC, early_stop=True)
+            work.append((cnt, bg.basis_dim, pack.shape[0] * pack.shape[1], pack.shape[0]))
             ref = tm.march_outputs(plain, pack, opts, False)
             err = max(float((first[i][k] - ref[k]).abs().max()) for k in ("rgb", "acc"))
             log(f"render_plenoxels: {name}: frame {i} against the plain version: max |rgb, acc err| {err:.3e} "
-                f"(tolerance {MARCH_TOL}); {marched} samples marched")
+                f"(tolerance {MARCH_TOL}); {cnt['marched']} samples marched, {cnt['reach']} reach data")
             if not err < MARCH_TOL:
                 raise AssertionError(f"render_plenoxels: {name}: frame {i} disagrees with the plain version")
-            per_pose.append(marched)
+            per_pose.append(cnt["marched"])
         pack, basis = tm.pack_rays(bg, frames[0], opts)
         k3_ms = time_ms(lambda: tm.tile_march_fwd(cells, bg.brick_links, bg.reso, pack, basis, max_steps=C * tm.SC,
                                                   early_stop=True), iters=5)
         k3_bound = march_bound(*work[0])[0]
+        probes = march_probes(f"render_plenoxels: {name} frame 0", cells, bg, pack, basis, C * tm.SC)
+        k3_full_ms = time_ms(lambda: tm.tile_march_fwd(cells, bg.brick_links, bg.reso, pack, basis,
+                                                       max_steps=C * tm.SC), iters=5)
+        SIZE_TIMES.setdefault("tile_march_fwd", {})[f"{name} frame"] = (k3_ms, k3_bound)
 
         tm.tile_march_fwd.launches = 0
         secs, marched = [], 0
@@ -1323,7 +1530,7 @@ def phase_render_plenoxels(dev, card: str) -> int:
             secs.append(time.perf_counter() - t0)
         window = time.perf_counter() - t_window
         n_launch = tm.tile_march_fwd.launches
-        launches += n_launch
+        launches[f"{name} frame"] = n_launch
         mean_acc = float(first[0]["acc"].mean())
         log(f"render_plenoxels: {name} on {card}: {GRID_RESO}^3 basis {GRID_BASIS} step 0.5, {bg.n_bricks} active bricks, "
             f"cells {gb:.3f} GB, peak allocated {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB; "
@@ -1331,7 +1538,9 @@ def phase_render_plenoxels(dev, card: str) -> int:
             f"median {np.median(secs) * 1e3:.4f}, min {min(secs) * 1e3:.4f}, max {max(secs) * 1e3:.4f}; "
             f"{n_launch} tile_march_fwd launches; {marched} samples marched (counted by the plain version) "
             f"({marched / len(secs) / 1e6:.3f} M a frame); mean acc of frame 0 {mean_acc:.4f}; K3 alone on frame 0 "
-            f"{k3_ms:.4f} ms (CUDA events), bound {k3_bound:.4f} ms")
+            f"{k3_ms:.4f} ms (CUDA events), {bound_text(*work[0])}, {k3_bound / k3_ms:.3f} of bound; without early "
+            f"stop {k3_full_ms:.4f} ms, the first port's march whole {probes['probe whole']:.4f} ms, "
+            f"{probes['probe whole'] / k3_full_ms:.3f}x")
         if n_launch <= 0:
             raise AssertionError(f"render_plenoxels: {name}: the main path launched no tile_march_fwd kernel")
         del cells, bg, first
@@ -1342,6 +1551,7 @@ def phase_render_plenoxels(dev, card: str) -> int:
 # ---------------------------------------------------------------------------
 # Plenoxels training: the march's backward (K4) and the training step
 # ---------------------------------------------------------------------------
+
 
 TRAIN_SCENES = {"fog": (256, 40), "shell": (512, 128)}  # reso, tiles of 8x16 rays a step
 TRAIN_TARGET = 0.4
@@ -1564,12 +1774,13 @@ def phase_kernel_march_bwd(dev) -> dict:
 def phase_train_plenoxels(dev, card: str) -> dict:
     """train_step_tiles_pallas at the fog 256^3 and shell 512^3 training
     configurations: one step against the plain versions, then a timed
-    window. Returns the K3 and K4 launches of both windows."""
+    window; then K3 and K4 alone on a step's batch beside their bounds.
+    Returns the K3 and K4 launches of each window."""
     from nerf_projects_tpu_torch.ops.grid import GridRenderOptions
     from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
     from nerf_projects_tpu_torch.train import PlenoxelsTrainer
 
-    launches = {"tile_march_fwd": 0, "tile_march_bwd": 0}
+    launches = {"tile_march_fwd": {}, "tile_march_bwd": {}}
     for name, (reso, n_tiles) in TRAIN_SCENES.items():
         bg = train_grid(dev, name)
         torch.cuda.reset_peak_memory_stats(dev)  # the peak from here counts the masters
@@ -1646,17 +1857,28 @@ def phase_train_plenoxels(dev, card: str) -> dict:
         if not np.mean(mses[-k:]) < np.mean(mses[:k]):
             raise AssertionError(f"{tag}: the MSE did not fall")
         for key in launches:
-            launches[key] += counts[key]
+            launches[key][f"{name} batch"] = counts[key]
         cells, pack, basis, max_steps = tm.march_inputs(bg, rays, trainer.opts)
         kw = dict(max_steps=max_steps, color_mode=trainer.opts.color_mode, sigma_thresh=trainer.opts.sigma_thresh,
                   stop_thresh=trainer.opts.stop_thresh)
         k3_ms = time_ms(lambda: tm.tile_march_fwd(cells, bg.brick_links, bg.reso, pack, basis, **kw), iters=10)
-        _, (marched, shaded, touched) = plain_march(cells, bg, pack, basis, counts=True, **kw)
-        k3_bound = march_bound(touched, bg.basis_dim, n_rays, pack.shape[0], marched, shaded)[0]
-        log(f"{tag}: K3 alone on a step's batch ({n_rays} rays): {k3_ms:.4f} ms (CUDA events), bound {k3_bound:.4f} ms "
-            f"({marched} samples marched, {shaded} shaded, {touched} bricks touched); {counts['tile_march_fwd']} "
-            f"launches in the window above")
-        del cells
+        _, cnt = plain_march(cells, bg, pack, basis, counts=True, **kw)
+        k3_bound = march_bound(cnt, bg.basis_dim, n_rays, pack.shape[0])[0]
+        SIZE_TIMES.setdefault("tile_march_fwd", {})[f"{name} batch"] = (k3_ms, k3_bound)
+        log(f"{tag}: K3 alone on a step's batch ({n_rays} rays): {k3_ms:.4f} ms (CUDA events), "
+            f"{bound_text(cnt, bg.basis_dim, n_rays, pack.shape[0])}, {k3_bound / k3_ms:.3f} of bound; "
+            f"{cnt['touched']} bricks touched; {counts['tile_march_fwd']} launches in the window above")
+        # K4 alone on the batch: it marches each ray until it goes inactive
+        g, s_total = bwd_inputs(cells, bg, pack, basis, target, trainer.opts, 0.0, max_steps)
+        k4_ms = time_ms(lambda: tm.tile_march_bwd(cells, bg.brick_links, bg.reso, pack, basis, g, s_total, **kw),
+                        iters=10)
+        _, cnt = plain_march(cells, bg, pack, basis, counts=True, early_stop=True, **kw)
+        k4_bound, by, t_ops, t_bytes = march_bwd_bound(cnt["touched"], bg.n_bricks, bg.basis_dim, n_rays,
+                                                       pack.shape[0], cnt, 0.0)
+        SIZE_TIMES.setdefault("tile_march_bwd", {})[f"{name} batch"] = (k4_ms, k4_bound)
+        log(f"{tag}: K4 alone on a step's batch: {k4_ms:.4f} ms (CUDA events), bound {k4_bound:.4f} ms ({by}; "
+            f"operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms), {k4_bound / k4_ms:.3f} of bound")
+        del cells, g, s_total
 
         def run_steps(n, state=(bg, rms)):
             b, r = state
@@ -1794,6 +2016,16 @@ def phase_kernel_sh(dev) -> tuple:
     log(f"kernel_sh: fused_sh_fwd n={serve_rows}: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms (operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms), "
         f"{b_ms / ms:.3f} of bound")
+    del x
+
+    def launch_fwd(n):
+        xs = sh_points(n, gen, dev)
+        return lambda: fsm.fused_sh_fwd(wk, xs, SH_RGB)
+
+    time_sizes("fused_sh_fwd", "serving fine", (ms, b_ms),
+               (("serving coarse", SH_CHUNK * SH_COARSE), ("training coarse", TRAIN_RAYS * SH_COARSE),
+                ("training fine", train_rows)),
+               launch_fwd, lambda n: (2.0 * fsm.fwd_macs(SH_RGB) * n, fsm.io_bytes(SH_RGB) * n + wk.numel() * 2))
     fwd = {"name": "fused_sh_fwd", "route": "cuda", "source": "nerf_projects_tpu_torch/csrc/fused_sh_fwd.cu",
            "replaces": "nerf_projects_tpu/ops/pallas/fused_sh_mlp.py:215", "launches": 0,
            "max_abs_err": max_fwd, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
@@ -1811,6 +2043,16 @@ def phase_kernel_sh(dev) -> tuple:
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms (operations {t_ops:.4f} ms: multiply-adds a row {macs}; bytes "
         f"{t_bytes:.4f} ms), {b_ms / ms:.3f} of bound; the stashes hold {stash / 1e9:.3f} GB, written once and "
         f"read at least once: {2 * stash / H100_HBM_BYTES_S * 1e3:.4f} ms of HBM traffic the bound does not count")
+
+    def launch_bwd(n):
+        xs = sh_points(n, gen, dev)
+        gr = (torch.randn(n, SH_RGB, generator=gen) * 1e-3).to(dev)
+        gs = (torch.randn(n, 1, generator=gen) * 1e-3).to(dev)
+        return lambda: fsm.fused_sh_bwd(wk, wkt, xs, gr, gs)
+
+    time_sizes("fused_sh_bwd", "training fine", (ms, b_ms), (("training coarse", TRAIN_RAYS * SH_COARSE),),
+               launch_bwd, lambda n: (2.0 * sum(macs.values()) * n, fsm.io_bytes(SH_RGB) * n + fsm.GRAD_ELEMS * 4
+                                      + (wk.numel() + wkt.numel()) * 2))
     bwd = {"name": "fused_sh_bwd", "route": "cuda", "source": "nerf_projects_tpu_torch/csrc/fused_sh_bwd.cu",
            "replaces": "nerf_projects_tpu/ops/pallas/fused_sh_mlp.py:242", "launches": 0,
            "max_abs_err": max_bwd, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
@@ -2065,18 +2307,36 @@ def main() -> int:
     raw_fwd["launches"] += raw_counts["fused_mlp_raw_fwd"]
     raw_bwd["launches"] = raw_counts["fused_mlp_raw_bwd"]
     march = phase_kernel_march(dev)
-    march["launches"] = phase_render_plenoxels(dev, card)
+    frame_launches = phase_render_plenoxels(dev, card)
     march_bwd = phase_kernel_march_bwd(dev)
     train_launches = phase_train_plenoxels(dev, card)
-    march["launches"] += train_launches["tile_march_fwd"]
-    march_bwd["launches"] = train_launches["tile_march_bwd"]
+    march["launches"] = sum(frame_launches.values()) + sum(train_launches["tile_march_fwd"].values())
+    march_bwd["launches"] = sum(train_launches["tile_march_bwd"].values())
     kernels += [march, march_bwd]
     sh_fwd, sh_bwd = phase_kernel_sh(dev)
-    sh_fwd["launches"] = phase_render_nerf_sh(dev, card)
+    sh_serve = phase_render_nerf_sh(dev, card)
     sh_counts = phase_train_nerf_sh(dev, card)
-    sh_fwd["launches"] += sh_counts["fused_sh_fwd"]
+    sh_fwd["launches"] = sh_serve + sh_counts["fused_sh_fwd"]
     sh_bwd["launches"] = sh_counts["fused_sh_bwd"]
     kernels += [sh_fwd, sh_bwd, raw_fwd, raw_bwd]
+
+    def levels(serving, training):  # each request or step launches a coarse and a fine level
+        out = {f"serving {lv}": serving / 2 for lv in ("coarse", "fine") if serving}
+        out.update({f"training {lv}": training / 2 for lv in ("coarse", "fine") if training})
+        return out
+
+    rule2({
+        "fused_mlp_fwd": levels(kernels[0]["launches"], launches["fused_mlp_fwd"]),
+        "fused_mlp_bwd": levels(0, kernels[1]["launches"]),
+        "fused_train_level": {"training step": kernels[2]["launches"] / 2},
+        "tile_march_fwd": {**frame_launches, **train_launches["tile_march_fwd"]},
+        "tile_march_bwd": train_launches["tile_march_bwd"],
+        "fused_sh_fwd": levels(sh_serve, sh_counts["fused_sh_fwd"]),
+        "fused_sh_bwd": levels(0, sh_bwd["launches"]),
+        "fused_mlp_raw_fwd": levels(raw_fwd["launches"] - raw_counts["fused_mlp_raw_fwd"],
+                                    raw_counts["fused_mlp_raw_fwd"]),
+        "fused_mlp_raw_bwd": levels(0, raw_bwd["launches"]),
+    })
     log(f"chip_smoke: wall {time.perf_counter() - t0:.1f} s, build {build_s:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

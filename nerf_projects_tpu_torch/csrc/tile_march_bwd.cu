@@ -108,7 +108,7 @@ __global__ void __launch_bounds__(128) march_bwd_kernel(const Params p) {
         const float c0 = decode(raw[0], p.sigmoid);
         const float c1 = decode(raw[1], p.sigmoid);
         const float c2 = decode(raw[2], p.sigmoid);
-        const float tau = sigma * r.step_world;
+        const float tau = __fmul_rn(sigma, r.step_world);  // rounded as K3 rounds it
         const float e = expf(-tau);
         const float w = T * (1.f - e);
         const float cdotg = c0 * g0 + c1 * g1 + c2 * g2;
@@ -121,7 +121,7 @@ __global__ void __launch_bounds__(128) march_bwd_kernel(const Params p) {
         gr[0] = w * g0 * d0;
         gr[1] = w * g1 * d1;
         gr[2] = w * g2 * d2;
-        cum += tau;
+        cum = __fadd_rn(cum, tau);
       }
 
 #pragma unroll

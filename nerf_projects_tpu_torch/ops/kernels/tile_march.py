@@ -66,6 +66,12 @@ _BIG = 1e30
 # complements 6, the 8 corner weights 12, 8 density taps 16, threshold 1,
 # transmittance 3, sparsity 4.
 FLOPS_PER_SAMPLE = 50
+# A run of samples in a brick that no data can be read from costs one
+# brick step: the landing sample's step and position 8, the exit through
+# the brick's three faces 6 (a subtraction and a product with the
+# reciprocal direction each), their minimum 2, the step index 3.
+FLOPS_PER_BRICK_STEP = 19
+SKIP_EPS = 1.0 / 128.0  # cells: the kernel's skip stays this far inside a brick (SKIP_EPS in the source)
 
 
 def flops_per_shaded(basis_dim: int) -> int:
@@ -232,6 +238,71 @@ def _corners(brick_links: torch.Tensor, reso, pos: torch.Tensor):
         yield row, o[..., 0] * 64 + o[..., 1] * 8 + o[..., 2], wt
 
 
+def reachable_bricks(brick_links: torch.Tensor, reso) -> torch.Tensor:
+    """[BX, BY, BZ] bool: the bricks b such that a sample whose lower
+    corner lies in b can read data, i.e. one of the bricks b + {0, 1}^3
+    (the upper corner may cross a face) is occupied, each index clamped to
+    the last brick that holds a cell of the grid. The kernel applies this
+    rule to the bricks its rays enter; this is its plain version."""
+    occ = brick_links >= 0
+    steps = []
+    for n, r in zip(occ.shape, reso):
+        i = torch.arange(n, device=occ.device)
+        steps.append((i, torch.clamp(i + 1, max=(int(r) - 1) >> 3)))
+    reach = torch.zeros_like(occ)
+    for cx, cy, cz in _CORNERS:
+        reach |= occ[steps[0][cx]][:, steps[1][cy]][:, :, steps[2][cz]]
+    return reach
+
+
+def _lower_brick(pos: torch.Tensor, reso_t: torch.Tensor) -> torch.Tensor:
+    """The brick of each position's clamped lower corner [..., 3] int64."""
+    return torch.minimum(torch.clamp(torch.floor(pos).to(torch.int64), min=0), reso_t - 2) >> 3
+
+
+def kernel_visits(reach: torch.Tensor, reso, p: torch.Tensor, max_steps: int, k_start: int, k_end: int):
+    """[N, k_end - k_start] bool: the steps at which the kernel evaluates
+    each ray of the packed rays p [N, PACK] (the valid ones, t0 <= tt <
+    t1), given the reachable-brick mask. It follows the kernel's stepping
+    in the same float32 arithmetic: from the first candidate step, one
+    step at a time, except that a valid sample whose lower corner lies in
+    an unreachable brick b, at least SKIP_EPS inside b on every axis,
+    jumps to the step after the last one before the ray leaves b shrunk
+    by SKIP_EPS (that exit formed with the ray's reciprocal direction and
+    step, as the kernel forms it)."""
+    og, dg = p[:, 0:3], p[:, 3:6]
+    dt, t0, t1, T0 = p[:, 6], p[:, 7], p[:, 8], p[:, 9]
+    N, dev = p.shape[0], p.device
+    reso_t = device_constant(tuple(reso), torch.int64, dev)
+    kmax = float(max_steps)
+    kf = torch.floor((t0 - T0) / dt) - 2.0
+    k = torch.where(kf > 0, torch.minimum(kf, torch.full_like(kf, kmax)), 0.0).long()
+    alive = (t1 > t0) & (k < max_steps)
+    visit = torch.zeros((N, max(0, k_end - k_start)), dtype=torch.bool, device=dev)
+    while bool(alive.any()):
+        idx = alive.nonzero()[:, 0]
+        kk = k[idx]
+        tt = T0[idx] + kk.float() * dt[idx]
+        valid = (tt >= t0[idx]) & (tt < t1[idx])
+        done = ~(tt < t1[idx])
+        o, d = og[idx], dg[idx]
+        pos = o + tt[:, None] * d
+        b = _lower_brick(pos, reso_t)
+        lo = (8 * b).float() + SKIP_EPS
+        hi = (8 * b + 8).float() - SKIP_EPS
+        inside = ((pos >= lo) & (pos <= hi)).all(dim=-1)
+        inv = 1.0 / d
+        t_exit = torch.where(d > 0, (hi - o) * inv, torch.where(d < 0, (lo - o) * inv, float("inf")))
+        kf = torch.floor((t_exit.amin(dim=-1) - T0[idx]) * (1.0 / dt[idx]))
+        jump = valid & ~reach[b[:, 0], b[:, 1], b[:, 2]] & inside & (kf > kk.float())
+        nxt = torch.where(jump, torch.minimum(kf, torch.full_like(kf, kmax - 1)).long(), kk) + 1
+        rows = idx[valid]
+        visit[rows, kk[valid] - k_start] = True
+        k[idx] = nxt
+        alive[idx] = ~done & (nxt < max_steps)
+    return visit
+
+
 def trilerp_cells(cells: torch.Tensor, brick_links: torch.Tensor, reso, pos: torch.Tensor) -> torch.Tensor:
     """Trilinear interpolation of every channel of the cell array at grid
     coordinates [..., 3] -> [..., CP] float32, through brick_links (empty
@@ -249,14 +320,23 @@ def trilerp_cells(cells: torch.Tensor, brick_links: torch.Tensor, reso, pos: tor
 def march_reference(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: torch.Tensor,
                     basis: torch.Tensor, *, max_steps: int, color_mode: str = "bias",
                     sigma_thresh: float = 1e-8, stop_thresh: float = 1e-7, early_stop: bool = False,
-                    slice_steps: int = 32, counts: bool = False):
+                    slice_steps: int = 32, counts: bool = False, skip_empty: bool = False,
+                    reach: Optional[torch.Tensor] = None):
     """Plain version of ``tile_march_fwd`` on any device, ``slice_steps``
     steps of every ray at a time: out [T, 8, r] float32 (rgb, acc,
     depth_t, -log_transmit, sparsity, misses (0)). With ``counts``,
-    (out, dict(marched [T, r], shaded [T, r], dense [T, r] int32: the
-    samples each ray marches, shades, and marches with sigma above the
-    threshold; touched [nb] bool: the bricks their corners read)), the
-    work the kernel does on these inputs."""
+    (out, dict(marched [T, r], shaded [T, r], dense [T, r], reach [T, r],
+    brick_steps [T, r] int32: the samples each ray marches, shades,
+    marches with sigma above the threshold, and marches with its lower
+    corner in a reachable brick, and the runs of marched samples in one
+    unreachable brick; touched [nb] bool: the bricks their corners read)),
+    the work the kernel does on these inputs.
+
+    ``reach`` is the reachable-brick mask (default
+    ``reachable_bricks``). With ``skip_empty`` the march evaluates only
+    the steps that the kernel visits (``kernel_visits``) and treats the
+    others as reading nothing, as the kernel's skip does: with a right
+    mask the outputs are the same bits as without it."""
     T, r, _ = pack.shape
     B = basis.shape[-1]
     p = pack.reshape(T * r, PACK)
@@ -266,6 +346,10 @@ def march_reference(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: 
     N, dev = T * r, pack.device
     span = _step_range(p, max_steps)
     k_start, k_end = int(span[:, 0].amin()), int(span[:, 1].amax())
+    if reach is None and (counts or skip_empty):
+        reach = reachable_bricks(brick_links, reso)
+    visits = kernel_visits(reach, reso, p, max_steps, k_start, k_end) if skip_empty else None
+    reso_t = device_constant(tuple(reso), torch.int64, dev)
 
     zeros = functools.partial(torch.zeros, N, device=dev)
     cum, acc, depth, spars = zeros(), zeros(), zeros(), zeros()
@@ -273,12 +357,17 @@ def march_reference(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: 
     n_marched = torch.zeros(N, dtype=torch.int32, device=dev)
     n_shaded = torch.zeros(N, dtype=torch.int32, device=dev)
     n_dense = torch.zeros(N, dtype=torch.int32, device=dev)
+    n_reach = torch.zeros(N, dtype=torch.int32, device=dev)
+    n_steps = torch.zeros(N, dtype=torch.int32, device=dev)
+    prev = torch.full((N,), -1, dtype=torch.int64, device=dev)  # brick of the last unreachable marched sample, else -1
     nb = cells.shape[0]
     touched = torch.zeros(nb + 1, dtype=torch.bool, device=dev)  # the last slot takes the unread corners
     for k0 in range(k_start, k_end, slice_steps):
         ks = torch.arange(k0, min(k0 + slice_steps, k_end), dtype=torch.float32, device=dev)
         tt = T0[:, None] + ks[None, :] * dt[:, None]  # [N, S]
         valid = (tt >= t0[:, None]) & (tt < t1[:, None])
+        if skip_empty:
+            valid &= visits[:, k0 - k_start:k0 - k_start + ks.shape[0]]
         pos = og[:, None, :] + tt[..., None] * dg[:, None, :]
         vals = trilerp_cells(cells, brick_links, reso, pos)  # [N, S, CP]
         sigma = torch.where(valid, vals[..., 0], 0.0)
@@ -301,6 +390,13 @@ def march_reference(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: 
             n_marched += live.sum(-1, dtype=torch.int32)
             n_shaded += (valid & active & (sigma > 0)).sum(-1, dtype=torch.int32)
             n_dense += (live & (sigma > 0)).sum(-1, dtype=torch.int32)
+            b = _lower_brick(pos, reso_t)
+            ok = reach[b[..., 0], b[..., 1], b[..., 2]]
+            n_reach += (live & ok).sum(-1, dtype=torch.int32)
+            bid = torch.where(live & ~ok, (b[..., 0] * reach.shape[1] + b[..., 1]) * reach.shape[2] + b[..., 2], -1)
+            before = torch.cat([prev[:, None], bid[:, :-1]], dim=-1)
+            n_steps += ((bid >= 0) & (bid != before)).sum(-1, dtype=torch.int32)
+            prev = bid[:, -1]
             for row, _, _ in _corners(brick_links, reso, pos):
                 touched.index_fill_(0, torch.where(live & (row >= 0), row, nb).reshape(-1), True)
 
@@ -310,7 +406,8 @@ def march_reference(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: 
     if not counts:
         return out
     return out, dict(marched=n_marched.reshape(T, r), shaded=n_shaded.reshape(T, r),
-                     dense=n_dense.reshape(T, r), touched=touched[:nb])
+                     dense=n_dense.reshape(T, r), reach=n_reach.reshape(T, r),
+                     brick_steps=n_steps.reshape(T, r), touched=touched[:nb])
 
 
 def march_backward_reference(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: torch.Tensor,
@@ -396,19 +493,20 @@ def march_backward_reference(cells: torch.Tensor, brick_links: torch.Tensor, res
 @functools.lru_cache(maxsize=None)
 def _library():
     F = ctypes.c_float
+    args = [_VP] * 5 + [_LL] + [_INT] * 8 + [F, F, _INT, _INT]
     return load_library("tile_march_fwd", {
-        "tile_march_fwd": ([_VP] * 5 + [_LL] + [_INT] * 8 + [F, F, _INT, _INT, _VP], _INT),
+        "tile_march_fwd": (args + [_VP], _INT),
+        "tile_march_fwd_probe": (args + [_INT, _VP], _INT),
         "tile_march_fwd_channels": ([_INT], _INT),
         "tile_march_fwd_error_string": ([_INT], ctypes.c_char_p),
     })
 
 
-def tile_march_fwd(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: torch.Tensor,
-                   basis: torch.Tensor, *, max_steps: int, color_mode: str = "bias",
-                   sigma_thresh: float = 1e-8, stop_thresh: float = 1e-7, early_stop: bool = False):
-    """Launch the CUDA march: cells bf16 [nb, 512, CP], brick_links int32
-    [BX, BY, BZ], pack float32 [T, r, PACK], basis float32 [T, B] on one
-    card -> out [T, 8, r] as ``march_reference``."""
+def _fwd_launch(cells, brick_links, reso, pack, basis, out, *, max_steps, color_mode="bias", sigma_thresh=1e-8,
+                stop_thresh=1e-7, early_stop=False, probe=None) -> bool:
+    """Check the inputs and launch ``tile_march_fwd`` into ``out`` [T, 8,
+    r], or, with ``probe`` (0, 1, 2), ``tile_march_fwd_probe`` into
+    ``out`` [T, r]. Returns whether a kernel was launched."""
     dev = pack.device
     if dev.type != "cuda":
         raise ValueError(f"tile_march_fwd runs on a CUDA device, got {dev}")
@@ -428,22 +526,46 @@ def tile_march_fwd(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: t
     X, Y, Z = (int(v) for v in reso)
     if not (2 <= X <= BX * BRICK and 2 <= Y <= BY * BRICK and 2 <= Z <= BZ * BRICK):
         raise ValueError(f"reso {tuple(reso)} does not fit brick_links of shape {(BX, BY, BZ)}")
-    out = torch.empty((T, 8, r), dtype=torch.float32, device=dev)
     if T * r == 0:
-        return out
+        return False
+    args = (cells.data_ptr(), brick_links.data_ptr(), pack.data_ptr(), basis.data_ptr(), out.data_ptr(), T * r, r,
+            X, Y, Z, BY, BZ, B, int(max_steps), float(sigma_thresh), float(stop_thresh),
+            int(color_mode == "sigmoid"), int(early_stop))
     with torch.cuda.device(dev):
-        rc = lib.tile_march_fwd(
-            cells.data_ptr(), brick_links.data_ptr(), pack.data_ptr(), basis.data_ptr(),
-            out.data_ptr(), T * r, r, X, Y, Z, BY, BZ, B, int(max_steps), float(sigma_thresh), float(stop_thresh),
-            int(color_mode == "sigmoid"), int(early_stop), current_stream(dev),
-        )
+        if probe is None:
+            rc = lib.tile_march_fwd(*args, current_stream(dev))
+        else:
+            rc = lib.tile_march_fwd_probe(*args, int(probe), current_stream(dev))
     if rc != 0:
         raise RuntimeError(f"tile_march_fwd launch failed: {lib.tile_march_fwd_error_string(rc).decode()}")
-    tile_march_fwd.launches += 1
+    return True
+
+
+def tile_march_fwd(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: torch.Tensor,
+                   basis: torch.Tensor, *, max_steps: int, color_mode: str = "bias",
+                   sigma_thresh: float = 1e-8, stop_thresh: float = 1e-7, early_stop: bool = False):
+    """Launch the CUDA march: cells bf16 [nb, 512, CP], brick_links int32
+    [BX, BY, BZ], pack float32 [T, r, PACK], basis float32 [T, B] on one
+    card -> out [T, 8, r] as ``march_reference``."""
+    T, r, _ = pack.shape
+    out = torch.empty((T, 8, r), dtype=torch.float32, device=pack.device)
+    if _fwd_launch(cells, brick_links, reso, pack, basis, out, max_steps=max_steps, color_mode=color_mode,
+                   sigma_thresh=sigma_thresh, stop_thresh=stop_thresh, early_stop=early_stop):
+        tile_march_fwd.launches += 1
     return out
 
 
 tile_march_fwd.launches = 0
+
+
+def tile_march_fwd_probe(cells, brick_links, reso, pack, basis, *, mode: int, **kw) -> torch.Tensor:
+    """The first port's per-sample march (8 link reads, 8 densities and 8
+    SH lines a sample, no skip, rays in order) cut after its link reads
+    (mode 0), after its densities (1) or whole (2) -> one float a ray [T,
+    r]: to time where that design's time goes. Counts no launch."""
+    sink = torch.empty(pack.shape[:2], dtype=torch.float32, device=pack.device)
+    _fwd_launch(cells, brick_links, reso, pack, basis, sink, probe=mode, **kw)
+    return sink
 
 
 def march(cells, brick_links, reso, pack, basis, **kw):

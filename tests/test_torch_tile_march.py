@@ -396,3 +396,140 @@ def test_pack_rays_copies_no_host_numbers_after_its_first_call(monkeypatch):
     assert copies == []
     for a, b in zip(first, again):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's empty-space skip, through its plain version
+# ---------------------------------------------------------------------------
+
+# 32^3 grid: the central 2x2x2 bricks and brick (3, 1, 1), on the upper x
+# face, hold data; every face of each borders an empty brick
+SKIP_BRICKS = [(x, y, z) for x in (1, 2) for y in (1, 2) for z in (1, 2)] + [(3, 1, 1)]
+
+
+def skip_grids(seed=0, dens_hi=8.0):
+    """(JAX grid, port grid) of 32^3, basis 9, with data only in
+    SKIP_BRICKS (bf16-exact values)."""
+    jg, _ = random_grids(32, 9, seed=seed, dens_hi=dens_hi, sphere=False)
+    links = np.asarray(jg.links).copy()
+    keep = np.zeros(links.shape, bool)
+    for x, y, z in SKIP_BRICKS:
+        keep[8 * x:8 * x + 8, 8 * y:8 * y + 8, 8 * z:8 * z + 8] = True
+    links = np.where(keep, links, -1).astype(np.int32)
+    jg = replace(jg, links=jnp.asarray(links))
+    tg = SparseGrid.from_numpy(links, np.asarray(jg.density_data), np.asarray(jg.sh_data), jg.radius, jg.center, 9,
+                               device="cpu")
+    return jg, tg
+
+
+def grid_point(g):
+    """Grid coordinates -> world coordinates of a 32^3 grid of radius 1."""
+    return (np.asarray(g, np.float32) + 0.5) / 16.0 - 1.0
+
+
+def skip_rays():
+    """Tiles of 8 rays [6, 8]: rays along y that graze the block's x faces
+    (grid x 7.99, 8, 8.01, 15.99, 16, 23.99, 24, 24.01) at three depths,
+    two tiles of them tilted by 1e-3; one tile entering through the upper
+    x face (x = 31) into brick (3, 1, 1); two tiles of random directions
+    through the block."""
+    xs = [7.99, 8.0, 8.01, 15.99, 16.0, 23.99, 24.0, 24.01]
+    os_, ds = [], []
+    for z, tilt in ((12.5, 0.0), (8.0, 1e-3), (23.99, -1e-3)):
+        os_.append([grid_point([x, -6.0, z]) for x in xs])
+        ds.append([[tilt, 1.0, 0.5 * tilt]] * 8)
+    os_.append([grid_point([40.0, 8.5 + i, 9.0 + 0.7 * i]) for i in range(8)])
+    ds.append([[-1.0, 0.01 * i, -0.02 * i] for i in range(8)])
+    rng = np.random.default_rng(7)
+    for _ in range(2):
+        o = rng.standard_normal(3)
+        o = 2.5 * o / np.linalg.norm(o)
+        os_.append([o] * 8)
+        ds.append(list(grid_point([16.0, 16.0, 16.0]) + rng.uniform(-0.35, 0.35, (8, 3)) - o))
+    o, d = (np.asarray(x, np.float32) for x in (os_, ds))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return [o, d, d]
+
+
+@pytest.fixture(scope="module")
+def skip_case():
+    """The skip grid's inputs of the plain march, and JAX's K3 (interpret
+    mode) on two coherent tiles of it."""
+    jg, tg = skip_grids()
+    jb, tb = jbg.from_sparse_grid(jg), tbg.from_sparse_grid(tg)
+    _, rays = both(skip_rays())
+    opts = tgrid.GridRenderOptions(step_size=0.5)
+    pack, basis = ttm.pack_rays(tb, rays, opts)
+    jr, tr = both(tile_rays(2, 8, 16, seed=31))
+    old = jtm.INTERPRET
+    jtm.INTERPRET = True
+    try:
+        k3 = jtm.render_tiles_pallas(jb, jr, jgrid.GridRenderOptions(step_size=0.5), return_depth=True)
+    finally:
+        jtm.INTERPRET = old
+    return dict(bg=tb, cells=ttm.build_kernel_arrays(tb), pack=pack, basis=basis,
+                max_steps=ttm.default_chunks_for(tb, opts) * ttm.SC, k3=jax.tree_util.tree_map(np.asarray, k3),
+                jrays=tr, opts=opts)
+
+
+def skip_march(case, **kw):
+    bg = case["bg"]
+    return ttm.march_reference(case["cells"], bg.brick_links, bg.reso, case["pack"], case["basis"],
+                               max_steps=case["max_steps"], **kw)
+
+
+def test_reachable_bricks_is_the_occupancy_dilated_by_the_upper_neighbours():
+    """Brick b is reachable iff one of b + {0, 1}^3 (clamped to the last
+    brick holding a cell) is occupied: checked against loops on a random
+    occupancy of an uneven 3 x 4 x 5-brick grid of 20 x 30 x 33 cells."""
+    rng = np.random.default_rng(3)
+    occ = rng.uniform(size=(3, 4, 5)) < 0.15
+    links = np.where(occ, np.arange(occ.size).reshape(occ.shape), -1).astype(np.int32)
+    reso = (20, 30, 33)
+    got = np_(ttm.reachable_bricks(torch.from_numpy(links), reso))
+    last = [(r - 1) >> 3 for r in reso]
+    for b in np.ndindex(occ.shape):
+        want = any(occ[tuple(min(b[a] + d[a], last[a]) for a in range(3))] for d in np.ndindex(2, 2, 2))
+        assert got[b] == want, b
+    assert got.sum() > occ.sum()
+
+
+@pytest.mark.parametrize("early_stop", [False, True], ids=["full", "early_stop"])
+def test_skipping_march_gives_the_same_bits_and_marches_fewer_samples(skip_case, early_stop):
+    """The plain march visiting only the kernel's steps (the skip of every
+    brick run it can prove reads nothing) equals the march that reads
+    every sample, bit for bit, on rays that graze brick faces and enter
+    through the upper face, and marches fewer samples; the counts of the
+    bound see every sample that reaches data and a brick step per skip."""
+    full, c_full = skip_march(skip_case, early_stop=early_stop, counts=True)
+    skip, c_skip = skip_march(skip_case, early_stop=early_stop, counts=True, skip_empty=True)
+    torch.testing.assert_close(skip, full, rtol=0, atol=0)
+    marched, marched_skip = int(c_full["marched"].sum()), int(c_skip["marched"].sum())
+    reach, steps = int(c_full["reach"].sum()), int(c_full["brick_steps"].sum())
+    assert reach <= marched_skip < marched and steps > 0
+    assert (np_(c_skip["marched"]) >= np_(c_full["reach"])).all()
+    for k in ("shaded", "dense", "reach"):
+        np.testing.assert_array_equal(np_(c_skip[k]), np_(c_full[k]), err_msg=k)
+    acc = np_(full[:, 3])
+    assert (acc[:3] > 0.05).mean() > 0.5 and acc[3].min() > 0.05  # the grazing and upper-face rays read data
+
+
+def test_a_mask_without_the_upper_neighbours_skips_data(skip_case):
+    """With the occupancy alone as the mask, the skip drops the samples
+    whose upper corners cross into an occupied brick: the outputs change."""
+    full = skip_march(skip_case)
+    occ = skip_case["bg"].brick_links >= 0
+    bad = skip_march(skip_case, skip_empty=True, reach=occ)
+    assert float((bad - full).abs().max()) > 1e-2
+
+
+def test_skipping_march_matches_jax_k3_on_rays_without_misses(skip_case):
+    bg, opts = skip_case["bg"], skip_case["opts"]
+    pack, basis = ttm.pack_rays(bg, skip_case["jrays"], opts)
+    out = ttm.march_reference(skip_case["cells"], bg.brick_links, bg.reso, pack, basis,
+                              max_steps=skip_case["max_steps"], skip_empty=True)
+    got = ttm.march_outputs(out, pack, opts, return_depth=True)
+    keep = skip_case["k3"]["miss_per_ray"] == 0
+    assert keep.mean() >= 0.95, keep.mean()
+    assert float(np_(got["acc"])[keep].max()) > 0.1
+    assert_close_on(got, skip_case["k3"], keep, K3_TOL, "skipping plain K3 vs JAX K3")
