@@ -8,7 +8,9 @@ broken code (K1b, K2, K3, K4, K5, K1r or the raw-points training step)
 on the copy; each must fail. K3's mutants include its empty-space skip
 (the reach rule without the upper-neighbour bricks) and its cache of a
 brick's link rows (kept when the lower corner crosses into another brick
-along y or z). Run
+along y or z); the wgmma core's (mlp_sm90.cuh: K2 and K1rf) include the
+concat, the relu mask, the stage ring, the dW jobs, the view encoder and
+the encoding stash. Run
 from the repository root:
 
     python3 chip_mutants.py
@@ -24,13 +26,40 @@ import subprocess
 import sys
 import tempfile
 
-# label: (file, original text, mutant text, phases that must fail)
+# label: (file, original text, mutant text, phases that must fail); the
+# phases are those that run the mutated line
 MUTANTS = {
     "w5's h rows read a3 instead of a4 in the dW table": (
         "nerf_projects_tpu_torch/csrc/mlp_tile.cuh",
         "{A_TRUNK + 4 * 256, 256, G_TRUNK + 5 * 256",
         "{A_TRUNK + 3 * 256, 256, G_TRUNK + 5 * 256",
-        ("fused_mlp_bwd", "fused_train_level"),
+        ("fused_mlp_bwd",),
+    ),
+    "w5's h rows read a3 instead of a4 in the wgmma core's dW jobs": (
+        "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
+        "const int feats[5] = {A_X, A_TRUNK + 4 * 256, A_TRUNK + 4 * 256 + 64, A_TRUNK + 4 * 256 + 128, "
+        "A_TRUNK + 4 * 256 + 192};",
+        "const int feats[5] = {A_X, A_TRUNK + 3 * 256, A_TRUNK + 3 * 256 + 64, A_TRUNK + 3 * 256 + 128, "
+        "A_TRUNK + 3 * 256 + 192};",
+        ("fused_train_level",),
+    ),
+    "trunk_5's x columns dropped from the [x | h4] concat in the wgmma core": (
+        "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
+        "return kb < 4 ? xf(kb) : frag_of(a, kb - 4);",
+        "return kb < 4 ? Frag{{0u, 0u, 0u, 0u}} : frag_of(a, kb - 4);",
+        ("kernel_raw", "fused_train_level"),
+    ),
+    "the dX relu mask taken from the layer above in the wgmma core": (
+        "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
+        "grad(mlp::A_TRUNK + l * 256), ring, j);",
+        "grad(mlp::A_TRUNK + (l + 1) * 256), ring, j);",
+        ("fused_train_level",),
+    ),
+    "the second K-slab of every layer skipped by the wgmma core's stage ring": (
+        "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
+        "if (s * KD + kk * 16 < K) fr[kk] = af(s * KB + kk);",
+        "if (s * KD + kk * 16 < K) fr[kk] = s == 1 ? Frag{{0u, 0u, 0u, 0u}} : af(s * KB + kk);",
+        ("kernel_raw", "fused_train_level"),
     ),
     "inclusive instead of exclusive transmittance in the composite": (
         "nerf_projects_tpu_torch/csrc/fused_train.cu",
@@ -102,6 +131,14 @@ MUTANTS = {
         "nerf_projects_tpu_torch/csrc/mlp_tile.cuh",
         "val = RAW ? encode_col(vrow, c, 4) : vrow[c];",
         "val = RAW ? encode_col(vrow, c, 3) : vrow[c];",
+        ("kernel_raw",),
+    ),
+    "the wgmma core's view encoder at 3 frequencies instead of 4": (
+        "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
+        "v0 = c < 27 ? mlp::encode_col(vrow[h], c, 4) : 0.f;\n"
+        "          v1 = c + 1 < 27 ? mlp::encode_col(vrow[h], c + 1, 4) : 0.f;",
+        "v0 = c < 27 ? mlp::encode_col(vrow[h], c, 3) : 0.f;\n"
+        "          v1 = c + 1 < 27 ? mlp::encode_col(vrow[h], c + 1, 3) : 0.f;",
         ("kernel_raw", "fused_train_level"),
     ),
     "the encoding stash (A_X) written as zeros": (
@@ -109,7 +146,13 @@ MUTANTS = {
         "stash_cols(act, AS, COL_X, 64, stash, A_X, ld, row_base);",
         "for (int i = threadIdx.x; i < 64 * BM; i += THREADS) "
         "stash[(A_X + i / BM) * ld + row_base + i % BM] = __float2bfloat16_rn(0.f);",
-        ("kernel_raw", "fused_mlp_bwd", "fused_train_level"),
+        ("kernel_raw", "fused_mlp_bwd"),
+    ),
+    "the wgmma core's encoding stash (A_X) written as zeros": (
+        "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
+        "stash[slot(tile64, A_F8, fg, L.ra + 8 * h, L.t)] = r4[i];",
+        "stash[slot(tile64, A_F8, fg, L.ra + 8 * h, L.t)] = kb < 4 ? 0u : r4[i];",
+        ("fused_train_level",),
     ),
     "the transmittance's backward without its division by the factor": (
         "nerf_projects_tpu_torch/ops/render.py",
@@ -144,11 +187,15 @@ for name in sys.argv[1:]:
 
 
 def main() -> int:
+    # the intact libraries, built once: a copy rebuilds only those whose
+    # sources the mutant changes (a library is named by its sources' hash)
+    subprocess.run([sys.executable, "-c", "import chip_smoke as c; c.phase_build()"], check=True,
+                   capture_output=True, text=True, timeout=900)
     survived = 0
     for label, (path, old, new, must_fail) in MUTANTS.items():
         with tempfile.TemporaryDirectory() as d:
             shutil.copytree("nerf_projects_tpu_torch", os.path.join(d, "nerf_projects_tpu_torch"),
-                            ignore=shutil.ignore_patterns("_build", "__pycache__"))
+                            ignore=shutil.ignore_patterns("__pycache__", "*.tmp.so"))
             shutil.copy("chip_smoke.py", d)
             target = os.path.join(d, path)
             src = open(target).read()

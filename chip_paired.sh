@@ -5,16 +5,21 @@
 # their profile lines; the default) or, with a third argument
 # "plenoxels", the Plenoxels serving phase (render_plenoxels), or, with
 # "plenoxels+train", that phase and the Plenoxels training phase
-# (train_plenoxels). Run from anywhere, with each checkout unpacked in a
-# directory:
+# (train_plenoxels), or, with "mlp", the NeRF MLP kernels on the wgmma
+# core's paths: K2's split into its launches (CHANGE_DIR's
+# profile_train_split, run on each checkout's package), the kernel phases
+# of K2 and of the raw-points MLP (K1rf at every level size), the train
+# phase (the mega route) and the raw-points render and train phases. Run
+# from anywhere, with each checkout unpacked in a directory:
 #
-#     bash chip_paired.sh PARENT_DIR CHANGE_DIR [plenoxels|plenoxels+train]
+#     bash chip_paired.sh PARENT_DIR CHANGE_DIR [plenoxels|plenoxels+train|mlp]
 #
 # Stops with a non-zero exit at the first run that fails or prints none
 # of those lines.
 set -euo pipefail
 a=$1
 b=$2
+split=$(cd "$b" && pwd)/chip_smoke.py
 case "${3:-}" in
   plenoxels)
     phases="c.phase_render_plenoxels(dev, card)"
@@ -22,6 +27,9 @@ case "${3:-}" in
   plenoxels+train)
     phases="c.phase_render_plenoxels(dev, card); c.phase_train_plenoxels(dev, card)"
     lines='^render_plenoxels: (fog|shell) on|^train_plenoxels: (fog|shell) [0-9]+\^3( on|: K3 alone|: K4 alone)' ;;
+  mlp)
+    phases="s.profile_train_split(dev); c.phase_kernel_train(dev); c.phase_kernel_raw(dev, 786432, 294912); c.phase_train(dev, card); c.phase_render_raw(dev, card); c.phase_train_raw(dev, card)"
+    lines='^split:|^kernel: fused_train_level|^kernel(_raw)?: fused_mlp_raw_fwd n=[0-9]+:|^kernel sizes: fused_mlp_raw_fwd|^train: fused|^render_raw on|^train_raw: raw-points MLP under|^profile:|^  ptxas:.*(sm90|mlp_fwd|mlp_dx|mlp_dw)' ;;
   *)
     phases="c.phase_render(dev); c.phase_train(dev, card)"
     lines='^render: [0-9]+ timed|^train: fused|^profile:' ;;
@@ -29,7 +37,10 @@ esac
 for t in "$a" "$b" "$b" "$a"; do
   echo "=== $t"
   (cd "$t" && python3 -c "
-import torch, chip_smoke as c
+import importlib.util, torch, chip_smoke as c
+spec = importlib.util.spec_from_file_location('change_smoke', '$split')
+s = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(s)
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device('cuda', 0)
 card = c.nvidia_smi()

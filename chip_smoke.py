@@ -17,8 +17,12 @@ Phases, each of which raises (exit code 1) on failure:
           backward (K1b) on 8192 + 37 rows (also against float64 sums)
           and at a training step's fine level (294,912 rows); the fused
           train level (K2) at a training step's coarse level (S 96, R 8,
-          1,024 rays, with weights), fine level (S 288, R 4) and once
-          with encoded inputs.
+          1,024 rays, with weights; a second launch must give the same
+          bits), fine level (S 288, R 4) and once with encoded inputs, and
+          its gradients against float64 sums at a 128-ray coarse level;
+          then K2's split into its launches at both levels
+          (torch.profiler), beside the forward alone at the same rows and
+          a bf16 torch.matmul yardstick of the ten layer products.
   render  requests of 4096 rays (64x64 patches of three 800x800 Blender
           cameras from pose_spherical) through NeRFTrainer.render_image
           with use_fused_mlp=True, at the Blender lego configuration of
@@ -61,8 +65,9 @@ Phases, each of which raises (exit code 1) on failure:
   kernel_raw
           the fused MLP on raw points, posenc in the kernel: its forward
           (K1rf) against its plain version on 8192 + 37 rows and at the
-          render's fine level (786,432 rows), and against K1f fed the same
-          rows' encodings (_encode_tile) and the same raw-layout weights;
+          render's fine level (786,432 rows), equal bit for bit to its
+          core's forward on the same rows' encodings (_encode_tile;
+          fused_mlp_raw_fwd_encoded) and within KERNEL_TOL of K1f on them;
           its weight-gradient backward (K1rb) against its plain version
           on 8192 + 37 rows (also against float64 sums) and at a training
           step's fine level (294,912 rows); the parameter gradients of
@@ -275,9 +280,16 @@ def phase_build():
     builds = _build.build_all(LIBRARIES)  # one nvcc per source, all at once
     for name, b in builds.items():
         log(f"build: {name} {b.seconds:.1f} s -> {b.path.name}")
+        entry, injected = "", 0
         for line in b.log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "warpgroup.arrive is injected" in line:
+                injected += 1
+            elif "Used" in line or "spill" in line:
+                log(f"  ptxas: {entry[:72]}: {line.strip()}")
+        if injected:
+            log(f"  ptxas: {name}: {injected} warpgroup.arrive injected between wgmmas (registers written under them)")
     return time.perf_counter() - t0
 
 
@@ -527,9 +539,11 @@ def level_batch(gen, n_rays: int, S: int, R: int, dev, raw: bool):
 
 def phase_kernel_train(dev) -> dict:
     """K2 against its plain version at the coarse level (S 96, R 8, with
-    weights), the fine level (S 288, R 4) and, once, with encoded inputs;
-    then each level timed. Rays whose last sample's weight changes sign
-    (the 1e10 tail) are counted, not compared."""
+    weights; a second launch must give the same bits), the fine level (S
+    288, R 4) and, once, with encoded inputs; its gradients at a 128-ray
+    coarse level against float64 sums; then each level timed. Rays whose
+    last sample's weight changes sign (the 1e10 tail) are counted, not
+    compared."""
     from nerf_projects_tpu_torch.models.nerf import NeRFMLP
     from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
     from nerf_projects_tpu_torch.ops.kernels import fused_train as ft
@@ -537,13 +551,13 @@ def phase_kernel_train(dev) -> dict:
     gen = torch.Generator().manual_seed(SEED + 3)
     model = NeRFMLP(depth=8, width=256, use_viewdirs=True).reset_parameters(gen)
     model = random_biases(model, gen).to(dev)
-    wkt = fm.kernel_weights_bwd(model)
+    wkt = fm.kernel_weights_sm90_bwd(model)
     shapes = (("coarse", COARSE, MEGA_RC, True, True), ("fine", COARSE + FINE, MEGA_RF, False, True),
               ("coarse, encoded inputs", COARSE, MEGA_RC, True, False))
     max_abs, timed = 0.0, {}
     for tag, S, R, want_w, raw in shapes:
         x, vt = level_batch(gen, TRAIN_RAYS, S, R, dev, raw)
-        wk, W = fm.kernel_weights(model, raw_layout=raw), fm.pack_params(model, raw_layout=raw)
+        wk, W = fm.kernel_weights_sm90(model, raw_layout=raw), fm.pack_params(model, raw_layout=raw)
         kw = dict(S=S, R=R, n_rays_total=TRAIN_RAYS, bkgd=1.0, want_weights=want_w, raw_inputs=raw)
         got = ft.fused_train_level(wk, wkt, x, vt, **kw)
         want = ft.fused_train_level_reference(W, x, vt, **kw)
@@ -561,6 +575,12 @@ def phase_kernel_train(dev) -> dict:
             + (f", weights {errs[2]:.3e}" if want_w else "") + f" (tolerance {TRAIN_TOL}); {int(flips.sum())} tail flips")
         if not max(errs) < TRAIN_TOL or int(flips.sum()) > MAX_TAIL_FLIPS * TRAIN_RAYS:
             raise AssertionError(f"{tag}: outputs disagree with the plain version")
+        if want_w:
+            again = ft.fused_train_level(wk, wkt, x, vt, **kw)
+            same = all(torch.equal(a, b) for a, b in zip(got[:3] + tuple(got[3]), again[:3] + tuple(again[3])))
+            log(f"{tag}: a second launch gives the same bits: {same}")
+            if not same:
+                raise AssertionError(f"{tag}: two launches on the same inputs differ")
         if raw:
             max_abs = max(max_abs, *errs, check_grads(tag, got[3], want[3], fm.FusedMLPWeights._fields))
         else:
@@ -581,6 +601,18 @@ def phase_kernel_train(dev) -> dict:
             log(f"{tag}: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
                 f"(operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms), {b_ms / ms:.3f} of bound")
             timed[S] = (ms, plain_ms, b_ms, by)
+    # the gradients' sum order against float64 sums, at a small coarse level
+    n_small = 128
+    x, vt = level_batch(gen, n_small, COARSE, MEGA_RC, dev, raw=True)
+    wk, W = fm.kernel_weights_sm90(model, raw_layout=True), fm.pack_params(model, raw_layout=True)
+    kw = dict(S=COARSE, R=MEGA_RC, n_rays_total=n_small, bkgd=1.0, want_weights=False, raw_inputs=True)
+    got = ft.fused_train_level(wk, wkt, x, vt, **kw)[3]
+    want = ft.fused_train_level_reference(W, x, vt, **kw)[3]
+    with fm.float64_sums():
+        exact = ft.fused_train_level_reference(W, x, vt, **kw)[3]
+    torch.cuda.synchronize()
+    max_abs = max(max_abs, check_grads(f"kernel: fused_train_level coarse (S {COARSE}, R {MEGA_RC}, {n_small} rays)",
+                                       got, want, fm.FusedMLPWeights._fields, exact))
     # a training step launches both levels: its numbers are the sums
     ms, plain_ms, b_ms = (sum(t[i] for t in timed.values()) for i in range(3))
     log(f"kernel: fused_train_level per step (coarse + fine): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -593,6 +625,77 @@ def phase_kernel_train(dev) -> dict:
         "launches": 0, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": timed[COARSE + FINE][3], "library_ms": None,
     }
+
+
+def kernel_split(run, n: int = 5) -> dict:
+    """torch.profiler over n calls of ``run``: the card's time a call by
+    kernel name (ms), largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            times[e.key] = times.get(e.key, 0.0) + float(getattr(e, "self_device_time_total", 0.0)) / n / 1e3
+    return dict(sorted(times.items(), key=lambda kv: -kv[1]))
+
+
+def matmul_yardstick(dev, rows: int) -> float:
+    """The ten large layer products of the MLP (trunk_0..7, the bottleneck,
+    the view layer) as bf16 torch.matmul calls at ``rows`` rows, timed with
+    CUDA events: a diagnostic of the card's GEMM rate at these shapes, not a
+    kernel of the port and not its library_ms."""
+    shapes = [(64, 256)] + [(256, 256)] * 4 + [(320, 256)] + [(256, 256)] * 3 + [(288, 128)]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    ins = {k: torch.randn(rows, k, generator=gen, device=dev).bfloat16() for k in {k for k, _ in shapes}}
+    ws = [torch.randn(k, n, generator=gen, device=dev).bfloat16() for k, n in shapes]
+    ms = time_ms(lambda: [torch.matmul(ins[k], w) for (k, _), w in zip(shapes, ws)], iters=10)
+    flops = 2.0 * rows * sum(k * n for k, n in shapes)
+    log(f"split: yardstick, the ten layer products as bf16 torch.matmul at {rows} rows: {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s)")
+    del ins, ws
+    torch.cuda.empty_cache()
+    return ms
+
+
+def profile_train_split(dev) -> dict:
+    """K2 (ft.train_level on raw inputs, the mega route's call) split into
+    its launches by kernel name at a training step's coarse level (S 96,
+    R 8, with weights) and fine level (S 288, R 4), beside the forward
+    alone at the same rows (fused_apply_raw: K1rf, which writes no stash),
+    and the matmul yardstick at the fine level's rows. Public entry points
+    only, so it splits any checkout's K2."""
+    from nerf_projects_tpu_torch.models.nerf import NeRFMLP
+    from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerf_projects_tpu_torch.ops.kernels import fused_train as ft
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    model = NeRFMLP(depth=8, width=256, use_viewdirs=True).reset_parameters(gen)
+    model = random_biases(model, gen).to(dev)
+    out = {}
+    for tag, S, R, want_w in (("coarse", COARSE, MEGA_RC, True), ("fine", COARSE + FINE, MEGA_RF, False)):
+        x, vt = level_batch(gen, TRAIN_RAYS, S, R, dev, raw=True)
+        kw = dict(S=S, R=R, n_rays_total=TRAIN_RAYS, bkgd=1.0, want_weights=want_w, raw_inputs=True)
+        with torch.no_grad():
+            split = kernel_split(lambda: ft.train_level(model, x, vt, **kw))
+            pts = x[:, :3].contiguous()
+            dirs = vt[:, :R, :3].reshape(-1, 3).repeat_interleave(S, dim=0).contiguous()
+            fwd = kernel_split(lambda: fm.fused_apply_raw(model, pts, dirs))
+        n_rows = TRAIN_RAYS * S
+        total = sum(split.values())
+        log(f"split: K2 {tag} level ({n_rows} rows), {total:.4f} ms a call on the card: "
+            + "; ".join(f"{k[:48]} {v:.4f} ms" for k, v in split.items() if v >= 0.001))
+        name, ms = next(iter(fwd.items()), ("none", 0.0))
+        log(f"split: the forward alone at the {tag} level's rows (fused_apply_raw, no stash): {name[:48]} {ms:.4f} ms")
+        out[tag] = (split, ms)
+    matmul_yardstick(dev, TRAIN_FINE)
+    return out
 
 
 def phase_render(dev) -> int:
@@ -694,7 +797,8 @@ def train_window(trainer, state, ds):
     return state, window, step_ms, losses, psnrs
 
 
-OUR_KERNELS = ("mlp_fwd_kernel", "mlp_dx_kernel", "mlp_dw_kernel", "mlp_grad_reduce_kernel",
+OUR_KERNELS = ("mlp_fwd_kernel", "mlp_dx_kernel", "mlp_dw_kernel", "mlp_grad_reduce_kernel", "sm90_fwd_kernel",
+               "sm90_dx_kernel", "sm90_dw_kernel",
                "composite_kernel", "march_kernel", "march_bwd_kernel", "sh_fwd_kernel", "sh_dx_kernel",
                "sh_grad_reduce_kernel")
 
@@ -866,8 +970,10 @@ def model_grads(model, run, cot) -> dict:
 
 def phase_kernel_raw(dev, serve_rows: int, train_rows: int) -> tuple:
     """K1rf against its plain version on a ragged size and at the render's
-    fine level, and against K1f fed the port's encodings of the same rows
-    (the encoder alone differs); K1rb against its plain version (and
+    fine level, equal bit for bit to its core's forward on the port's
+    encodings of the same rows (fused_mlp_raw_fwd_encoded: the encoder
+    alone differs) and within KERNEL_TOL of K1f on them (another core,
+    another sum order); K1rb against its plain version (and
     float64 sums) on a ragged size and at a training step's fine level;
     the raw route's parameter gradients against the encoded route's. Then
     both timed beside their bounds, their plain versions and K1f / K1b."""
@@ -880,12 +986,14 @@ def phase_kernel_raw(dev, serve_rows: int, train_rows: int) -> tuple:
     model = random_biases(model, gen).to(dev)
     W = fm.pack_params(model, raw_layout=True)
     wk, wkt = fm.kernel_weights(model, raw_layout=True), fm.kernel_weights_bwd(model)
+    wks = fm.kernel_weights_sm90(model, raw_layout=True)
     max_fwd = max_bwd = 0.0
     for n in (8192 + 37, serve_rows):
         p, v = raw_inputs(n, gen, dev)
-        got = fm.fused_mlp_raw_fwd(wk, p, v)
+        got = fm.fused_mlp_raw_fwd(wks, p, v)
         want = fm.fused_nerf_mlp_raw_reference(W, p, v)
         x, ve = fm._encode_raw(p, v)
+        core = fm.fused_mlp_raw_fwd_encoded(wks, x, ve)
         enc = fm.fused_mlp_fwd(wk, x, ve)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got).all()):
@@ -893,12 +1001,14 @@ def phase_kernel_raw(dev, serve_rows: int, train_rows: int) -> tuple:
         scale = float(want.abs().mean()) + 1.0
         err, err_enc = float((got - want).abs().max()), float((got - enc).abs().max())
         # the kernel's sinf and torch.sin on the card give the same bits, so
-        # the two kernels see the same bf16 encodings and must agree exactly
-        same = float((got == enc).all(-1).float().mean())
+        # K1rf and its core on the port's encodings see the same bf16 inputs
+        # and must agree exactly; K1f sums in another order
+        same = float((got == core).all(-1).float().mean())
         log(f"kernel_raw: fused_mlp_raw_fwd n={n} max_abs_err={err:.3e} err/(mean|plain|+1)={err / scale:.3e} "
-            f"(tolerance {KERNEL_TOL}); against K1f on the port's encodings of the same rows: max |diff| "
-            f"{err_enc:.3e}, {same:.6f} of rows the same bits (all must be)")
-        if not (err / scale < KERNEL_TOL and torch.equal(got, enc)):
+            f"(tolerance {KERNEL_TOL}); against its core on the port's encodings of the same rows: {same:.6f} of "
+            f"rows the same bits (all must be); against K1f on them: max |diff| {err_enc:.3e}, "
+            f"{err_enc / scale:.3e} of (mean|plain|+1) (tolerance {KERNEL_TOL})")
+        if not (err / scale < KERNEL_TOL and torch.equal(got, core) and err_enc / scale < KERNEL_TOL):
             raise AssertionError(f"kernel_raw: fused_mlp_raw_fwd disagrees at n={n}")
         max_fwd = max(max_fwd, err)
     fwd_args = (p, v, x, ve)
@@ -931,7 +1041,7 @@ def phase_kernel_raw(dev, serve_rows: int, train_rows: int) -> tuple:
                                        "encoded route's", [raw[k] for k in names], [enc[k] for k in names], names))
 
     p, v, x, ve = fwd_args
-    ms = time_ms(lambda: fm.fused_mlp_raw_fwd(wk, p, v), iters=20)
+    ms = time_ms(lambda: fm.fused_mlp_raw_fwd(wks, p, v), iters=20)
     k1f_ms = time_ms(lambda: fm.fused_mlp_fwd(wk, x, ve), iters=20)
     plain_ms = time_ms(lambda: fm.fused_nerf_mlp_raw_reference(W, p, v), iters=5, warmup=1)
     flops = 2.0 * fm.LIVE_MACS_PER_SAMPLE * serve_rows
@@ -943,7 +1053,7 @@ def phase_kernel_raw(dev, serve_rows: int, train_rows: int) -> tuple:
 
     def launch_fwd(n):
         pv = raw_inputs(n, gen, dev)
-        return lambda: fm.fused_mlp_raw_fwd(wk, *pv)
+        return lambda: fm.fused_mlp_raw_fwd(wks, *pv)
 
     time_sizes("fused_mlp_raw_fwd", "serving fine", (ms, b_ms),
                (("serving coarse", SERVE_COARSE), ("training coarse", TRAIN_COARSE), ("training fine", TRAIN_FINE)),
@@ -2296,6 +2406,7 @@ def main() -> int:
         phase_kernel_bwd(dev, big_rows=TRAIN_RAYS * (COARSE + FINE)),
         phase_kernel_train(dev),
     ]
+    profile_train_split(dev)
     kernels[0]["launches"] = phase_render(dev)
     launches = phase_train(dev, card)
     for entry in kernels[1:]:

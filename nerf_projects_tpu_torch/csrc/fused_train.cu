@@ -25,13 +25,15 @@
 // Design: the TPU kernel runs per-ray prefix and suffix sums as matmuls
 // against a [TILE, TILE] 0/1 matrix; here a warp owns a ray and scans its
 // samples with shuffles, 32 at a time (a forward scan for T, a reverse
-// scan for the suffix), so any S fits. The MLP passes are those of the
-// fused backward (mlp_tile.cuh): forward with the bf16 activation stash,
-// compositing, dX, split-K dW and the fixed-order sums; the result is the
-// same bits on every run. The positional encoding of raw inputs is done
-// in the forward tile (block layout, cos as sin(x + pi/2)).
+// scan for the suffix), so any S fits. The MLP passes run on the wgmma
+// core (mlp_sm90.cuh): the forward writes the bf16 activation stash, then
+// compositing, dX (writing the gradient stash and per-block bias sums),
+// split-K dW and mlp_tile.cuh's fixed-order sums; the result is the same
+// bits on every run. The positional encoding of raw inputs is done in the
+// forward (block layout, cos as sin(x + pi/2)). The weights are
+// kernel_weights_sm90 (w) and kernel_weights_sm90_bwd (wt).
 
-#include "mlp_tile.cuh"
+#include "mlp_sm90.cuh"
 
 namespace {
 
@@ -161,9 +163,9 @@ cudaError_t train_level(const float* x, const float* vt, const mlp::bf16* w,
                         long long n_rays_total, float bkgd, float* rgb_out, float* acc_out,
                         float* w_out, float* grads, void* workspace, cudaStream_t stream) {
   const long long n = n_rays * S;
-  const mlp::Workspace ws = mlp::carve(workspace, n, true);
-  cudaError_t err = mlp::launch_forward<RAW ? mlp::IN_TRAIN_RAW : mlp::IN_TRAIN_ENC>(
-      x, vt, w, ws.raw, n, ws.A, mlp::padded_rows(n), S, R, stream);
+  const sm90::Workspace ws = sm90::carve(workspace, n);
+  cudaError_t err = sm90::launch_forward<RAW ? mlp::IN_TRAIN_RAW : mlp::IN_TRAIN_ENC, true>(
+      x, vt, w, ws.raw, n, ws.A, S, R, stream);
   if (err != cudaSuccess) return err;
   const int rays_per_block = mlp::THREADS / 32;
   const long long blocks = (n_rays + rays_per_block - 1) / rays_per_block;
@@ -175,17 +177,19 @@ cudaError_t train_level(const float* x, const float* vt, const mlp::bf16* w,
       ws.raw, x, vt, n_rays, S, R, bkgd, 3.0f * static_cast<float>(n_rays_total), ws.g8,
       rgb_out, acc_out, w_out);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return mlp::run_backward(ws.g8, n, w, wt, ws, grads, stream);
+  int dx_blocks = 0;
+  if ((err = sm90::launch_dx(ws.g8, n, wt, ws, &dx_blocks, stream)) != cudaSuccess) return err;
+  return sm90::launch_dw(n, ws, dx_blocks, grads, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-long long fused_train_weight_elems() { return mlp::N_WEIGHTS; }
-long long fused_train_weight_t_elems() { return mlp::NT_WEIGHTS; }
+long long fused_train_weight_elems() { return sm90::SW_WEIGHTS; }
+long long fused_train_weight_t_elems() { return sm90::SWT_WEIGHTS; }
 long long fused_train_grad_elems() { return mlp::GRAD_ELEMS; }
-long long fused_train_workspace_bytes(long long n_rows) { return mlp::workspace_bytes(n_rows, true); }
+long long fused_train_workspace_bytes(long long n_rows) { return sm90::workspace_bytes(n_rows); }
 
 const char* fused_train_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -193,9 +197,10 @@ const char* fused_train_error_string(int code) {
 
 // x [n_rays * S, 8] raw points (xyz 0..2, dist 3) or [.., 64] encoded
 // (dist in 63); vt [n_rays / R, 8, 8 or 32]; w, wt the bf16 forward and
-// backward weight buffers (the forward one permuted to the block encoding
-// when raw_inputs); rgb_out [n_rays, 3], acc_out [n_rays], w_out
-// [n_rays, S] or null, grads [GRAD_ELEMS], all float32; workspace of
+// dX weight buffers of mlp_sm90.cuh (kernel_weights_sm90, permuted to the
+// block encoding when raw_inputs, and kernel_weights_sm90_bwd); rgb_out
+// [n_rays, 3], acc_out [n_rays], w_out [n_rays, S] or null, grads
+// [GRAD_ELEMS], all float32; workspace of
 // fused_train_workspace_bytes(n_rays * S) bytes. Returns the first CUDA
 // error, 0 on success.
 int fused_train_level(const void* x, const void* vt, const void* w, const void* wt,

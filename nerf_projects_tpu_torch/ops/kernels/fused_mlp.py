@@ -20,9 +20,12 @@ with ctypes), each with a launch counter and its plain PyTorch version:
 - ``fused_mlp_raw_fwd`` / ``fused_mlp_raw_bwd`` (``csrc/fused_mlp_raw_fwd.cu``
   and ``fused_mlp_raw_bwd.cu``, K1rf and K1rb): K1f and K1b on raw points
   and view directions [N, 8] (3 live), encoded in the kernel
-  (``_encode_tile``: 10 and 4 frequencies, block layout) over
-  ``kernel_weights(model, raw_layout=True)``; plain:
+  (``_encode_tile``: 10 and 4 frequencies, block layout); plain:
   ``fused_nerf_mlp_raw_reference`` and ``fused_mlp_raw_bwd_reference``.
+  K1rb reads ``kernel_weights(model, raw_layout=True)``; K1rf runs on the
+  wgmma core (``csrc/mlp_sm90.cuh``) over
+  ``kernel_weights_sm90(model, raw_layout=True)``, and its library's
+  ``fused_mlp_raw_fwd_encoded`` runs that core on encodings.
 
 ``fused_nerf_mlp`` / ``fused_apply`` (encodings) and ``fused_nerf_mlp_raw``
 / ``fused_apply_raw`` (raw points) take a ``NeRFMLP`` and are
@@ -407,6 +410,31 @@ GRAD_SHAPES = (
     (1, 256), (1, 128), (1, 256), (1, 128), (1, 128),
 )
 GRAD_ELEMS = sum(r * c for r, c in GRAD_SHAPES)
+# The wgmma core's buffers (csrc/mlp_sm90.cuh, offsets SW_* and SWT_*):
+# (field, N, K, KD) of each layer's [N][K] matrix, stored in passes of at
+# most 128 rows, each as K-slabs of depth KD (the last may be shallower),
+# each slab [KD / 8][rows / 8][8][8]: wgmma's K-major core matrices, ready
+# for one bulk copy. The forward's matrices are KERNEL_LAYOUT's [out][in]
+# pieces, the heads padded to 8 rows; its biases follow, the heads' padded
+# to 8.
+SM90_LAYOUT = (
+    ("w0", 256, 64, 64), ("w1", 256, 256, 64), ("w2", 256, 256, 64), ("w3", 256, 256, 64),
+    ("w4", 256, 256, 64), ("w5", 256, 320, 64), ("w6", 256, 256, 64), ("w7", 256, 256, 64),
+    ("wsig", 8, 256, 256), ("wb", 256, 256, 64), ("wv", 128, 288, 64), ("wrgb", 8, 128, 128),
+)
+SM90_BIASES = (
+    ("b0", 256), ("b1", 256), ("b2", 256), ("b3", 256), ("b4", 256), ("b5", 256), ("b6", 256),
+    ("b7", 256), ("bb", 256), ("bv", 128), ("bsig", 8), ("brgb", 8),
+)
+# The dX products' matrices [N = in][K = out]: the rgb head's transpose
+# (K padded to 16), KERNEL_LAYOUT_BWD's view_0 and bottleneck pieces, the
+# latter with the sigma head's transpose appended as 16 more K columns
+# (trunk_7's gradient takes both), then w7, w6, w5's h rows, w4..w1.
+SM90_LAYOUT_BWD = (
+    ("wrgb", 128, 16, 16), ("wv", 256, 128, 64), ("wb", 256, 272, 64), ("w7", 256, 256, 64),
+    ("w6", 256, 256, 64), ("w5", 256, 256, 64), ("w4", 256, 256, 64), ("w3", 256, 256, 64),
+    ("w2", 256, 256, 64), ("w1", 256, 256, 64),
+)
 
 
 def _check_arch(model: NeRFMLP) -> None:
@@ -459,6 +487,51 @@ def _build_kernel_weights_bwd(model: NeRFMLP) -> torch.Tensor:
     return _fill(KERNEL_LAYOUT_BWD, sources)
 
 
+def _pieces(buf: torch.Tensor, layout) -> dict:
+    """A flat buffer of ``layout`` -> its [rows, cols] pieces by name."""
+    out, at = {}, 0
+    for name, rows, cols in layout:
+        out[name] = buf[at: at + rows * cols].view(rows, cols)
+        at += rows * cols
+    return out
+
+
+SM90_PASS = 128  # rows of N a pass of the wgmma core takes
+
+
+def sm90_slabs(m: torch.Tensor, n: int, k: int, kd: int) -> torch.Tensor:
+    """A [rows <= n, cols <= k] matrix, zero-padded to [n, k] -> its passes
+    of at most SM90_PASS rows, each as K-slabs of depth kd, each slab
+    [kd / 8][rows / 8][8][8], flat (``SM90_LAYOUT``)."""
+    full = m.new_zeros((n, k))
+    full[: m.shape[0], : m.shape[1]] = m
+    npass = min(n, SM90_PASS)
+    out = []
+    for p0 in range(0, n, npass):
+        for k0 in range(0, k, kd):
+            slab = full[p0: p0 + npass, k0: k0 + kd]
+            d = slab.shape[1]
+            out.append(slab.reshape(npass // 8, 8, d // 8, 8).permute(2, 0, 1, 3).reshape(-1))
+    return torch.cat(out)
+
+
+def _build_kernel_weights_sm90(model: NeRFMLP, raw_layout: bool) -> torch.Tensor:
+    """The wgmma core's forward buffer in float64 from a model on the host."""
+    p = _pieces(_build_kernel_weights(model, raw_layout), KERNEL_LAYOUT)
+    mats = [sm90_slabs(p[name], n, k, kd) for name, n, k, kd in SM90_LAYOUT]
+    biases = [F.pad(p[name].reshape(-1), (0, n - p[name].numel())) for name, n in SM90_BIASES]
+    return torch.cat(mats + biases)
+
+
+def _build_kernel_weights_sm90_bwd(model: NeRFMLP) -> torch.Tensor:
+    """The wgmma core's dX buffer in float64 from a model on the host."""
+    f = _pieces(_build_kernel_weights(model, False), KERNEL_LAYOUT)
+    b = _pieces(_build_kernel_weights_bwd(model), KERNEL_LAYOUT_BWD)
+    src = {"wrgb": f["wrgb"].T, "wv": b["wv"], "wb": torch.cat([b["wb"], F.pad(f["wsig"].T, (0, 12))], dim=1),
+           **{f"w{i}": b[f"w{i}"] for i in (1, 2, 3, 4, 5, 6, 7)}}
+    return torch.cat([sm90_slabs(src[name], n, k, kd) for name, n, k, kd in SM90_LAYOUT_BWD])
+
+
 _GATHER_INDEX: dict = {}
 
 
@@ -507,6 +580,22 @@ def kernel_weights_bwd(model: NeRFMLP) -> torch.Tensor:
     return _gathered(model, bwd=True)
 
 
+def kernel_weights_sm90(model: NeRFMLP, raw_layout: bool = False) -> torch.Tensor:
+    """The wgmma core's flat bf16 forward buffer (``SM90_LAYOUT`` slabs, then
+    ``SM90_BIASES``): ``kernel_weights``' entries in the slab order, gathered
+    afresh on every call like it."""
+    _check_arch(model)
+    return gather_weights(model, ("fused_mlp_sm90", raw_layout),
+                          lambda probe: _build_kernel_weights_sm90(probe, raw_layout))
+
+
+def kernel_weights_sm90_bwd(model: NeRFMLP) -> torch.Tensor:
+    """The wgmma core's flat bf16 dX buffer (``SM90_LAYOUT_BWD``), gathered
+    afresh on every call."""
+    _check_arch(model)
+    return gather_weights(model, ("fused_mlp_sm90_bwd",), _build_kernel_weights_sm90_bwd)
+
+
 def split_grads(flat: torch.Tensor) -> FusedMLPWeights:
     """A flat [GRAD_ELEMS] gradient buffer -> FusedMLPWeights of views."""
     out, at = [], 0
@@ -531,9 +620,11 @@ _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 @functools.lru_cache(maxsize=None)
 def _fwd_library(name: str):
-    """``csrc/<name>.cu`` of a forward kernel (K1f, K1rf)."""
+    """``csrc/<name>.cu`` of a forward kernel (K1f, K1rf; K1rf's library also
+    holds ``fused_mlp_raw_fwd_encoded``)."""
+    entries = (name, f"{name}_encoded") if name == "fused_mlp_raw_fwd" else (name,)
     return load_library(name, {
-        name: ([_VP, _VP, _VP, _VP, _LL, _VP], _INT),
+        **{e: ([_VP, _VP, _VP, _VP, _LL, _VP], _INT) for e in entries},
         f"{name}_weight_elems": ([], _LL),
         f"{name}_error_string": ([_INT], ctypes.c_char_p),
     })
@@ -567,25 +658,26 @@ def current_stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch_fwd(launcher, wk, x, v, x_cols: int, v_cols: int) -> torch.Tensor:
+def _launch_fwd(launcher, wk, x, v, x_cols: int, v_cols: int, library: str = "") -> torch.Tensor:
     """The body of a forward launcher (``fused_mlp_fwd``, ``fused_mlp_raw_fwd``,
-    whose name is its library's): checks, out [N, 8] float32, the launch,
-    and one more on ``launcher.launches``."""
+    whose name is its library's, or an entry of ``library``): checks, out
+    [N, 8] float32, the launch, and one more on ``launcher.launches``."""
     name = launcher.__name__
+    library = library or name
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on a CUDA device, got {x.device}")
-    lib = _fwd_library(name)
+    lib = _fwd_library(library)
     n, dev = x.shape[0], x.device
     check_tensor(x, "x", torch.float32, (n, x_cols), dev)
     check_tensor(v, "v", torch.float32, (n, v_cols), dev)
-    check_tensor(wk, "weights", torch.bfloat16, (getattr(lib, f"{name}_weight_elems")(),), dev)
+    check_tensor(wk, "weights", torch.bfloat16, (getattr(lib, f"{library}_weight_elems")(),), dev)
     out = torch.empty((n, 8), dtype=torch.float32, device=dev)
     if n == 0:
         return out
     with torch.cuda.device(dev):
         rc = getattr(lib, name)(x.data_ptr(), v.data_ptr(), wk.data_ptr(), out.data_ptr(), n, current_stream(dev))
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: {getattr(lib, f'{name}_error_string')(rc).decode()}")
+        raise RuntimeError(f"{name} launch failed: {getattr(lib, f'{library}_error_string')(rc).decode()}")
     launcher.launches += 1
     return out
 
@@ -634,10 +726,18 @@ def fused_mlp_bwd(wk: torch.Tensor, wkt: torch.Tensor, x: torch.Tensor, v: torch
 
 
 def fused_mlp_raw_fwd(wk: torch.Tensor, p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Launch K1rf: wk a ``kernel_weights(model, raw_layout=True)`` buffer,
-    p and v [N, 8] float32 raw points and view directions (columns 0..2
-    live) on one card -> [N, 8] float32. Any N >= 0."""
+    """Launch K1rf: wk a ``kernel_weights_sm90(model, raw_layout=True)``
+    buffer, p and v [N, 8] float32 raw points and view directions (columns
+    0..2 live) on one card -> [N, 8] float32. Any N >= 0."""
     return _launch_fwd(fused_mlp_raw_fwd, wk, p, v, 8, 8)
+
+
+def fused_mlp_raw_fwd_encoded(wk: torch.Tensor, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K1rf's core on encodings x [N, 64] and v [N, 32] float32 (the probe
+    entry of ``csrc/fused_mlp_raw_fwd.cu``; its launches are its own, not
+    K1rf's): on ``_encode_raw``'s encodings it gives K1rf's output bit for
+    bit. wk as ``fused_mlp_raw_fwd`` takes it."""
+    return _launch_fwd(fused_mlp_raw_fwd_encoded, wk, x, v, 64, 32, library="fused_mlp_raw_fwd")
 
 
 def fused_mlp_raw_bwd(wk: torch.Tensor, wkt: torch.Tensor, p: torch.Tensor, v: torch.Tensor,
@@ -650,7 +750,7 @@ def fused_mlp_raw_bwd(wk: torch.Tensor, wkt: torch.Tensor, p: torch.Tensor, v: t
 
 
 fused_mlp_fwd.launches = fused_mlp_bwd.launches = 0
-fused_mlp_raw_fwd.launches = fused_mlp_raw_bwd.launches = 0
+fused_mlp_raw_fwd.launches = fused_mlp_raw_bwd.launches = fused_mlp_raw_fwd_encoded.launches = 0
 
 
 class _FusedNeRFMLP(torch.autograd.Function):
@@ -664,8 +764,11 @@ class _FusedNeRFMLP(torch.autograd.Function):
         ctx.model, ctx.raw = model, raw
         ctx.save_for_backward(x, v)
         if x.device.type == "cuda":
-            ctx.wk = kernel_weights(model, raw_layout=raw)  # the backward reuses the forward's buffer
-            return (fused_mlp_raw_fwd if raw else fused_mlp_fwd)(ctx.wk, x, v)
+            if raw:  # K1rf runs on the wgmma core's buffer, K1rb on kernel_weights'
+                ctx.wk = None
+                return fused_mlp_raw_fwd(kernel_weights_sm90(model, raw_layout=True), x, v)
+            ctx.wk = kernel_weights(model)  # the backward reuses the forward's buffer
+            return fused_mlp_fwd(ctx.wk, x, v)
         plain = fused_nerf_mlp_raw_reference if raw else fused_nerf_mlp_reference
         return plain(pack_params(model, raw_layout=raw), x, v)
 
@@ -677,7 +780,8 @@ class _FusedNeRFMLP(torch.autograd.Function):
         if x.device.type == "cuda":
             # the dX products' weights have no raw layout: they take trunk_5's
             # h rows and view_0's bottleneck rows, never the permuted input rows
-            grads = (fused_mlp_raw_bwd if raw else fused_mlp_bwd)(ctx.wk, kernel_weights_bwd(model), x, v, g)
+            wk = kernel_weights(model, raw_layout=True) if raw else ctx.wk
+            grads = (fused_mlp_raw_bwd if raw else fused_mlp_bwd)(wk, kernel_weights_bwd(model), x, v, g)
         else:
             plain = fused_mlp_raw_bwd_reference if raw else fused_mlp_bwd_reference
             grads = plain(pack_params(model, raw_layout=raw), x, v, g)

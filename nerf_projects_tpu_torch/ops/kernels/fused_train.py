@@ -8,8 +8,9 @@ reference's: L = mean((rgb - target)^2) over the level's rays, with
 d_rgb = 2 (rgb - target) / (3 n_rays_total).
 
 ``fused_train_level`` launches the CUDA kernel ``csrc/fused_train.cu``
-(K2) on the flat weight buffers of ``kernel_weights`` and
-``kernel_weights_bwd`` and counts its launches;
+(K2, on the wgmma core ``csrc/mlp_sm90.cuh``) on the flat weight buffers
+of ``kernel_weights_sm90`` and ``kernel_weights_sm90_bwd`` and counts its
+launches;
 ``fused_train_level_reference`` is its plain PyTorch version over
 ``pack_params`` weights, in both input modes. ``train_level`` takes a
 ``NeRFMLP`` and runs the kernel for tensors on a card and the plain
@@ -35,8 +36,8 @@ from nerf_projects_tpu_torch.ops.kernels.fused_mlp import (
     _fwd_tile,
     check_tensor,
     current_stream,
-    kernel_weights,
-    kernel_weights_bwd,
+    kernel_weights_sm90,
+    kernel_weights_sm90_bwd,
     load_library,
     mlp_backward_reference,
     pack_params,
@@ -135,8 +136,8 @@ def fused_train_level(
     wk: torch.Tensor, wkt: torch.Tensor, x: torch.Tensor, vt: torch.Tensor, *, S: int, R: int,
     n_rays_total: int, bkgd: float, want_weights: bool, raw_inputs: bool = False,
 ):
-    """Launch the CUDA kernel: wk / wkt the ``kernel_weights`` (with
-    ``raw_layout=raw_inputs``) / ``kernel_weights_bwd`` buffers, x and vt
+    """Launch the CUDA kernel: wk / wkt the ``kernel_weights_sm90`` (with
+    ``raw_layout=raw_inputs``) / ``kernel_weights_sm90_bwd`` buffers, x and vt
     as ``fused_train_level_reference`` takes them, float32 on one card.
     Returns what the reference's fused_train_level returns."""
     if x.device.type != "cuda":
@@ -179,8 +180,8 @@ def train_level(model: NeRFMLP, x: torch.Tensor, vt: torch.Tensor, *, S: int, R:
     kw = dict(S=S, R=R, n_rays_total=n_rays_total, bkgd=bkgd, want_weights=want_weights,
               raw_inputs=raw_inputs)
     if x.device.type == "cuda":
-        return fused_train_level(kernel_weights(model, raw_layout=raw_inputs),
-                                 kernel_weights_bwd(model), x.contiguous(), vt.contiguous(), **kw)
+        return fused_train_level(kernel_weights_sm90(model, raw_layout=raw_inputs),
+                                 kernel_weights_sm90_bwd(model), x.contiguous(), vt.contiguous(), **kw)
     return fused_train_level_reference(pack_params(model, raw_layout=raw_inputs), x, vt, **kw)
 
 

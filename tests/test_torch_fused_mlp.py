@@ -416,3 +416,135 @@ def test_build_hash_tracks_included_headers(tmp_path):
     assert _build.digest("a", tmp_path) != before
     for name in ("fused_mlp_fwd", "fused_mlp_bwd", "fused_train"):
         assert "mlp_tile.cuh" in [p.name for p in _build.sources(name)]
+    for name in ("fused_train", "fused_mlp_raw_fwd"):
+        assert [p.name for p in _build.sources(name)][1:] == ["mlp_sm90.cuh", "mlp_tile.cuh"]
+
+
+# ---------------------------------------------------------------------------
+# The wgmma core's weight buffers (csrc/mlp_sm90.cuh)
+# ---------------------------------------------------------------------------
+
+def _sm90_constants():
+    """The ``constexpr long long`` constants of csrc/mlp_sm90.cuh, over
+    mlp_tile.cuh's."""
+    src = (Path(tfm.__file__).resolve().parents[2] / "csrc" / "mlp_sm90.cuh").read_text()
+    env = dict(_cuda_constants())
+    for name, expr in re.findall(r"constexpr long long (\w+) = ([^;]+);", src):
+        env[name] = eval(expr, {}, dict(env))
+    return env
+
+
+def _layout_offsets(layout):
+    offsets, at = {}, 0
+    for name, n, k, _ in layout:
+        offsets[name] = at
+        at += n * k
+    return offsets, at
+
+
+def _unslab(buf, at, n, k, kd):
+    """The inverse of ``sm90_slabs``: [n, k] from the passes and slabs at
+    ``at``."""
+    npass = min(n, tfm.SM90_PASS)
+    rows = []
+    for _ in range(0, n, npass):
+        parts = []
+        for k0 in range(0, k, kd):
+            d = min(kd, k - k0)
+            parts.append(buf[at: at + npass * d].view(d // 8, npass // 8, 8, 8).permute(1, 2, 0, 3).reshape(npass, d))
+            at += npass * d
+        rows.append(torch.cat(parts, dim=1))
+    return torch.cat(rows, dim=0)
+
+
+def test_sm90_layout_matches_cuda_source():
+    """SM90_LAYOUT's, SM90_BIASES' and SM90_LAYOUT_BWD's offsets are the
+    SW_* and SWT_* constants of the CUDA source."""
+    env = _sm90_constants()
+    offsets, at = _layout_offsets(tfm.SM90_LAYOUT)
+    for name in ("w0", "w1", "w5", "w6", "wsig", "wb", "wv", "wrgb"):
+        assert env[f"SW_{name.upper()}"] == offsets[name], name
+    assert env["SW_B"] == at
+    for name, n in tfm.SM90_BIASES:
+        if name in ("bb", "bv", "bsig", "brgb"):
+            assert env[f"SW_{name.upper()}"] == at, name
+        at += n
+    assert env["SW_WEIGHTS"] == at
+    offsets, at = _layout_offsets(tfm.SM90_LAYOUT_BWD)
+    for name in ("wrgb", "wv", "wb", "w7"):
+        assert env[f"SWT_{name.upper()}"] == offsets[name], name
+    assert env["SWT_WEIGHTS"] == at
+    src = (Path(tfm.__file__).resolve().parents[2] / "csrc" / "mlp_sm90.cuh").read_text()
+    assert int(re.search(r"constexpr int NP_MAX = (\d+);", src).group(1)) == tfm.SM90_PASS
+
+
+@pytest.mark.parametrize("raw_layout", [False, True])
+def test_sm90_weights_hold_each_entry_of_kernel_weights_once(raw_layout):
+    """Built over a model whose parameters hold their own positions, the
+    wgmma core's buffer holds every entry of kernel_weights' buffer once
+    and nothing else (the rest is padding)."""
+    probe = NeRFMLP(depth=8, width=256, use_viewdirs=True).double()
+    with torch.no_grad():
+        at = 1
+        for p in probe.parameters():
+            p.copy_(torch.arange(at, at + p.numel(), dtype=torch.float64).view(p.shape))
+            at += p.numel()
+    old = tfm._build_kernel_weights(probe, raw_layout)
+    new = tfm._build_kernel_weights_sm90(probe, raw_layout)
+    assert new.numel() == _sm90_constants()["SW_WEIGHTS"]
+    torch.testing.assert_close(torch.sort(new[new != 0]).values, torch.sort(old[old != 0]).values, rtol=0, atol=0)
+    assert torch.unique(new[new != 0]).numel() == int((new != 0).sum())
+
+
+@pytest.mark.parametrize("raw_layout", [False, True])
+def test_sm90_weights_unpack_to_the_linear_weights(full_width, raw_layout):
+    """Unslabbed, each matrix of kernel_weights_sm90 is the model's
+    nn.Linear weight ([out][in]; the encoded-input rows permuted to the
+    block layout with raw_layout), zero-padded; then the biases."""
+    _, model = full_width
+    wk = tfm.kernel_weights_sm90(model, raw_layout=raw_layout).float()
+    t = model.trunk
+    pp = tfm._block_perm(10) if raw_layout else list(range(63))
+    pv = tfm._block_perm(4) if raw_layout else list(range(27))
+    bf = lambda a: a.detach().to(torch.bfloat16).float()  # noqa: E731
+    want = {f"w{i}": bf(t[i].weight) for i in (1, 2, 3, 4, 6, 7)}
+    want["w0"] = torch.nn.functional.pad(bf(t[0].weight)[:, pp], (0, 1))
+    want["w5"] = torch.cat([torch.nn.functional.pad(bf(t[5].weight)[:, :63][:, pp], (0, 1)), bf(t[5].weight)[:, 63:]], 1)
+    want["wsig"] = torch.nn.functional.pad(bf(model.sigma_head.weight), (0, 0, 0, 7))
+    want["wb"] = bf(model.bottleneck.weight)
+    want["wv"] = torch.cat([bf(model.view_0.weight)[:, :256],
+                            torch.nn.functional.pad(bf(model.view_0.weight)[:, 256:][:, pv], (0, 5))], 1)
+    want["wrgb"] = torch.nn.functional.pad(bf(model.rgb_head.weight), (0, 0, 0, 5))
+    offsets, at = _layout_offsets(tfm.SM90_LAYOUT)
+    for name, n, k, kd in tfm.SM90_LAYOUT:
+        torch.testing.assert_close(_unslab(wk, offsets[name], n, k, kd), want[name], rtol=0, atol=0, msg=name)
+    biases = [bf(t[i].bias) for i in range(8)] + [bf(model.bottleneck.bias), bf(model.view_0.bias)]
+    biases += [torch.nn.functional.pad(bf(model.sigma_head.bias), (0, 7)), torch.nn.functional.pad(bf(model.rgb_head.bias), (0, 5))]
+    torch.testing.assert_close(wk[at:], torch.cat(biases), rtol=0, atol=0)
+
+
+def test_sm90_bwd_weights_unpack_to_the_linear_weights(full_width):
+    """Unslabbed, each matrix of kernel_weights_sm90_bwd is the transpose
+    of the nn.Linear weight its dX product takes: the rgb head, view_0's
+    bottleneck columns, [bottleneck | sigma head], trunk_7..5 (h columns),
+    trunk_4..1."""
+    _, model = full_width
+    wkt = tfm.kernel_weights_sm90_bwd(model).float()
+    t = model.trunk
+    bfT = lambda a: a.detach().to(torch.bfloat16).float().T  # noqa: E731
+    want = {f"w{i}": bfT(t[i].weight) for i in (1, 2, 3, 4, 6, 7)}
+    want["w5"] = bfT(t[5].weight[:, 63:])
+    want["wrgb"] = torch.nn.functional.pad(bfT(model.rgb_head.weight), (0, 13))
+    want["wv"] = bfT(model.view_0.weight[:, :256])
+    want["wb"] = torch.cat([bfT(model.bottleneck.weight), torch.nn.functional.pad(bfT(model.sigma_head.weight), (0, 15))], 1)
+    offsets, at = _layout_offsets(tfm.SM90_LAYOUT_BWD)
+    for name, n, k, kd in tfm.SM90_LAYOUT_BWD:
+        torch.testing.assert_close(_unslab(wkt, offsets[name], n, k, kd), want[name], rtol=0, atol=0, msg=name)
+    assert at == wkt.numel()
+
+
+def test_fused_mlp_raw_fwd_encoded_refuses_host_tensors(full_width):
+    _, model = full_width
+    x, v = torch.zeros(8, 64), torch.zeros(8, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfm.fused_mlp_raw_fwd_encoded(tfm.kernel_weights_sm90(model, raw_layout=True), x, v)

@@ -18,7 +18,7 @@ import nerf_projects_tpu_torch.ops.kernels.fused_mlp as tfm
 from nerf_projects_tpu.models.nerf import NeRFMLP as FlaxNeRFMLP
 from nerf_projects_tpu_torch.models.nerf import flax_to_state_dict
 from nerf_projects_tpu_torch.ops.posenc import posenc
-from tests.test_torch_fused_mlp import _carried, _flax_params
+from tests.test_torch_fused_mlp import _carried, _flax_params, _unslab
 
 N_ROWS = 300  # not a multiple of the kernel's 64-row tile nor of JAX's 768
 
@@ -187,8 +187,54 @@ def test_fused_mlp_raw_bwd_refuses_host_tensors(full_width):
 
 
 def test_raw_kernels_build_over_the_shared_tile():
-    """K1rf and K1rb include the MLP tile, so an edit to it rebuilds them."""
+    """K1rf includes the wgmma core over the MLP tile, K1rb the tile, so an
+    edit to either rebuilds the kernels that use it."""
     from nerf_projects_tpu_torch.ops.kernels import _build
 
-    for name in ("fused_mlp_raw_fwd", "fused_mlp_raw_bwd"):
-        assert [p.name for p in _build.sources(name)] == [f"{name}.cu", "mlp_tile.cuh"]
+    assert [p.name for p in _build.sources("fused_mlp_raw_fwd")] == [
+        "fused_mlp_raw_fwd.cu", "mlp_sm90.cuh", "mlp_tile.cuh"]
+    assert [p.name for p in _build.sources("fused_mlp_raw_bwd")] == ["fused_mlp_raw_bwd.cu", "mlp_tile.cuh"]
+
+
+def _sm90_forward(wk, x, v):
+    """K1rf's core walked on the host: each layer's [N][K] matrix unslabbed
+    from the kernel_weights_sm90 buffer in the order the kernel streams
+    them, bf16 operands, float32 sums, activations rounded to bf16 ->
+    [N, 8] (rgb head 0..3, sigma head 4..7)."""
+    at, m, b = 0, {}, {}
+    for name, n, k, kd in tfm.SM90_LAYOUT:
+        m[name] = _unslab(wk, at, n, k, kd)
+        at += n * k
+    for name, n in tfm.SM90_BIASES:
+        b[name] = wk[at: at + n]
+        at += n
+    assert at == wk.numel()
+
+    def layer(a, name, bias, relu=True):
+        h = a.to(torch.bfloat16).float() @ m[name].T + b[bias]
+        return torch.relu(h) if relu else h
+
+    h = layer(x, "w0", "b0")
+    for i in (1, 2, 3, 4):
+        h = layer(h, f"w{i}", f"b{i}")
+    h = layer(torch.cat([x, h], 1), "w5", "b5")
+    h = layer(layer(h, "w6", "b6"), "w7", "b7")
+    sig = layer(h, "wsig", "bsig", relu=False)
+    hv = layer(torch.cat([layer(h, "wb", "bb", relu=False), v], 1), "wv", "bv")
+    rgb = layer(hv, "wrgb", "brgb", relu=False)
+    return torch.cat([rgb[:, :4], sig[:, :4]], 1)
+
+
+def test_sm90_slab_walk_matches_jax(full_width, jax_raw):
+    """The wgmma core's weight stream (kernel_weights_sm90 in the raw
+    layout, unslabbed in the kernel's layer order) run on the host over
+    the encodings of _encode_tile against JAX's fused_apply_raw: the same
+    rounding points, so within the 1e-2 of the plain K1rf's test."""
+    _, model = full_width
+    pts, vd, _ = _raw_inputs(12, N_ROWS)
+    want, _ = jax_raw
+    wk = tfm.kernel_weights_sm90(model, raw_layout=True).float()
+    out = _sm90_forward(wk, *tfm._encode_raw(*tfm._pad_raw(torch.from_numpy(pts), torch.from_numpy(vd))))
+    got = torch.cat([out[:, 0:3], out[:, 4:5]], 1)
+    assert tuple(got.shape) == want.shape
+    assert _rel_err(got, want) < 1e-2

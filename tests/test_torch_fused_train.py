@@ -127,6 +127,6 @@ def test_shape_checks(models):
         tft.train_level(port, x[:-1], torch.zeros(2, 8, 8), S=S, R=8, n_rays_total=16, bkgd=1.0,
                         want_weights=False, raw_inputs=True)
     with pytest.raises(ValueError, match="CUDA"):
-        tft.fused_train_level(tfm.kernel_weights(port), tfm.kernel_weights_bwd(port), x,
+        tft.fused_train_level(tfm.kernel_weights_sm90(port), tfm.kernel_weights_sm90_bwd(port), x,
                               torch.zeros(2, 8, 8), S=S, R=8, n_rays_total=16, bkgd=1.0,
                               want_weights=False, raw_inputs=True)
