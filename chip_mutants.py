@@ -3,15 +3,16 @@
 
 Copies the package and chip_smoke.py to a temporary directory, breaks
 one line of a CUDA source (or of the Python that packs a kernel's
-weights) there, and runs the chip_smoke.py kernel phases that run the
-broken code (K1b, K2, K3, K4, K5, K1r or the raw-points training step)
-on the copy; each must fail. K3's mutants include its empty-space skip
-(the reach rule without the upper-neighbour bricks) and its cache of a
-brick's link rows (kept when the lower corner crosses into another brick
-along y or z); the wgmma core's (mlp_sm90.cuh: K2 and K1rf) include the
-concat, the relu mask, the stage ring, the dW jobs, the view encoder and
-the encoding stash. Run
-from the repository root:
+weights) there, and runs the chip_smoke.py phases that run the broken
+code (the kernel phases of K1f, K1b, K2, K3, K4, K5 and K1r, the encoded
+render, the raw-points training step) on the copy; each must fail. K3's
+mutants include its empty-space skip (the reach rule without the
+upper-neighbour bricks) and its cache of a brick's link rows (kept when
+the lower corner crosses into another brick along y or z); the wgmma
+core's (mlp_sm90.cuh: K1f, K1rf, K1rb and K2) include the concat, the
+relu mask, the stage ring, the dW jobs, the view encoder, the encoding
+stash, K1rb's forward without its per-slab promotion and K1f handed the
+raw layout's buffer. Run from the repository root:
 
     python3 chip_mutants.py
 
@@ -41,7 +42,7 @@ MUTANTS = {
         "A_TRUNK + 4 * 256 + 192};",
         "const int feats[5] = {A_X, A_TRUNK + 3 * 256, A_TRUNK + 3 * 256 + 64, A_TRUNK + 3 * 256 + 128, "
         "A_TRUNK + 3 * 256 + 192};",
-        ("fused_train_level",),
+        ("kernel_raw", "fused_train_level"),
     ),
     "trunk_5's x columns dropped from the [x | h4] concat in the wgmma core": (
         "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
@@ -53,7 +54,19 @@ MUTANTS = {
         "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
         "grad(mlp::A_TRUNK + l * 256), ring, j);",
         "grad(mlp::A_TRUNK + (l + 1) * 256), ring, j);",
-        ("fused_train_level",),
+        ("kernel_raw", "fused_train_level"),
+    ),
+    "K1rb's recomputed forward without its per-slab promotion": (
+        "nerf_projects_tpu_torch/csrc/fused_mlp_raw_bwd.cu",
+        "sm90::launch_forward<sm90::IN_TRAIN_RAW, true>(",
+        "sm90::launch_forward<sm90::IN_TRAIN_RAW, false>(",
+        ("kernel_raw",),
+    ),
+    "K1f handed the raw layout's buffer by the encoded route": (
+        "nerf_projects_tpu_torch/ops/kernels/fused_mlp.py",
+        "return kernel_weights_sm90(model, raw_layout=raw)",
+        "return kernel_weights_sm90(model, raw_layout=True)",
+        ("kernel", "render"),
     ),
     "the second K-slab of every layer skipped by the wgmma core's stage ring": (
         "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
@@ -127,12 +140,6 @@ MUTANTS = {
         "w0, w5x, wvv = w0, unperm(w5x, 10), unperm(wvv, 4)",
         ("kernel_raw",),
     ),
-    "the in-kernel view encoder at 3 frequencies instead of 4": (
-        "nerf_projects_tpu_torch/csrc/mlp_tile.cuh",
-        "val = RAW ? encode_col(vrow, c, 4) : vrow[c];",
-        "val = RAW ? encode_col(vrow, c, 3) : vrow[c];",
-        ("kernel_raw",),
-    ),
     "the wgmma core's view encoder at 3 frequencies instead of 4": (
         "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
         "v0 = c < 27 ? mlp::encode_col(vrow[h], c, 4) : 0.f;\n"
@@ -146,13 +153,13 @@ MUTANTS = {
         "stash_cols(act, AS, COL_X, 64, stash, A_X, ld, row_base);",
         "for (int i = threadIdx.x; i < 64 * BM; i += THREADS) "
         "stash[(A_X + i / BM) * ld + row_base + i % BM] = __float2bfloat16_rn(0.f);",
-        ("kernel_raw", "fused_mlp_bwd"),
+        ("fused_mlp_bwd",),
     ),
     "the wgmma core's encoding stash (A_X) written as zeros": (
         "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
         "stash[slot(tile64, A_F8, fg, L.ra + 8 * h, L.t)] = r4[i];",
         "stash[slot(tile64, A_F8, fg, L.ra + 8 * h, L.t)] = kb < 4 ? 0u : r4[i];",
-        ("fused_train_level",),
+        ("kernel_raw", "fused_train_level"),
     ),
     "the transmittance's backward without its division by the factor": (
         "nerf_projects_tpu_torch/ops/render.py",
@@ -169,7 +176,9 @@ import chip_smoke as c
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda", 0)
 c.phase_build()
-phases = {"fused_mlp_bwd": lambda: c.phase_kernel_bwd(dev, big_rows=65536),
+phases = {"kernel": lambda: c.phase_kernel(dev, fine_rows=65536),
+          "render": lambda: c.phase_render(dev),
+          "fused_mlp_bwd": lambda: c.phase_kernel_bwd(dev, big_rows=65536),
           "fused_train_level": lambda: c.phase_kernel_train(dev),
           "tile_march_fwd": lambda: c.phase_kernel_march(dev),
           "tile_march_bwd": lambda: c.phase_kernel_march_bwd(dev),

@@ -1,0 +1,112 @@
+#!/usr/bin/env python3
+"""Diagnostic probes of the NeRF MLP kernels on one CUDA card, beside
+chip_smoke.py. Run from the root of a checkout (which may be another
+tree than this file's: its chip_smoke.py and package are the ones used):
+
+    python3 /path/to/chip_probes.py f64   # K1rb's float64-sums rule, per draw
+    python3 /path/to/chip_probes.py k2    # K2's fine level timed around other work
+
+f64: K1rb's gradients against the plain version with float64 sums, as
+chip_smoke.check_grads reads the rule (the kernel's relative Frobenius
+distance over the float32 plain version's, per gradient tensor), at five
+row counts with g random in all eight columns ("all8") or in the route's
+four live ones ("live"); the six worst tensors of each draw. Run in a
+tree with a kernel changed (chip_mutants.py's copies) to see whether the
+rule tells the two apart.
+
+k2: K2's fine level (S 288, R 4, 1,024 rays) timed 3 x 10 launches with
+CUDA events, fresh, after chip_smoke.phase_kernel and after 5 s idle,
+each beside the card's SM clock, temperature and power.
+"""
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, ".")
+
+import torch  # noqa: E402
+
+import chip_smoke as c  # noqa: E402
+
+
+def model_on(dev, seed: int):
+    from nerf_projects_tpu_torch.models.nerf import NeRFMLP
+
+    gen = torch.Generator().manual_seed(seed)
+    model = NeRFMLP(depth=8, width=256, use_viewdirs=True).reset_parameters(gen)
+    return c.random_biases(model, gen).to(dev), gen
+
+
+def probe_f64(dev, tag: str) -> None:
+    from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
+
+    model, gen = model_on(dev, c.SEED + 30)
+    W = fm.pack_params(model, raw_layout=True)
+    wk, wkt = fm.backward_weights(model, True, fm.forward_weights(model, raw=True))
+    for n in (8192 + 37, 128 * 96, 16385, 65536, 294912):
+        p, v = c.raw_inputs(n, gen, dev)
+        for kind in ("all8", "live"):
+            g = (torch.randn(n, 8, generator=gen) * 1e-3).to(dev)
+            if kind == "live":
+                g[:, 3] = 0
+                g[:, 5:] = 0
+            got = fm.fused_mlp_raw_bwd(wk, wkt, p, v, g)
+            want = fm.fused_mlp_raw_bwd_reference(W, p, v, g)
+            with fm.float64_sums():
+                exact = fm.fused_mlp_raw_bwd_reference(W, p, v, g)
+            rs = []
+            for name, a, b, e in zip(fm.FusedMLPWeights._fields, got, want, exact):
+                e = e.double()
+                en = e.norm() + 1e-30
+                r = float((a.double() - e).norm() / en) / (float((b.double() - e).norm() / en) + 1e-5)
+                rs.append((r, name))
+            rs.sort(reverse=True)
+            print("f64", tag, n, kind, " ".join(f"{nm}={r:.3f}" for r, nm in rs[:6]), flush=True)
+
+
+def probe_k2(dev) -> None:
+    from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerf_projects_tpu_torch.ops.kernels import fused_train as ft
+
+    model, gen = model_on(dev, 3)
+    x, vt = c.level_batch(gen, 1024, 288, 4, dev, True)
+    wk, wkt = fm.kernel_weights_sm90(model, raw_layout=True), fm.kernel_weights_sm90_bwd(model)
+    kw = dict(S=288, R=4, n_rays_total=1024, bkgd=1.0, want_weights=False, raw_inputs=True)
+
+    def k2(tag):
+        q = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,power.draw,power.limit",
+                            "--format=csv,noheader"], capture_output=True, text=True, timeout=30).stdout.strip()
+        print("smi", tag, q, flush=True)
+        times = [c.time_ms(lambda: ft.fused_train_level(wk, wkt, x, vt, **kw), iters=10) for _ in range(3)]
+        print("k2", tag, ["%.4f" % t for t in times], flush=True)
+
+    k2("fresh")
+    c.phase_kernel(dev, 786432)
+    k2("after phase_kernel")
+    torch.cuda.synchronize()
+    time.sleep(5)
+    k2("after 5 s idle")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_probes: no CUDA device; this script runs only on a card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    c.phase_build()
+    what = sys.argv[1] if len(sys.argv) > 1 else ""
+    if what == "f64":
+        probe_f64(dev, sys.argv[2] if len(sys.argv) > 2 else "tree")
+    elif what == "k2":
+        probe_k2(dev)
+    else:
+        print("usage: chip_probes.py f64 [tag] | k2", file=sys.stderr)
+        return 2
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,7 +12,8 @@ Phases, each of which raises (exit code 1) on failure:
           process per source, all at once.
   kernel  each kernel against its plain PyTorch version on the card,
           then timed with CUDA events beside its bound and its plain
-          version: the fused-MLP forward (K1f) on 8192 + 37 rows and at
+          version: the fused-MLP forward (K1f, on the wgmma core over the
+          encoded route's buffer, forward_weights) on 8192 + 37 rows and at
           the render's fine level (786,432 rows); its weight-gradient
           backward (K1b) on 8192 + 37 rows (also against float64 sums)
           and at a training step's fine level (294,912 rows); the fused
@@ -22,7 +23,8 @@ Phases, each of which raises (exit code 1) on failure:
           its gradients against float64 sums at a 128-ray coarse level;
           then K2's split into its launches at both levels
           (torch.profiler), beside the forward alone at the same rows and
-          a bf16 torch.matmul yardstick of the ten layer products.
+          a bf16 torch.matmul yardstick of the ten layer products, and
+          K1rb's split at a training step's fine level (294,912 rows).
   render  requests of 4096 rays (64x64 patches of three 800x800 Blender
           cameras from pose_spherical) through NeRFTrainer.render_image
           with use_fused_mlp=True, at the Blender lego configuration of
@@ -65,12 +67,14 @@ Phases, each of which raises (exit code 1) on failure:
   kernel_raw
           the fused MLP on raw points, posenc in the kernel: its forward
           (K1rf) against its plain version on 8192 + 37 rows and at the
-          render's fine level (786,432 rows), equal bit for bit to its
-          core's forward on the same rows' encodings (_encode_tile;
-          fused_mlp_raw_fwd_encoded) and within KERNEL_TOL of K1f on them;
-          its weight-gradient backward (K1rb) against its plain version
-          on 8192 + 37 rows (also against float64 sums) and at a training
-          step's fine level (294,912 rows); the parameter gradients of
+          render's fine level (786,432 rows), equal bit for bit to K1f
+          over K1rf's weights on the same rows' encodings (_encode_tile:
+          the in-kernel encoder against the host's); its weight-gradient
+          backward (K1rb, on the wgmma core) against its plain version on
+          8192 + 37 and 16,385 rows (n = 1 mod 128; both also against
+          float64 sums) and at a training step's fine level (294,912
+          rows), each size launched twice for the same bits; the
+          parameter gradients of
           the raw route (fused_apply_raw, through unpack_grads'
           raw layout) against the encoded route's (K1f + K1b). Points
           U[-4, 4], unit view directions, random biases. Both timed with
@@ -287,7 +291,7 @@ def phase_build():
             elif "warpgroup.arrive is injected" in line:
                 injected += 1
             elif "Used" in line or "spill" in line:
-                log(f"  ptxas: {entry[:72]}: {line.strip()}")
+                log(f"  ptxas: {name}: {entry[:72]}: {line.strip()}")
         if injected:
             log(f"  ptxas: {name}: {injected} warpgroup.arrive injected between wgmmas (registers written under them)")
     return time.perf_counter() - t0
@@ -415,7 +419,7 @@ def phase_kernel(dev, fine_rows: int) -> dict:
     model = NeRFMLP(depth=8, width=256, use_viewdirs=True).reset_parameters(gen)
     model = random_biases(model, gen).to(dev)
     W = fm.pack_params(model)
-    wk = fm.kernel_weights(model)
+    wk = fm.forward_weights(model, raw=False)  # the buffer the encoded route hands K1f
     max_abs = 0.0
     for n in (8192 + 37, fine_rows):
         x, v = encodings(n, gen, dev)
@@ -669,8 +673,10 @@ def profile_train_split(dev) -> dict:
     its launches by kernel name at a training step's coarse level (S 96,
     R 8, with weights) and fine level (S 288, R 4), beside the forward
     alone at the same rows (fused_apply_raw: K1rf, which writes no stash),
-    and the matmul yardstick at the fine level's rows. Public entry points
-    only, so it splits any checkout's K2."""
+    and the matmul yardstick at the fine level's rows; then K1rb split at
+    the fine level's rows, through the raw route's autograd (K1rf's forward,
+    K1rb's launches, the gradients' unpacking). Public entry points only,
+    so it splits any checkout's K2 and K1rb."""
     from nerf_projects_tpu_torch.models.nerf import NeRFMLP
     from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
     from nerf_projects_tpu_torch.ops.kernels import fused_train as ft
@@ -695,6 +701,15 @@ def profile_train_split(dev) -> dict:
         log(f"split: the forward alone at the {tag} level's rows (fused_apply_raw, no stash): {name[:48]} {ms:.4f} ms")
         out[tag] = (split, ms)
     matmul_yardstick(dev, TRAIN_FINE)
+    p, v = raw_inputs(TRAIN_FINE, gen, dev)
+    pts, dirs = p[:, :3].contiguous(), v[:, :3].contiguous()
+    cot = (torch.randn(TRAIN_FINE, 4, generator=gen) * 1e-3).to(dev)
+    params = list(model.parameters())
+    split = kernel_split(lambda: torch.autograd.grad((fm.fused_apply_raw(model, pts, dirs) * cot).sum(), params))
+    log(f"split: K1rb at the training fine level's rows ({TRAIN_FINE}) through the raw route's autograd, "
+        f"{sum(split.values()):.4f} ms a call on the card: "
+        + "; ".join(f"{k[:48]} {v:.4f} ms" for k, v in split.items() if v >= 0.001))
+    out["raw backward"] = split
     return out
 
 
@@ -970,13 +985,13 @@ def model_grads(model, run, cot) -> dict:
 
 def phase_kernel_raw(dev, serve_rows: int, train_rows: int) -> tuple:
     """K1rf against its plain version on a ragged size and at the render's
-    fine level, equal bit for bit to its core's forward on the port's
-    encodings of the same rows (fused_mlp_raw_fwd_encoded: the encoder
-    alone differs) and within KERNEL_TOL of K1f on them (another core,
-    another sum order); K1rb against its plain version (and
-    float64 sums) on a ragged size and at a training step's fine level;
-    the raw route's parameter gradients against the encoded route's. Then
-    both timed beside their bounds, their plain versions and K1f / K1b."""
+    fine level, equal bit for bit to K1f over K1rf's weights on the port's
+    encodings of the same rows (the same core: the encoder alone differs);
+    K1rb against its plain version on two ragged sizes (also against
+    float64 sums) and at a training step's fine level, a second launch
+    the same bits at each; the raw route's parameter gradients against
+    the encoded route's. Then both timed beside their bounds, their plain
+    versions and K1f / K1b on the same rows."""
     from nerf_projects_tpu_torch.models.nerf import NeRFMLP
     from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
     from nerf_projects_tpu_torch.ops.posenc import posenc
@@ -985,46 +1000,50 @@ def phase_kernel_raw(dev, serve_rows: int, train_rows: int) -> tuple:
     model = NeRFMLP(depth=8, width=256, use_viewdirs=True).reset_parameters(gen)
     model = random_biases(model, gen).to(dev)
     W = fm.pack_params(model, raw_layout=True)
-    wk, wkt = fm.kernel_weights(model, raw_layout=True), fm.kernel_weights_bwd(model)
-    wks = fm.kernel_weights_sm90(model, raw_layout=True)
+    wk, wkt = fm.backward_weights(model, True, fm.forward_weights(model, raw=True))  # the raw route's buffers
     max_fwd = max_bwd = 0.0
     for n in (8192 + 37, serve_rows):
         p, v = raw_inputs(n, gen, dev)
-        got = fm.fused_mlp_raw_fwd(wks, p, v)
+        got = fm.fused_mlp_raw_fwd(wk, p, v)
         want = fm.fused_nerf_mlp_raw_reference(W, p, v)
         x, ve = fm._encode_raw(p, v)
-        core = fm.fused_mlp_raw_fwd_encoded(wks, x, ve)
-        enc = fm.fused_mlp_fwd(wk, x, ve)
+        core = fm.fused_mlp_fwd(wk, x, ve)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"kernel_raw: non-finite K1rf output at n={n}")
         scale = float(want.abs().mean()) + 1.0
-        err, err_enc = float((got - want).abs().max()), float((got - enc).abs().max())
+        err = float((got - want).abs().max())
         # the kernel's sinf and torch.sin on the card give the same bits, so
-        # K1rf and its core on the port's encodings see the same bf16 inputs
-        # and must agree exactly; K1f sums in another order
+        # K1rf and K1f on the port's encodings see the same bf16 inputs
+        # through the same core and must agree exactly
         same = float((got == core).all(-1).float().mean())
         log(f"kernel_raw: fused_mlp_raw_fwd n={n} max_abs_err={err:.3e} err/(mean|plain|+1)={err / scale:.3e} "
-            f"(tolerance {KERNEL_TOL}); against its core on the port's encodings of the same rows: {same:.6f} of "
-            f"rows the same bits (all must be); against K1f on them: max |diff| {err_enc:.3e}, "
-            f"{err_enc / scale:.3e} of (mean|plain|+1) (tolerance {KERNEL_TOL})")
-        if not (err / scale < KERNEL_TOL and torch.equal(got, core) and err_enc / scale < KERNEL_TOL):
+            f"(tolerance {KERNEL_TOL}); against K1f over its weights on the port's encodings of the same rows: "
+            f"{same:.6f} of rows the same bits (all must be)")
+        if not (err / scale < KERNEL_TOL and torch.equal(got, core)):
             raise AssertionError(f"kernel_raw: fused_mlp_raw_fwd disagrees at n={n}")
         max_fwd = max(max_fwd, err)
     fwd_args = (p, v, x, ve)
 
-    for n in (8192 + 37, train_rows):
+    # 8192 + 37 and 128 * 128 + 1 rows leave ragged tiles (the padded rows'
+    # stash must stay finite and add nothing); all eight g columns are live
+    for n in (8192 + 37, 128 * 128 + 1, train_rows):
         p, v = raw_inputs(n, gen, dev)
         g = (torch.randn(n, 8, generator=gen) * 1e-3).to(dev)
         got = fm.fused_mlp_raw_bwd(wk, wkt, p, v, g)
+        again = fm.fused_mlp_raw_bwd(wk, wkt, p, v, g)
         want = fm.fused_mlp_raw_bwd_reference(W, p, v, g)
         exact = None
         if n < train_rows:
             with fm.float64_sums():
                 exact = fm.fused_mlp_raw_bwd_reference(W, p, v, g)
         torch.cuda.synchronize()
-        max_bwd = max(max_bwd, check_grads(f"kernel_raw: fused_mlp_raw_bwd n={n}", got, want,
-                                           fm.FusedMLPWeights._fields, exact))
+        tag = f"kernel_raw: fused_mlp_raw_bwd n={n}"
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"{tag}: a second launch gives the same bits: {same}")
+        if not same:
+            raise AssertionError(f"{tag}: two launches on the same inputs differ")
+        max_bwd = max(max_bwd, check_grads(tag, got, want, fm.FusedMLPWeights._fields, exact))
     bwd_args = (p, v, g)
 
     # the raw route maps K1rb's gradients back through unpack_grads' raw
@@ -1041,7 +1060,7 @@ def phase_kernel_raw(dev, serve_rows: int, train_rows: int) -> tuple:
                                        "encoded route's", [raw[k] for k in names], [enc[k] for k in names], names))
 
     p, v, x, ve = fwd_args
-    ms = time_ms(lambda: fm.fused_mlp_raw_fwd(wks, p, v), iters=20)
+    ms = time_ms(lambda: fm.fused_mlp_raw_fwd(wk, p, v), iters=20)
     k1f_ms = time_ms(lambda: fm.fused_mlp_fwd(wk, x, ve), iters=20)
     plain_ms = time_ms(lambda: fm.fused_nerf_mlp_raw_reference(W, p, v), iters=5, warmup=1)
     flops = 2.0 * fm.LIVE_MACS_PER_SAMPLE * serve_rows
@@ -1053,7 +1072,7 @@ def phase_kernel_raw(dev, serve_rows: int, train_rows: int) -> tuple:
 
     def launch_fwd(n):
         pv = raw_inputs(n, gen, dev)
-        return lambda: fm.fused_mlp_raw_fwd(wks, *pv)
+        return lambda: fm.fused_mlp_raw_fwd(wk, *pv)
 
     time_sizes("fused_mlp_raw_fwd", "serving fine", (ms, b_ms),
                (("serving coarse", SERVE_COARSE), ("training coarse", TRAIN_COARSE), ("training fine", TRAIN_FINE)),
@@ -1065,8 +1084,9 @@ def phase_kernel_raw(dev, serve_rows: int, train_rows: int) -> tuple:
 
     p, v, g = bwd_args
     x, ve = fm._encode_raw(p, v)
+    tile_wk, tile_wkt = fm.kernel_weights(model, raw_layout=True), fm.kernel_weights_bwd(model)  # K1b's tile
     ms = time_ms(lambda: fm.fused_mlp_raw_bwd(wk, wkt, p, v, g), iters=10)
-    k1b_ms = time_ms(lambda: fm.fused_mlp_bwd(wk, wkt, x, ve, g), iters=10)
+    k1b_ms = time_ms(lambda: fm.fused_mlp_bwd(tile_wk, tile_wkt, x, ve, g), iters=10)
     plain_ms = time_ms(lambda: fm.fused_mlp_raw_bwd_reference(W, p, v, g), iters=3, warmup=1)
     flops = 3 * 2.0 * fm.LIVE_MACS_PER_SAMPLE * train_rows
     nbytes = fm.RAW_IO_BYTES_PER_SAMPLE * train_rows + fm.GRAD_ELEMS * 4 + (wk.numel() + wkt.numel()) * 2

@@ -31,7 +31,7 @@ extern "C" {
 long long fused_mlp_bwd_weight_elems() { return mlp::N_WEIGHTS; }
 long long fused_mlp_bwd_weight_t_elems() { return mlp::NT_WEIGHTS; }
 long long fused_mlp_bwd_grad_elems() { return mlp::GRAD_ELEMS; }
-long long fused_mlp_bwd_workspace_bytes(long long n) { return mlp::workspace_bytes(n, false); }
+long long fused_mlp_bwd_workspace_bytes(long long n) { return mlp::workspace_bytes(n); }
 
 const char* fused_mlp_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -45,11 +45,10 @@ int fused_mlp_bwd(const void* x, const void* v, const void* g, const void* w, co
                   void* grads, long long n, void* workspace, void* stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const mlp::Workspace ws = mlp::carve(workspace, n, false);
+  const mlp::Workspace ws = mlp::carve(workspace, n);
   const mlp::bf16* wb = static_cast<const mlp::bf16*>(w);
-  cudaError_t err = mlp::launch_forward<mlp::IN_ENCODED>(
-      static_cast<const float*>(x), static_cast<const float*>(v), wb, nullptr, n, ws.A,
-      mlp::padded_rows(n), 0, 0, s);
+  cudaError_t err = mlp::launch_forward(static_cast<const float*>(x), static_cast<const float*>(v), wb, n,
+                                        ws.A, mlp::padded_rows(n), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(mlp::run_backward(static_cast<const float*>(g), n, wb,
                                             static_cast<const mlp::bf16*>(wt), ws,

@@ -25,10 +25,10 @@
 // direction of row r from vt[(r / S / R) * 8 + (r / S) % R] [8]. With
 // S = 1 and R = 8 that is row r of a per-row [n, 8] array, so this kernel
 // is that mode at S = 1, R = 8; the encodings are rounded to bf16 into the
-// first layer's fragments. fused_mlp_raw_fwd_encoded runs the same forward
-// on encodings x [n, 64] and v [n, 32] (IN_ENCODED): on the encodings that
-// _encode_tile gives, it must give K1rf's output bit for bit, which holds
-// the in-kernel encoder to the host's.
+// first layer's fragments. K1f (fused_mlp_fwd.cu) is the same forward on
+// encodings (IN_ENCODED): over this kernel's raw-layout weights and on the
+// encodings that _encode_tile gives, it must give this kernel's output bit
+// for bit, which holds the in-kernel encoder to the host's.
 
 #include "mlp_sm90.cuh"
 
@@ -45,15 +45,8 @@ const char* fused_mlp_raw_fwd_error_string(int code) {
 // head, 4..7 sigma head); launched on `stream`. Returns the CUDA error of
 // the launch.
 int fused_mlp_raw_fwd(const void* p, const void* v, const void* w, void* out, long long n, void* stream) {
-  return static_cast<int>(sm90::launch_forward<mlp::IN_TRAIN_RAW, false>(
+  return static_cast<int>(sm90::launch_forward<sm90::IN_TRAIN_RAW, false>(
       static_cast<const float*>(p), static_cast<const float*>(v), static_cast<const mlp::bf16*>(w),
-      static_cast<float*>(out), n, nullptr, 1, 8, static_cast<cudaStream_t>(stream)));
-}
-
-// The same forward on encodings x [n, 64] and v [n, 32] float32.
-int fused_mlp_raw_fwd_encoded(const void* x, const void* v, const void* w, void* out, long long n, void* stream) {
-  return static_cast<int>(sm90::launch_forward<mlp::IN_ENCODED, false>(
-      static_cast<const float*>(x), static_cast<const float*>(v), static_cast<const mlp::bf16*>(w),
       static_cast<float*>(out), n, nullptr, 1, 8, static_cast<cudaStream_t>(stream)));
 }
 

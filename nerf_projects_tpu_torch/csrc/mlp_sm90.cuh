@@ -1,14 +1,15 @@
 // Hopper (sm_90a) core of the fused NeRF MLP: warpgroup matrix products
 // (wgmma) fed by bulk copies into a ring of shared-memory stages. The
-// fused train level (fused_train.cu, K2) and the raw-points forward
-// (fused_mlp_raw_fwd.cu, K1rf) run on it; K1f, K1b, K1rb and K5 stay on
-// mlp_tile.cuh's mma.sync tile, whose weight and gradient layouts, stash
-// feature map, encoder (encode_col) and fixed-order reduce this header
-// shares.
+// fused train level (fused_train.cu, K2), the encoded forward
+// (fused_mlp_fwd.cu, K1f) and the raw-points forward and weight-gradient
+// backward (fused_mlp_raw_fwd.cu, fused_mlp_raw_bwd.cu: K1rf, K1rb) run on
+// it; K1b and K5 stay on mlp_tile.cuh's mma.sync tile, whose weight and
+// gradient layouts, stash feature map, encoder (encode_col) and
+// fixed-order reduce this header shares.
 //
 // What bounds the MLP on this card is tensor-core throughput: 593,408
-// multiply-adds a row against 24-96 bytes of input; for K2, also the
-// backward's stash bytes (~9.5 GB a training step). The mma.sync tile
+// multiply-adds a row against 24-416 bytes of input; for the backward
+// (K2, K1rb), also its stash bytes (~9.5 GB a training step). The mma.sync tile
 // reached 0.13-0.21 of the operations bound: each 64-row block streamed all
 // 1.2 MB of weights from L2 through a 32-deep slice behind two block
 // barriers, loaded every fragment one 32-bit word at a time, and wrote its
@@ -30,15 +31,16 @@
 //     to bf16, is the next layer's A fragment (A from registers, B from
 //     shared memory); a 256-wide layer runs as two passes of 128 columns;
 //   - the backward's stashes are [64-row tile][feature / 8][row][8
-//     features] bf16: K2's forward and dX stage each layer's output in
+//     features] bf16: its forward and dX stage each layer's output in
 //     shared memory in that layout and store it with one bulk copy; the dX
 //     pass's relu mask loads are whole 128-byte lines; dW reads a 64-row
 //     slab of 8 features as one 1 KB block in wgmma's MN-major layout and
 //     runs dW = A^T G with both operands from shared memory.
 // Every product takes bf16 operands and accumulates in float32, with the
 // rounding points of mlp_tile.cuh; only the order of the sums over K
-// differs. K2's forward and dW add each 64-deep slab's products into
-// float32 registers (PROMOTE, mma_layer): the float64-sums rule needs it.
+// differs. The backward's forward (K2, K1rb) and dW add each 64-deep
+// slab's products into float32 registers (PROMOTE, mma_layer): the
+// float64-sums rule needs it.
 // The bias gradients are float32 sums in a fixed order, and dW goes
 // through split-K partials and mlp_tile.cuh's fixed-order reduce: the same
 // bits on every run.
@@ -443,7 +445,9 @@ struct Mma<8> {
 // PROMOTE each slab's products go to a fresh accumulator, added into acc in
 // float32 once they land: the tensor cores' float32 sums of a 256-deep chain
 // stray further from exact sums than cuBLAS's float32 ones, a 64-deep
-// chain's hardly (wgmma and mma.sync alike).
+// chain's hardly (wgmma and mma.sync alike). Taking the partials 64 columns
+// at a time (32 registers fewer) cut the forward's spill but ran slower on
+// the card (PERF.md).
 template <int N, int K, int KD, bool PROMOTE, class Ring, class AF, class EPI>
 __device__ __forceinline__ void mma_layer(AF af, EPI epi, const Ring& ring, int& j) {
   constexpr int NP = N < NP_MAX ? N : NP_MAX;
@@ -599,11 +603,15 @@ __device__ __forceinline__ void head_out(const float (&acc)[4], const bf16* bias
   }
 }
 
+// The forward's inputs. IN_ENCODED: x [n, 64], v [n, 32] per row (K1f).
+// IN_TRAIN_RAW: x [n, 8] raw points, v = vt [T, 8, 8] raw directions of ray
+// row / S at [ray / R][ray % R] (K2; per row at S = 1, R = 8: K1rf, K1rb).
+// IN_TRAIN_ENC: x [n, 64], v = vt [T, 8, 32] (K2).
+enum InMode { IN_ENCODED = 0, IN_TRAIN_RAW = 1, IN_TRAIN_ENC = 2 };
+
 // The thread's input fragments, rounded to bf16, into xv[kb][thread]
-// (x k-blocks 0..3, v 4..5) and, with stash, the A_X and A_V stash.
-// IN_ENCODED: x [n, 64], v [n, 32] per row. IN_TRAIN_RAW: x [n, 8] raw
-// points, v = vt [T, 8, 8] raw directions of ray row / S at [ray / R][ray
-// % R] (per row at S = 1, R = 8). IN_TRAIN_ENC: x [n, 64], v = vt [T, 8, 32].
+// (x k-blocks 0..3, v 4..5) and, with stash, the A_X and A_V stash. Rows
+// past n are zeros, so every row of a stashed tile is written and finite.
 template <int MODE>
 __device__ __forceinline__ void load_inputs(const float* x, const float* v, long long n, int S, int R,
                                             long long tile64, uint4* xv, uint32_t* stash, const Lane& L) {
@@ -616,15 +624,15 @@ __device__ __forceinline__ void load_inputs(const float* x, const float* v, long
     const long long row = tile64 * 64 + L.ra + 8 * h;
     live[h] = row < n;
     if (!live[h]) continue;
-    if (MODE == mlp::IN_TRAIN_RAW) {
+    if (MODE == IN_TRAIN_RAW) {
 #pragma unroll
       for (int d = 0; d < 3; ++d) p[h][d] = x[row * 8 + d];
     }
-    if (MODE == mlp::IN_ENCODED) {
+    if (MODE == IN_ENCODED) {
       vrow[h] = v + row * 32;
     } else {
       const long long ray = row / S;
-      vrow[h] = v + ((ray / R) * 8 + ray % R) * (MODE == mlp::IN_TRAIN_RAW ? 8 : 32);
+      vrow[h] = v + ((ray / R) * 8 + ray % R) * (MODE == IN_TRAIN_RAW ? 8 : 32);
     }
   }
 #pragma unroll
@@ -638,7 +646,7 @@ __device__ __forceinline__ void load_inputs(const float* x, const float* v, long
       float v0 = 0.f, v1 = 0.f;
       if (live[h]) {
         if (kb < 4) {
-          if (MODE == mlp::IN_TRAIN_RAW) {
+          if (MODE == IN_TRAIN_RAW) {
             v0 = mlp::encode_col(p[h], c, 10);
             v1 = mlp::encode_col(p[h], c + 1, 10);
           } else {
@@ -646,11 +654,11 @@ __device__ __forceinline__ void load_inputs(const float* x, const float* v, long
             v0 = xx.x;
             v1 = xx.y;
           }
-        } else if (MODE == mlp::IN_ENCODED) {
+        } else if (MODE == IN_ENCODED) {
           const float2 vv = *reinterpret_cast<const float2*>(vrow[h] + c);
           v0 = vv.x;
           v1 = vv.y;
-        } else if (MODE == mlp::IN_TRAIN_RAW) {
+        } else if (MODE == IN_TRAIN_RAW) {
           v0 = c < 27 ? mlp::encode_col(vrow[h], c, 4) : 0.f;
           v1 = c + 1 < 27 ? mlp::encode_col(vrow[h], c + 1, 4) : 0.f;
         } else {
@@ -1198,17 +1206,21 @@ struct Workspace {
   bf16* G;         // gradient stash, npad x G_FEATS
   float* part;     // [DW_SPLITS][GB0]
   float* db_part;  // [DX_BLOCKS][G_FEATS]
-  float* raw;      // [n, 8]
-  float* g8;       // [n, 8]
+  float* raw;      // [n, 8], with the composite (K2) only
+  float* g8;       // [n, 8], with the composite (K2) only
 };
 
-inline long long workspace_bytes(long long n) {
+// The backward's workspace for n rows; with `composite` (the fused train
+// level) also the head outputs and their gradient, which K1rb takes from
+// its caller.
+inline long long workspace_bytes(long long n, bool composite) {
   const long long npad = padded_rows(n);
   return align256(npad * mlp::A_FEATS * 2) + align256(npad * mlp::G_FEATS * 2) +
-         align256(DW_SPLITS * mlp::GB0 * 4) + align256(DX_BLOCKS * mlp::G_FEATS * 4LL) + 2 * align256(n * 8 * 4);
+         align256(DW_SPLITS * mlp::GB0 * 4) + align256(DX_BLOCKS * mlp::G_FEATS * 4LL) +
+         (composite ? 2 * align256(n * 8 * 4) : 0);
 }
 
-inline Workspace carve(void* base, long long n) {
+inline Workspace carve(void* base, long long n, bool composite) {
   const long long npad = padded_rows(n);
   char* p = static_cast<char*>(base);
   Workspace ws{};
@@ -1220,9 +1232,11 @@ inline Workspace carve(void* base, long long n) {
   p += align256(DW_SPLITS * mlp::GB0 * 4);
   ws.db_part = reinterpret_cast<float*>(p);
   p += align256(DX_BLOCKS * mlp::G_FEATS * 4LL);
-  ws.raw = reinterpret_cast<float*>(p);
-  p += align256(n * 8 * 4);
-  ws.g8 = reinterpret_cast<float*>(p);
+  if (composite) {
+    ws.raw = reinterpret_cast<float*>(p);
+    p += align256(n * 8 * 4);
+    ws.g8 = reinterpret_cast<float*>(p);
+  }
   return ws;
 }
 

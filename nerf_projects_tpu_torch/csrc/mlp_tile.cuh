@@ -1,6 +1,9 @@
-// Shared device code of the fused NeRF MLP kernels for Hopper (sm_90a):
-// fused_mlp_fwd.cu (K1f), fused_mlp_bwd.cu (K1b), fused_train.cu (K2),
-// fused_mlp_raw_fwd.cu and fused_mlp_raw_bwd.cu (K1rf, K1rb).
+// The mma.sync tile of the fused NeRF MLP for Hopper (sm_90a): the
+// weight-gradient backward fused_mlp_bwd.cu (K1b) runs on it, and the
+// NeRF-SH trunk (fused_sh_tile.cuh, K5) on its GEMM and stash code. Its
+// weight and gradient layouts, stash feature map, encoder (encode_col) and
+// fixed-order reduce are shared with the wgmma core (mlp_sm90.cuh), which
+// runs K1f, K1rf, K1rb and K2.
 //
 // The MLP is the 8x256 viewdirs NeRF MLP of models/nerf.py: trunk_0..7
 // with the [x, h] concat after trunk_4's relu, the sigma head, the
@@ -315,7 +318,8 @@ __device__ __forceinline__ void load_input(bf16* act, const float* src, long lon
 
 // Block-layout positional encoding of column c of a point p (3 live):
 // [p(3), sin(2^f p) f<F, sin(2^f p + pi/2) f<F], zero past 3 + 6F
-// (ops/pallas/fused_mlp.py::_encode_tile).
+// (ops/pallas/fused_mlp.py::_encode_tile). The wgmma core's raw input
+// mode encodes with it.
 __device__ __forceinline__ float encode_col(const float* p, int c, int n_freqs) {
   if (c < 3) return p[c];
   const int k = c - 3;
@@ -328,126 +332,63 @@ __device__ __forceinline__ float encode_col(const float* p, int c, int n_freqs) 
   return 0.f;
 }
 
-// Raw points (K2, K1r): x_raw [n, 8] (xyz 0..2) -> encoded columns 0..63.
-__device__ __forceinline__ void encode_points(bf16* act, const float* x, long long row_base,
-                                              long long n) {
-  for (int i = threadIdx.x; i < BM * 64; i += THREADS) {
-    const int r = i / 64, c = i % 64;
-    float val = 0.f;
-    if (row_base + r < n) val = encode_col(x + (row_base + r) * 8, c, 10);
-    act[r * AS + COL_X + c] = __float2bfloat16_rn(val);
-  }
-}
-
-// K2's per-ray view inputs: row -> ray = row / S -> vt[ray / R][ray % R];
-// raw [.., 8] (direction 0..2) is encoded with 4 frequencies, encoded
-// [.., 32] is read as is; columns from 27 on are zero either way. With
-// S = 1 and R = 8, vt is a per-row [n, 8] or [n, 32] array (K1r).
-template <bool RAW>
-__device__ __forceinline__ void load_views(bf16* act, const float* vt, long long row_base,
-                                           long long n, int S, int R) {
-  constexpr int VTC = RAW ? 8 : 32;
-  for (int i = threadIdx.x; i < BM * 32; i += THREADS) {
-    const int r = i / 32, c = i % 32;
-    float val = 0.f;
-    const long long row = row_base + r;
-    if (row < n && c < 27) {
-      const long long ray = row / S;
-      const float* vrow = vt + ((ray / R) * 8 + ray % R) * VTC;
-      val = RAW ? encode_col(vrow, c, 4) : vrow[c];
-    }
-    act[r * AS + COL_V + c] = __float2bfloat16_rn(val);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Forward
 // ---------------------------------------------------------------------------
 
 // The forward of one 64-row tile whose inputs are in act (x columns 0..63,
-// v 320..351, synchronised). out: null or [n, 8] float32 (columns 0..3
-// rgb head, 4..7 sigma head). stash: null or the activation stash.
+// v 320..351, synchronised), writing every activation the backward reads
+// (x, a0..a7, bottleneck, v, hv) to the activation stash; the heads'
+// outputs are not needed there and not computed.
 __device__ __forceinline__ void forward_tile(bf16* act, bf16* wbuf, const bf16* w,
-                                             long long row_base, long long n, float* out,
-                                             bf16* stash, long long ld) {
-  if (stash) {
-    stash_cols(act, AS, COL_X, 64, stash, A_X, ld, row_base);
-    stash_cols(act, AS, COL_V, 32, stash, A_V, ld, row_base);
-  }
+                                             long long row_base, bf16* stash, long long ld) {
+  stash_cols(act, AS, COL_X, 64, stash, A_X, ld, row_base);
+  stash_cols(act, AS, COL_V, 32, stash, A_V, ld, row_base);
   dense_layer<256, true>(act, wbuf, w + OFF_W0, w + OFF_B, 64, COL_X, COL_H);
-  if (stash) stash_cols(act, AS, COL_H, 256, stash, A_TRUNK, ld, row_base);
+  stash_cols(act, AS, COL_H, 256, stash, A_TRUNK, ld, row_base);
   for (int l = 1; l <= 4; ++l) {
     dense_layer<256, true>(act, wbuf, w + OFF_W1 + (l - 1) * 256 * 256, w + OFF_B + l * 256,
                            256, COL_H, COL_H);
-    if (stash) stash_cols(act, AS, COL_H, 256, stash, A_TRUNK + l * 256, ld, row_base);
+    stash_cols(act, AS, COL_H, 256, stash, A_TRUNK + l * 256, ld, row_base);
   }
   // trunk_5 reads [x | h4], columns 0..319
   dense_layer<256, true>(act, wbuf, w + OFF_W5, w + OFF_B + 5 * 256, 320, COL_X, COL_H);
-  if (stash) stash_cols(act, AS, COL_H, 256, stash, A_TRUNK + 5 * 256, ld, row_base);
+  stash_cols(act, AS, COL_H, 256, stash, A_TRUNK + 5 * 256, ld, row_base);
   for (int l = 6; l <= 7; ++l) {
     dense_layer<256, true>(act, wbuf, w + OFF_W6 + (l - 6) * 256 * 256, w + OFF_B + l * 256,
                            256, COL_H, COL_H);
-    if (stash) stash_cols(act, AS, COL_H, 256, stash, A_TRUNK + l * 256, ld, row_base);
+    stash_cols(act, AS, COL_H, 256, stash, A_TRUNK + l * 256, ld, row_base);
   }
-
-  // four threads per row; thread j computes column j of each head
-  const int r = threadIdx.x >> 2, j = threadIdx.x & 3;
-  const float sig = dot_bf16(act + r * AS + COL_H, w + OFF_WSIG + j * 256, 256) +
-                    bf(w[OFF_BSIG + j]);
   dense_layer<256, false>(act, wbuf, w + OFF_WB, w + OFF_BB, 256, COL_H, COL_H);
-  if (stash) stash_cols(act, AS, COL_H, 256, stash, A_BNECK, ld, row_base);
+  stash_cols(act, AS, COL_H, 256, stash, A_BNECK, ld, row_base);
   // view layer reads [bottleneck | v], columns 64..351
   dense_layer<128, true>(act, wbuf, w + OFF_WV, w + OFF_BV, 288, COL_H, COL_H);
-  if (stash) stash_cols(act, AS, COL_H, 128, stash, A_HV, ld, row_base);
-  const float rgb = dot_bf16(act + r * AS + COL_H, w + OFF_WRGB + j * 128, 128) +
-                    bf(w[OFF_BRGB + j]);
-  if (out && row_base + r < n) {
-    out[(row_base + r) * 8 + j] = rgb;
-    out[(row_base + r) * 8 + 4 + j] = sig;
-  }
+  stash_cols(act, AS, COL_H, 128, stash, A_HV, ld, row_base);
 }
 
-enum InMode { IN_ENCODED = 0, IN_TRAIN_RAW = 1, IN_TRAIN_ENC = 2 };
-
-// IN_ENCODED: x [n, 64], v [n, 32] float32 per row. IN_TRAIN_RAW: x [n, 8]
-// raw points, v = vt [T, 8, 8] (per row at S = 1, R = 8: K1r). IN_TRAIN_ENC:
-// x [n, 64], v = vt [T, 8, 32].
-template <int MODE>
+// x [n, 64], v [n, 32] float32 per row -> the activation stash (row stride
+// ld).
 __global__ void __launch_bounds__(THREADS, 2)
     mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ v,
-                   const bf16* __restrict__ w, float* __restrict__ out, long long n,
-                   bf16* __restrict__ stash, long long ld, int S, int R) {
+                   const bf16* __restrict__ w, long long n, bf16* __restrict__ stash, long long ld) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* act = reinterpret_cast<bf16*>(smem_raw);
   bf16* wbuf = act + BM * AS;
   const long long row_base = static_cast<long long>(blockIdx.x) * BM;
-
-  if (MODE == IN_TRAIN_RAW) {
-    encode_points(act, x, row_base, n);
-    load_views<true>(act, v, row_base, n, S, R);
-  } else {
-    load_input<64>(act, x, row_base, n, COL_X);
-    if (MODE == IN_ENCODED) {
-      load_input<32>(act, v, row_base, n, COL_V);
-    } else {
-      load_views<false>(act, v, row_base, n, S, R);
-    }
-  }
+  load_input<64>(act, x, row_base, n, COL_X);
+  load_input<32>(act, v, row_base, n, COL_V);
   __syncthreads();
-  forward_tile(act, wbuf, w, row_base, n, out, stash, ld);
+  forward_tile(act, wbuf, w, row_base, stash, ld);
 }
 
-template <int MODE>
-inline cudaError_t launch_forward(const float* x, const float* v, const bf16* w, float* out,
-                                  long long n, bf16* stash, long long ld, int S, int R,
-                                  cudaStream_t stream) {
+inline cudaError_t launch_forward(const float* x, const float* v, const bf16* w, long long n,
+                                  bf16* stash, long long ld, cudaStream_t stream) {
   const long long blocks = (n + BM - 1) / BM;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_fwd_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM_BYTES);
+  cudaError_t err = cudaFuncSetAttribute(mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         FWD_SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  mlp_fwd_kernel<MODE><<<static_cast<unsigned>(blocks), THREADS, FWD_SMEM_BYTES, stream>>>(
-      x, v, w, out, n, stash, ld, S, R);
+  mlp_fwd_kernel<<<static_cast<unsigned>(blocks), THREADS, FWD_SMEM_BYTES, stream>>>(x, v, w, n, stash, ld);
   return cudaGetLastError();
 }
 
@@ -782,19 +723,15 @@ struct Workspace {
   bf16* G;        // [G_FEATS][npad]
   float* part;    // [splits][GB0]
   float* db_part; // [DX_MAX_BLOCKS][G_FEATS]
-  float* raw;     // [n, 8] (train only)
-  float* g8;      // [n, 8] (train only)
 };
 
-inline long long workspace_bytes(long long n, bool train) {
+inline long long workspace_bytes(long long n) {
   const long long npad = padded_rows(n);
-  long long b = align256(A_FEATS * npad * 2) + align256(G_FEATS * npad * 2) +
-                align256(max_splits(npad) * GB0 * 4) + align256(DX_MAX_BLOCKS * G_FEATS * 4LL);
-  if (train) b += 2 * align256(n * 8 * 4);
-  return b;
+  return align256(A_FEATS * npad * 2) + align256(G_FEATS * npad * 2) +
+         align256(max_splits(npad) * GB0 * 4) + align256(DX_MAX_BLOCKS * G_FEATS * 4LL);
 }
 
-inline Workspace carve(void* base, long long n, bool train) {
+inline Workspace carve(void* base, long long n) {
   const long long npad = padded_rows(n);
   char* p = static_cast<char*>(base);
   Workspace ws{};
@@ -805,12 +742,6 @@ inline Workspace carve(void* base, long long n, bool train) {
   ws.part = reinterpret_cast<float*>(p);
   p += align256(max_splits(npad) * GB0 * 4);
   ws.db_part = reinterpret_cast<float*>(p);
-  p += align256(DX_MAX_BLOCKS * G_FEATS * 4LL);
-  if (train) {
-    ws.raw = reinterpret_cast<float*>(p);
-    p += align256(n * 8 * 4);
-    ws.g8 = reinterpret_cast<float*>(p);
-  }
   return ws;
 }
 

@@ -10,22 +10,25 @@ heads to 128 columns; weights and biases are bf16.
 Kernels (CUDA C++ for sm_90a under ``csrc/``, built with nvcc and loaded
 with ctypes), each with a launch counter and its plain PyTorch version:
 
-- ``fused_mlp_fwd`` (``csrc/fused_mlp_fwd.cu``, K1f) over the flat weight
-  buffer of ``kernel_weights``; plain: ``fused_nerf_mlp_reference`` over
-  ``pack_params``.
+- ``fused_mlp_fwd`` (``csrc/fused_mlp_fwd.cu``, K1f) on the wgmma core
+  (``csrc/mlp_sm90.cuh``) over ``kernel_weights_sm90(model)``; plain:
+  ``fused_nerf_mlp_reference`` over ``pack_params``.
 - ``fused_mlp_bwd`` (``csrc/fused_mlp_bwd.cu``, K1b): the 24 padded
   weight gradients from the inputs and the output gradient, recomputing
-  the forward; plain: ``fused_mlp_bwd_reference`` over
-  ``mlp_backward_reference``, with the same bf16 rounding points.
+  the forward, on the mma.sync tile (``csrc/mlp_tile.cuh``) over
+  ``kernel_weights(model)`` and ``kernel_weights_bwd(model)``; plain:
+  ``fused_mlp_bwd_reference`` over ``mlp_backward_reference``, with the
+  same bf16 rounding points.
 - ``fused_mlp_raw_fwd`` / ``fused_mlp_raw_bwd`` (``csrc/fused_mlp_raw_fwd.cu``
   and ``fused_mlp_raw_bwd.cu``, K1rf and K1rb): K1f and K1b on raw points
   and view directions [N, 8] (3 live), encoded in the kernel
-  (``_encode_tile``: 10 and 4 frequencies, block layout); plain:
+  (``_encode_tile``: 10 and 4 frequencies, block layout), both on the
+  wgmma core over ``kernel_weights_sm90(model, raw_layout=True)``, K1rb's
+  dX products over ``kernel_weights_sm90_bwd(model)``; plain:
   ``fused_nerf_mlp_raw_reference`` and ``fused_mlp_raw_bwd_reference``.
-  K1rb reads ``kernel_weights(model, raw_layout=True)``; K1rf runs on the
-  wgmma core (``csrc/mlp_sm90.cuh``) over
-  ``kernel_weights_sm90(model, raw_layout=True)``, and its library's
-  ``fused_mlp_raw_fwd_encoded`` runs that core on encodings.
+
+``forward_weights`` / ``backward_weights`` say which buffers each route's
+kernels take.
 
 ``fused_nerf_mlp`` / ``fused_apply`` (encodings) and ``fused_nerf_mlp_raw``
 / ``fused_apply_raw`` (raw points) take a ``NeRFMLP`` and are
@@ -620,11 +623,9 @@ _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 @functools.lru_cache(maxsize=None)
 def _fwd_library(name: str):
-    """``csrc/<name>.cu`` of a forward kernel (K1f, K1rf; K1rf's library also
-    holds ``fused_mlp_raw_fwd_encoded``)."""
-    entries = (name, f"{name}_encoded") if name == "fused_mlp_raw_fwd" else (name,)
+    """``csrc/<name>.cu`` of a forward kernel (K1f, K1rf)."""
     return load_library(name, {
-        **{e: ([_VP, _VP, _VP, _VP, _LL, _VP], _INT) for e in entries},
+        name: ([_VP, _VP, _VP, _VP, _LL, _VP], _INT),
         f"{name}_weight_elems": ([], _LL),
         f"{name}_error_string": ([_INT], ctypes.c_char_p),
     })
@@ -658,26 +659,25 @@ def current_stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch_fwd(launcher, wk, x, v, x_cols: int, v_cols: int, library: str = "") -> torch.Tensor:
+def _launch_fwd(launcher, wk, x, v, x_cols: int, v_cols: int) -> torch.Tensor:
     """The body of a forward launcher (``fused_mlp_fwd``, ``fused_mlp_raw_fwd``,
-    whose name is its library's, or an entry of ``library``): checks, out
-    [N, 8] float32, the launch, and one more on ``launcher.launches``."""
+    whose name is its library's): checks, out [N, 8] float32, the launch,
+    and one more on ``launcher.launches``."""
     name = launcher.__name__
-    library = library or name
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on a CUDA device, got {x.device}")
-    lib = _fwd_library(library)
+    lib = _fwd_library(name)
     n, dev = x.shape[0], x.device
     check_tensor(x, "x", torch.float32, (n, x_cols), dev)
     check_tensor(v, "v", torch.float32, (n, v_cols), dev)
-    check_tensor(wk, "weights", torch.bfloat16, (getattr(lib, f"{library}_weight_elems")(),), dev)
+    check_tensor(wk, "weights", torch.bfloat16, (getattr(lib, f"{name}_weight_elems")(),), dev)
     out = torch.empty((n, 8), dtype=torch.float32, device=dev)
     if n == 0:
         return out
     with torch.cuda.device(dev):
         rc = getattr(lib, name)(x.data_ptr(), v.data_ptr(), wk.data_ptr(), out.data_ptr(), n, current_stream(dev))
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: {getattr(lib, f'{library}_error_string')(rc).decode()}")
+        raise RuntimeError(f"{name} launch failed: {getattr(lib, f'{name}_error_string')(rc).decode()}")
     launcher.launches += 1
     return out
 
@@ -710,9 +710,10 @@ def _launch_bwd(launcher, wk, wkt, x, v, g, x_cols: int, v_cols: int) -> FusedML
 
 
 def fused_mlp_fwd(wk: torch.Tensor, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Launch the forward kernel (K1f): wk a ``kernel_weights`` buffer,
-    x [N, 64] and v [N, 32] float32 on one card -> [N, 8] float32. Any
-    N >= 0."""
+    """Launch the forward kernel (K1f): wk a ``kernel_weights_sm90(model)``
+    buffer (with ``raw_layout=True``, over ``_encode_raw``'s encodings, it
+    gives K1rf's output bit for bit), x [N, 64] and v [N, 32] float32 on
+    one card -> [N, 8] float32. Any N >= 0."""
     return _launch_fwd(fused_mlp_fwd, wk, x, v, 64, 32)
 
 
@@ -732,25 +733,35 @@ def fused_mlp_raw_fwd(wk: torch.Tensor, p: torch.Tensor, v: torch.Tensor) -> tor
     return _launch_fwd(fused_mlp_raw_fwd, wk, p, v, 8, 8)
 
 
-def fused_mlp_raw_fwd_encoded(wk: torch.Tensor, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """K1rf's core on encodings x [N, 64] and v [N, 32] float32 (the probe
-    entry of ``csrc/fused_mlp_raw_fwd.cu``; its launches are its own, not
-    K1rf's): on ``_encode_raw``'s encodings it gives K1rf's output bit for
-    bit. wk as ``fused_mlp_raw_fwd`` takes it."""
-    return _launch_fwd(fused_mlp_raw_fwd_encoded, wk, x, v, 64, 32, library="fused_mlp_raw_fwd")
-
-
 def fused_mlp_raw_bwd(wk: torch.Tensor, wkt: torch.Tensor, p: torch.Tensor, v: torch.Tensor,
                       g: torch.Tensor) -> FusedMLPWeights:
-    """Launch K1rb: wk / wkt the ``kernel_weights(model, raw_layout=True)``
-    / ``kernel_weights_bwd(model)`` buffers, p and v [N, 8] raw inputs and
-    the output gradient g [N, 8] float32 on one card -> the padded float32
-    weight gradients in the raw layout. Any N >= 0."""
+    """Launch K1rb: wk / wkt the ``kernel_weights_sm90(model,
+    raw_layout=True)`` / ``kernel_weights_sm90_bwd(model)`` buffers, p and v
+    [N, 8] raw inputs and the output gradient g [N, 8] float32 (all eight
+    columns read) on one card -> the padded float32 weight gradients in the
+    raw layout. Any N >= 0."""
     return _launch_bwd(fused_mlp_raw_bwd, wk, wkt, p, v, g, 8, 8)
 
 
 fused_mlp_fwd.launches = fused_mlp_bwd.launches = 0
-fused_mlp_raw_fwd.launches = fused_mlp_raw_bwd.launches = fused_mlp_raw_fwd_encoded.launches = 0
+fused_mlp_raw_fwd.launches = fused_mlp_raw_bwd.launches = 0
+
+
+def forward_weights(model: NeRFMLP, raw: bool) -> torch.Tensor:
+    """The buffer a route's forward kernel takes: K1f's (the model's layout)
+    or, with ``raw``, K1rf's (the block layout of the in-kernel encoder),
+    both on the wgmma core."""
+    return kernel_weights_sm90(model, raw_layout=raw)
+
+
+def backward_weights(model: NeRFMLP, raw: bool, wk: torch.Tensor) -> tuple:
+    """The (forward, dX) buffers a route's weight-gradient kernel takes,
+    given ``wk`` from ``forward_weights``: K1rb reuses K1rf's gather; K1b is
+    still on mlp_tile.cuh's tile and gathers its own layouts, a second
+    gather that ends when K1b moves onto the wgmma core (ROADMAP 11c)."""
+    if raw:
+        return wk, kernel_weights_sm90_bwd(model)
+    return kernel_weights(model), kernel_weights_bwd(model)
 
 
 class _FusedNeRFMLP(torch.autograd.Function):
@@ -764,11 +775,8 @@ class _FusedNeRFMLP(torch.autograd.Function):
         ctx.model, ctx.raw = model, raw
         ctx.save_for_backward(x, v)
         if x.device.type == "cuda":
-            if raw:  # K1rf runs on the wgmma core's buffer, K1rb on kernel_weights'
-                ctx.wk = None
-                return fused_mlp_raw_fwd(kernel_weights_sm90(model, raw_layout=True), x, v)
-            ctx.wk = kernel_weights(model)  # the backward reuses the forward's buffer
-            return fused_mlp_fwd(ctx.wk, x, v)
+            ctx.wk = forward_weights(model, raw)
+            return (fused_mlp_raw_fwd if raw else fused_mlp_fwd)(ctx.wk, x, v)
         plain = fused_nerf_mlp_raw_reference if raw else fused_nerf_mlp_reference
         return plain(pack_params(model, raw_layout=raw), x, v)
 
@@ -778,10 +786,7 @@ class _FusedNeRFMLP(torch.autograd.Function):
         model, raw = ctx.model, ctx.raw
         g = g.float().contiguous()
         if x.device.type == "cuda":
-            # the dX products' weights have no raw layout: they take trunk_5's
-            # h rows and view_0's bottleneck rows, never the permuted input rows
-            wk = kernel_weights(model, raw_layout=True) if raw else ctx.wk
-            grads = (fused_mlp_raw_bwd if raw else fused_mlp_bwd)(wk, kernel_weights_bwd(model), x, v, g)
+            grads = (fused_mlp_raw_bwd if raw else fused_mlp_bwd)(*backward_weights(model, raw, ctx.wk), x, v, g)
         else:
             plain = fused_mlp_raw_bwd_reference if raw else fused_mlp_bwd_reference
             grads = plain(pack_params(model, raw_layout=raw), x, v, g)

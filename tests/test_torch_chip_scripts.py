@@ -1,7 +1,8 @@
 """The card scripts' catalogues against the code they name (CPU): each
 chip_mutants.py mutant's original text occurs exactly once in its file, so
-a mutant cannot go stale when code moves; every chip_smoke.py function
-that a chip_paired.sh mode calls exists."""
+a mutant cannot go stale when code moves, and the phases it must fail are
+ones chip_mutants.py runs; every chip_smoke.py function that a
+chip_paired.sh mode or a mutant phase calls exists."""
 import re
 from pathlib import Path
 
@@ -22,6 +23,22 @@ def test_mutant_original_occurs_once(label):
     assert old != new and phases
 
 
+PHASES = re.findall(r'"(\w+)": lambda: c\.(\w+)\(', chip_mutants.PHASES)
+
+
+@pytest.mark.parametrize("label", list(chip_mutants.MUTANTS))
+def test_mutant_phases_are_runnable(label):
+    """Each phase a mutant must fail is one chip_mutants.py can run."""
+    phases = chip_mutants.MUTANTS[label][3]
+    assert set(phases) <= {name for name, _ in PHASES}, label
+
+
+def test_mutant_phases_call_existing_functions():
+    assert PHASES
+    for name, fn in PHASES:
+        assert callable(getattr(chip_smoke, fn, None)), (name, fn)
+
+
 def test_paired_modes_are_the_known_ones():
     assert set(MODES) == {"plenoxels", "plenoxels+train", "mlp", "*"}
 
@@ -32,3 +49,11 @@ def test_paired_mode_calls_existing_phases(mode):
     assert names, mode
     for name in names:
         assert callable(getattr(chip_smoke, name, None)), (mode, name)
+
+
+def test_chip_probes_refuse_without_a_card(monkeypatch):
+    """chip_probes.py, like chip_smoke.py, exits non-zero with no card."""
+    import chip_probes
+
+    monkeypatch.setattr(chip_probes.torch.cuda, "is_available", lambda: False)
+    assert chip_probes.main() == 1

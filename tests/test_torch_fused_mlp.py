@@ -158,9 +158,13 @@ def test_fused_apply_on_cpu_runs_the_plain_version(full_width):
     assert tfm.fused_mlp_fwd.launches == before
 
 
-def test_fused_mlp_fwd_refuses_host_tensors(full_width):
+@pytest.mark.parametrize("raw_layout", [False, True], ids=["model_layout", "raw_layout"])
+def test_fused_mlp_fwd_refuses_host_tensors(full_width, raw_layout):
+    """K1f raises on host tensors over the encoded route's buffer and over
+    K1rf's (the raw layout, on which the card's check holds the in-kernel
+    encoder to the host's)."""
     _, model = full_width
-    wk = tfm.kernel_weights(model)
+    wk = tfm.kernel_weights_sm90(model, raw_layout=raw_layout)
     with pytest.raises(ValueError, match="CUDA"):
         tfm.fused_mlp_fwd(wk, torch.zeros(8, 64), torch.zeros(8, 32))
 
@@ -416,8 +420,25 @@ def test_build_hash_tracks_included_headers(tmp_path):
     assert _build.digest("a", tmp_path) != before
     for name in ("fused_mlp_fwd", "fused_mlp_bwd", "fused_train"):
         assert "mlp_tile.cuh" in [p.name for p in _build.sources(name)]
-    for name in ("fused_train", "fused_mlp_raw_fwd"):
-        assert [p.name for p in _build.sources(name)][1:] == ["mlp_sm90.cuh", "mlp_tile.cuh"]
+
+
+@pytest.mark.parametrize("name", ["fused_mlp_fwd", "fused_train", "fused_mlp_raw_fwd", "fused_mlp_raw_bwd"])
+def test_wgmma_kernels_build_over_the_core(name):
+    """K1f, K2, K1rf and K1rb include the wgmma core over the tile's
+    layouts, so an edit to either rebuilds them."""
+    from nerf_projects_tpu_torch.ops.kernels import _build
+
+    assert [p.name for p in _build.sources(name)] == [f"{name}.cu", "mlp_sm90.cuh", "mlp_tile.cuh"]
+
+
+@pytest.mark.parametrize("name", ["fused_mlp_bwd", "fused_sh_fwd", "fused_sh_bwd"])
+def test_tile_kernels_do_not_build_over_the_core(name):
+    """K1b and K5 stay on the mma.sync tile: the core is not in their
+    sources."""
+    from nerf_projects_tpu_torch.ops.kernels import _build
+
+    names = [p.name for p in _build.sources(name)]
+    assert "mlp_tile.cuh" in names and "mlp_sm90.cuh" not in names
 
 
 # ---------------------------------------------------------------------------
@@ -543,8 +564,56 @@ def test_sm90_bwd_weights_unpack_to_the_linear_weights(full_width):
     assert at == wkt.numel()
 
 
-def test_fused_mlp_raw_fwd_encoded_refuses_host_tensors(full_width):
+# (C interface, entry, constant of csrc/mlp_sm90.cuh or mlp_tile.cuh, the
+# buffer the route hands it: forward, dX or gradients)
+_SM90_ENTRIES = [
+    ("fused_mlp_fwd", "weight_elems", "SW_WEIGHTS", "encoded forward"),
+    ("fused_mlp_raw_fwd", "weight_elems", "SW_WEIGHTS", "raw forward"),
+    ("fused_mlp_raw_bwd", "weight_elems", "SW_WEIGHTS", "raw backward"),
+    ("fused_mlp_raw_bwd", "weight_t_elems", "SWT_WEIGHTS", "raw dX"),
+    ("fused_mlp_raw_bwd", "grad_elems", "GRAD_ELEMS", "gradients"),
+]
+
+
+@pytest.mark.parametrize("lib, entry, const, buffer", _SM90_ENTRIES)
+def test_wgmma_kernels_report_the_sm90_buffer_sizes(full_width, lib, entry, const, buffer):
+    """K1f's, K1rf's and K1rb's C interfaces report the wgmma core's
+    buffer sizes, and those are the sizes of the buffers the routes hand
+    them (forward_weights / backward_weights)."""
     _, model = full_width
-    x, v = torch.zeros(8, 64), torch.zeros(8, 32)
-    with pytest.raises(ValueError, match="CUDA"):
-        tfm.fused_mlp_raw_fwd_encoded(tfm.kernel_weights_sm90(model, raw_layout=True), x, v)
+    src = (Path(tfm.__file__).resolve().parents[2] / "csrc" / f"{lib}.cu").read_text()
+    ret = re.search(rf"long long {lib}_{entry}\(\) {{ return ([\w:]+); }}", src).group(1)
+    assert ret.split("::")[-1] == const
+    enc = tfm.forward_weights(model, raw=False)
+    raw = tfm.forward_weights(model, raw=True)
+    raw_bwd = tfm.backward_weights(model, True, raw)
+    numel = {"encoded forward": enc.numel(), "raw forward": raw.numel(), "raw backward": raw_bwd[0].numel(),
+             "raw dX": raw_bwd[1].numel(), "gradients": tfm.GRAD_ELEMS}[buffer]
+    assert _sm90_constants()[const] == numel
+
+
+def test_raw_route_draws_both_kernels_from_one_gather(full_width, monkeypatch):
+    """The raw route gathers K1rf's raw-layout buffer once; K1rb's
+    backward reuses it and gathers only the dX buffer."""
+    _, model = full_width
+    calls, real = [], tfm.gather_weights
+    monkeypatch.setattr(tfm, "gather_weights", lambda m, layout, build: calls.append(layout) or real(m, layout, build))
+    wk = tfm.forward_weights(model, raw=True)
+    fwd, wkt = tfm.backward_weights(model, True, wk)
+    assert fwd is wk
+    assert calls == [("fused_mlp_sm90", True), ("fused_mlp_sm90_bwd",)]
+    monkeypatch.undo()
+    torch.testing.assert_close(wk, tfm.kernel_weights_sm90(model, raw_layout=True), rtol=0, atol=0)
+    torch.testing.assert_close(wkt, tfm.kernel_weights_sm90_bwd(model), rtol=0, atol=0)
+
+
+def test_encoded_route_hands_k1f_the_model_layout(full_width):
+    """The encoded route's K1f takes the wgmma core's buffer in the
+    model's layout; K1b, still on the tile, takes the tile's two buffers."""
+    _, model = full_width
+    wk = tfm.forward_weights(model, raw=False)
+    torch.testing.assert_close(wk, tfm.kernel_weights_sm90(model), rtol=0, atol=0)
+    assert not torch.equal(wk, tfm.kernel_weights_sm90(model, raw_layout=True))
+    fwd, wkt = tfm.backward_weights(model, False, wk)
+    torch.testing.assert_close(fwd, tfm.kernel_weights(model), rtol=0, atol=0)
+    torch.testing.assert_close(wkt, tfm.kernel_weights_bwd(model), rtol=0, atol=0)

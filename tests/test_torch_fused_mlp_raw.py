@@ -176,24 +176,25 @@ def test_fused_apply_raw_carries_no_raw_points_tag():
 def test_fused_mlp_raw_fwd_refuses_host_tensors(full_width):
     _, model = full_width
     with pytest.raises(ValueError, match="CUDA"):
-        tfm.fused_mlp_raw_fwd(tfm.kernel_weights(model, raw_layout=True), torch.zeros(8, 8), torch.zeros(8, 8))
+        tfm.fused_mlp_raw_fwd(tfm.forward_weights(model, raw=True), torch.zeros(8, 8), torch.zeros(8, 8))
 
 
 def test_fused_mlp_raw_bwd_refuses_host_tensors(full_width):
     _, model = full_width
     with pytest.raises(ValueError, match="CUDA"):
-        tfm.fused_mlp_raw_bwd(tfm.kernel_weights(model, raw_layout=True), tfm.kernel_weights_bwd(model),
+        tfm.fused_mlp_raw_bwd(*tfm.backward_weights(model, True, tfm.forward_weights(model, raw=True)),
                               torch.zeros(8, 8), torch.zeros(8, 8), torch.zeros(8, 8))
 
 
 def test_raw_kernels_build_over_the_shared_tile():
-    """K1rf includes the wgmma core over the MLP tile, K1rb the tile, so an
-    edit to either rebuilds the kernels that use it."""
+    """K1rf and K1rb include the wgmma core over the MLP tile, so an edit
+    to either rebuilds both."""
     from nerf_projects_tpu_torch.ops.kernels import _build
 
     assert [p.name for p in _build.sources("fused_mlp_raw_fwd")] == [
         "fused_mlp_raw_fwd.cu", "mlp_sm90.cuh", "mlp_tile.cuh"]
-    assert [p.name for p in _build.sources("fused_mlp_raw_bwd")] == ["fused_mlp_raw_bwd.cu", "mlp_tile.cuh"]
+    assert [p.name for p in _build.sources("fused_mlp_raw_bwd")] == [
+        "fused_mlp_raw_bwd.cu", "mlp_sm90.cuh", "mlp_tile.cuh"]
 
 
 def _sm90_forward(wk, x, v):
