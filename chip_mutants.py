@@ -9,10 +9,12 @@ render, the raw-points training step) on the copy; each must fail. K3's
 mutants include its empty-space skip (the reach rule without the
 upper-neighbour bricks) and its cache of a brick's link rows (kept when
 the lower corner crosses into another brick along y or z); the wgmma
-core's (mlp_sm90.cuh: K1f, K1rf, K1rb and K2) include the concat, the
-relu mask, the stage ring, the dW jobs, the view encoder, the encoding
-stash, K1rb's forward without its per-slab promotion and K1f handed the
-raw layout's buffer. Run from the repository root:
+core's (mlp_sm90.cuh: K1f, K1b, K1rf, K1rb, K2 and K5f) include the
+concat, the relu mask, the stage ring, the dW jobs, the view encoder, the
+encoding stash, K1rb's and K1b's forwards without their per-slab
+promotion, K1f handed the raw layout's buffer and K5f's two heads; K5b's
+(mma.sync tile) its dW table, encoding stash and split-K reduce. Run from
+the repository root:
 
     python3 chip_mutants.py
 
@@ -30,11 +32,11 @@ import tempfile
 # label: (file, original text, mutant text, phases that must fail); the
 # phases are those that run the mutated line
 MUTANTS = {
-    "w5's h rows read a3 instead of a4 in the dW table": (
-        "nerf_projects_tpu_torch/csrc/mlp_tile.cuh",
+    "w5's h rows read a3 instead of a4 in K5b's dW table": (
+        "nerf_projects_tpu_torch/csrc/fused_sh_bwd.cu",
         "{A_TRUNK + 4 * 256, 256, G_TRUNK + 5 * 256",
         "{A_TRUNK + 3 * 256, 256, G_TRUNK + 5 * 256",
-        ("fused_mlp_bwd",),
+        ("kernel_sh",),
     ),
     "w5's h rows read a3 instead of a4 in the wgmma core's dW jobs": (
         "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
@@ -42,25 +44,31 @@ MUTANTS = {
         "A_TRUNK + 4 * 256 + 192};",
         "const int feats[5] = {A_X, A_TRUNK + 3 * 256, A_TRUNK + 3 * 256 + 64, A_TRUNK + 3 * 256 + 128, "
         "A_TRUNK + 3 * 256 + 192};",
-        ("kernel_raw", "fused_train_level"),
+        ("kernel_raw", "fused_train_level", "fused_mlp_bwd"),
     ),
     "trunk_5's x columns dropped from the [x | h4] concat in the wgmma core": (
         "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
         "return kb < 4 ? xf(kb) : frag_of(a, kb - 4);",
         "return kb < 4 ? Frag{{0u, 0u, 0u, 0u}} : frag_of(a, kb - 4);",
-        ("kernel_raw", "fused_train_level"),
+        ("kernel_raw", "fused_train_level", "fused_mlp_bwd", "kernel_sh"),
     ),
     "the dX relu mask taken from the layer above in the wgmma core": (
         "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
         "grad(mlp::A_TRUNK + l * 256), ring, j);",
         "grad(mlp::A_TRUNK + (l + 1) * 256), ring, j);",
-        ("kernel_raw", "fused_train_level"),
+        ("kernel_raw", "fused_train_level", "fused_mlp_bwd"),
     ),
     "K1rb's recomputed forward without its per-slab promotion": (
         "nerf_projects_tpu_torch/csrc/fused_mlp_raw_bwd.cu",
         "sm90::launch_forward<sm90::IN_TRAIN_RAW, true>(",
         "sm90::launch_forward<sm90::IN_TRAIN_RAW, false>(",
         ("kernel_raw",),
+    ),
+    "K1b's recomputed forward without its per-slab promotion": (
+        "nerf_projects_tpu_torch/csrc/fused_mlp_bwd.cu",
+        "sm90::launch_forward<sm90::IN_ENCODED, true>(",
+        "sm90::launch_forward<sm90::IN_ENCODED, false>(",
+        ("fused_mlp_bwd", "kernel_raw"),
     ),
     "K1f handed the raw layout's buffer by the encoded route": (
         "nerf_projects_tpu_torch/ops/kernels/fused_mlp.py",
@@ -72,7 +80,7 @@ MUTANTS = {
         "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
         "if (s * KD + kk * 16 < K) fr[kk] = af(s * KB + kk);",
         "if (s * KD + kk * 16 < K) fr[kk] = s == 1 ? Frag{{0u, 0u, 0u, 0u}} : af(s * KB + kk);",
-        ("kernel_raw", "fused_train_level"),
+        ("kernel_raw", "fused_train_level", "fused_mlp_bwd"),
     ),
     "inclusive instead of exclusive transmittance in the composite": (
         "nerf_projects_tpu_torch/csrc/fused_train.cu",
@@ -122,10 +130,16 @@ MUTANTS = {
         "w5=((d[5].weight[:, :256], 0), (d[5].weight[:, 256:], 256)),",
         ("kernel_sh",),
     ),
-    "K5f's coefficient head cut to its first 4 columns": (
-        "nerf_projects_tpu_torch/csrc/fused_sh_tile.cuh",
-        "const bool live0 = c < num_rgb, live1 = c + 1 < num_rgb;",
-        "const bool live0 = c < 4, live1 = c + 1 < 4;",
+    "K5f's coefficient head cut to its first 4 columns in the wgmma core": (
+        "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
+        "const bool live[2] = {c < num_rgb, c + 1 < num_rgb};",
+        "const bool live[2] = {c < 4, c + 1 < 4};",
+        ("kernel_sh",),
+    ),
+    "K5f's sigma taken from its head's column 1 (no weights) in the wgmma core": (
+        "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
+        "if (row_a + 8 * h < n) sig[row_a + 8 * h] = acc[2 * h] + b;",
+        "if (row_a + 8 * h < n) sig[row_a + 8 * h] = acc[2 * h + 1] + b;",
         ("kernel_sh",),
     ),
     "K5b's reduce skips the first split-K partial of dW": (
@@ -148,18 +162,18 @@ MUTANTS = {
         "          v1 = c + 1 < 27 ? mlp::encode_col(vrow[h], c + 1, 3) : 0.f;",
         ("kernel_raw", "fused_train_level"),
     ),
-    "the encoding stash (A_X) written as zeros": (
-        "nerf_projects_tpu_torch/csrc/mlp_tile.cuh",
-        "stash_cols(act, AS, COL_X, 64, stash, A_X, ld, row_base);",
+    "K5b's encoding stash (A_X) written as zeros": (
+        "nerf_projects_tpu_torch/csrc/fused_sh_tile.cuh",
+        "stash_cols(act, AS, COL_X, 64, stash, mlp::A_X, ld, row_base);",
         "for (int i = threadIdx.x; i < 64 * BM; i += THREADS) "
-        "stash[(A_X + i / BM) * ld + row_base + i % BM] = __float2bfloat16_rn(0.f);",
-        ("fused_mlp_bwd",),
+        "stash[(mlp::A_X + i / BM) * ld + row_base + i % BM] = __float2bfloat16_rn(0.f);",
+        ("kernel_sh",),
     ),
     "the wgmma core's encoding stash (A_X) written as zeros": (
         "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
         "stash[slot(tile64, A_F8, fg, L.ra + 8 * h, L.t)] = r4[i];",
         "stash[slot(tile64, A_F8, fg, L.ra + 8 * h, L.t)] = kb < 4 ? 0u : r4[i];",
-        ("kernel_raw", "fused_train_level"),
+        ("kernel_raw", "fused_train_level", "fused_mlp_bwd"),
     ),
     "the transmittance's backward without its division by the factor": (
         "nerf_projects_tpu_torch/ops/render.py",

@@ -4,6 +4,7 @@ chip_smoke.py. Run from the root of a checkout (which may be another
 tree than this file's: its chip_smoke.py and package are the ones used):
 
     python3 /path/to/chip_probes.py f64   # K1rb's float64-sums rule, per draw
+    python3 /path/to/chip_probes.py route [tag [rays [draws]]]  # K1b's and K1rb's rule under the route's own g
     python3 /path/to/chip_probes.py k2    # K2's fine level timed around other work
 
 f64: K1rb's gradients against the plain version with float64 sums, as
@@ -13,6 +14,14 @@ row counts with g random in all eight columns ("all8") or in the route's
 four live ones ("live"); the six worst tensors of each draw. Run in a
 tree with a kernel changed (chip_mutants.py's copies) to see whether the
 rule tells the two apart.
+
+route: the same rule for K1b and K1rb with g the route's own output
+gradient (chip_smoke.route_grad: a seeded training coarse level of
+`rays` rays, 128 by default, the compositing's and the MSE loss's
+gradient at the plain forward's outputs), at `draws` (6) draws of the
+level and of the weights; per draw the six worst tensors, with the
+kernel's and the float32 plain version's relative distances from the
+float64 sums for the worst.
 
 k2: K2's fine level (S 288, R 4, 1,024 rays) timed 3 x 10 launches with
 CUDA events, fresh, after chip_smoke.phase_kernel and after 5 s idle,
@@ -66,6 +75,30 @@ def probe_f64(dev, tag: str) -> None:
             print("f64", tag, n, kind, " ".join(f"{nm}={r:.3f}" for r, nm in rs[:6]), flush=True)
 
 
+def probe_route(dev, tag: str, n_rays: int, draws: int) -> None:
+    from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
+
+    for raw, name, launch, ref in ((False, "K1b", fm.fused_mlp_bwd, fm.fused_mlp_bwd_reference),
+                                   (True, "K1rb", fm.fused_mlp_raw_bwd, fm.fused_mlp_raw_bwd_reference)):
+        for draw in range(draws):
+            model, gen = model_on(dev, c.SEED + 40 + draw)
+            W = fm.pack_params(model, raw_layout=raw)
+            wk, wkt = fm.backward_weights(model, raw, fm.forward_weights(model, raw=raw))
+            x, v, g = c.route_grad(gen, W, dev, raw, n_rays=n_rays)
+            got, want = launch(wk, wkt, x, v, g), ref(W, x, v, g)
+            with fm.float64_sums():
+                exact = ref(W, x, v, g)
+            rs = []
+            for field, a, b, e in zip(fm.FusedMLPWeights._fields, got, want, exact):
+                e = e.double()
+                en = e.norm() + 1e-30
+                ka, pb = float((a.double() - e).norm() / en), float((b.double() - e).norm() / en)
+                rs.append((ka / (pb + 1e-5), field, ka, pb))
+            rs.sort(reverse=True)
+            print("route", tag, n_rays, name, draw, " ".join(f"{f}={r:.3f}" for r, f, _, _ in rs[:6]),
+                  f"(worst: kernel {rs[0][2]:.3e}, plain {rs[0][3]:.3e})", flush=True)
+
+
 def probe_k2(dev) -> None:
     from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
     from nerf_projects_tpu_torch.ops.kernels import fused_train as ft
@@ -100,10 +133,13 @@ def main() -> int:
     what = sys.argv[1] if len(sys.argv) > 1 else ""
     if what == "f64":
         probe_f64(dev, sys.argv[2] if len(sys.argv) > 2 else "tree")
+    elif what == "route":
+        probe_route(dev, sys.argv[2] if len(sys.argv) > 2 else "tree",
+                    int(sys.argv[3]) if len(sys.argv) > 3 else 128, int(sys.argv[4]) if len(sys.argv) > 4 else 6)
     elif what == "k2":
         probe_k2(dev)
     else:
-        print("usage: chip_probes.py f64 [tag] | k2", file=sys.stderr)
+        print("usage: chip_probes.py f64 [tag] | route [tag [rays [draws]]] | k2", file=sys.stderr)
         return 2
     return 0
 

@@ -15,8 +15,14 @@ Phases, each of which raises (exit code 1) on failure:
           version: the fused-MLP forward (K1f, on the wgmma core over the
           encoded route's buffer, forward_weights) on 8192 + 37 rows and at
           the render's fine level (786,432 rows); its weight-gradient
-          backward (K1b) on 8192 + 37 rows (also against float64 sums)
-          and at a training step's fine level (294,912 rows); the fused
+          backward (K1b, on the wgmma core over the same buffer and the dX
+          buffer, backward_weights) on 8192 + 37 rows (also against
+          float64 sums) and at a training step's fine level (294,912
+          rows), each launched twice for the same bits, and on four
+          training coarse levels (1,024 rays each) under the route's own
+          output gradient (the compositing's and the MSE loss's;
+          route_grad, route_rule: the float64 rule's reading logged, not
+          held, since it swings with the few rows that carry that g); the fused
           train level (K2) at a training step's coarse level (S 96, R 8,
           1,024 rays, with weights; a second launch must give the same
           bits), fine level (S 288, R 4) and once with encoded inputs, and
@@ -73,7 +79,10 @@ Phases, each of which raises (exit code 1) on failure:
           backward (K1rb, on the wgmma core) against its plain version on
           8192 + 37 and 16,385 rows (n = 1 mod 128; both also against
           float64 sums) and at a training step's fine level (294,912
-          rows), each size launched twice for the same bits; the
+          rows), each size launched twice for the same bits and equal bit
+          for bit to K1b over K1rb's weights on the same rows' encodings,
+          and under the route's own output gradient on four training
+          coarse levels (route_rule); the
           parameter gradients of
           the raw route (fused_apply_raw, through unpack_grads'
           raw layout) against the encoded route's (K1f + K1b). Points
@@ -145,10 +154,12 @@ Phases, each of which raises (exit code 1) on failure:
           and K4 alone timed on the batch with CUDA events beside their
           bounds.
   kernel_sh
-          the fused NeRF-SH trunk (K5f) against its plain PyTorch version
-          on 8192 + 37 rows at each head width the kernel builds (27, 48,
-          75, 128 columns) and at a serving request's fine level
-          (1,572,864 rows, sh_deg 3); its weight-gradient backward (K5b)
+          the fused NeRF-SH trunk's forward (K5f, on the wgmma core)
+          against its plain PyTorch version on 1, 100, 8192 + 1 and
+          8192 + 37 rows at each head width the kernel builds (27, 48, 75,
+          128 columns) and at a serving request's fine level (1,572,864
+          rows, sh_deg 3), each launched twice for the same bits; its
+          weight-gradient backward (K5b, on the mma.sync tile)
           against its plain version and against float64 sums on 8192 +
           37 rows, four draws at each width, and at a training step's
           fine level (196,608 rows), the same bits on a second launch,
@@ -301,8 +312,8 @@ def noise_ratio(got, want, exact) -> tuple:
     """The float64 rule's reading: over the gradient tensors, the largest
     ratio of the kernel's relative Frobenius distance from the float64
     sums (``exact``) to the float32 plain version's (+ 1e-5), and the
-    field of that tensor."""
-    worst = (0.0, "")
+    index of that tensor."""
+    worst = (0.0, 0)
     for i, (g, w, e) in enumerate(zip(got, want, exact)):
         e = e.double()
         en = e.norm() + 1e-30
@@ -471,9 +482,76 @@ def phase_kernel(dev, fine_rows: int) -> dict:
     }
 
 
+def route_grad(gen, W, dev, raw: bool, n_rays: int = TRAIN_RAYS):
+    """A seeded training coarse level (level_batch: S COARSE, R MEGA_RC,
+    n_rays rays) as the route's MLP sees it, with the route's own output
+    gradient: (x, v, g [n, 8]) per row, g the compositing's and the MSE
+    loss's gradient (fused_train.composite_grads, K2's arithmetic) at the
+    plain forward's head outputs (rgb 0..2, sigma 4) over W. K1b's encoded
+    rows are the route's (x column 63 zero, v the view encoding); K1rb's
+    the raw points and directions. K2's forward without its per-slab
+    promotion read 6.585x on the float64 rule under such a g."""
+    from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerf_projects_tpu_torch.ops.kernels import fused_train as ft
+
+    x, vt = level_batch(gen, n_rays, COARSE, MEGA_RC, dev, raw)
+    per_ray = vt[:, :MEGA_RC].reshape(n_rays, vt.shape[-1])
+    if raw:
+        dist, target = x[:, 3], per_ray[:, 4:7]
+        v = per_ray.repeat_interleave(COARSE, dim=0).contiguous()
+        out = fm.fused_nerf_mlp_raw_reference(W, x, v)
+    else:
+        dist, target = x[:, 63].clone(), per_ray[:, 28:31]
+        x = x.clone()
+        x[:, 63] = 0.0
+        v = F.pad(per_ray[:, :27], (0, 5)).repeat_interleave(COARSE, dim=0).contiguous()
+        out = fm.fused_nerf_mlp_reference(W, x, v)
+    _, _, _, d_rgb, d_sig = ft.composite_grads(out[:, :3], out[:, 4], dist, target, S=COARSE,
+                                               n_rays_total=n_rays, bkgd=1.0)
+    g = torch.zeros(x.shape[0], 8, device=dev)
+    g[:, :3], g[:, 4] = d_rgb, d_sig
+    return x, v, g
+
+
+ROUTE_DRAWS = 4             # training coarse levels checked under the route's own g
+
+
+def route_rule(tag, launch, ref, W, wk, wkt, gen, dev, raw: bool) -> float:
+    """The kernel against its plain version (GRAD_FRO_TOL, GRAD_MAX_TOL) on
+    each of ROUTE_DRAWS seeded training coarse levels (route_grad: 1,024
+    rays, 98,304 rows) under the route's own output gradient, and the
+    float64-sums rule's reading there, logged but not held to
+    NOISE_FACTOR: only rows near a ray's surface carry that gradient, so
+    one relu mask or bf16 rounding of the forward that flips on such a row
+    moves a column of dW, and the tensor cores' float32 sums flip more of
+    them than the float32 plain version's. Promoted K1b and K1rb read
+    0.06x to 95.5x on single levels, their forwards without PROMOTE 0.06x
+    to 336x, some levels reading the same for both (PERF.md §6): no limit
+    at 2x tells the two apart. Returns the largest absolute error."""
+    from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
+
+    names = fm.FusedMLPWeights._fields
+    max_abs = 0.0
+    for draw in range(ROUTE_DRAWS):
+        x, v, g = route_grad(gen, W, dev, raw)
+        got, want = launch(wk, wkt, x, v, g), ref(W, x, v, g)
+        with fm.float64_sums():
+            exact = ref(W, x, v, g)
+        torch.cuda.synchronize()
+        max_abs = max(max_abs, check_grads(f"{tag} n={x.shape[0]} draw {draw}", got, want, names))
+        ratio, i = noise_ratio(got, want, exact)
+        del got, want, exact
+        log(f"{tag} n={x.shape[0]} draw {draw}: against float64 sums the kernel strays {ratio:.3f}x as far as the "
+            f"float32 plain version ({names[i]}; a reading, not held to {NOISE_FACTOR}x)")
+    return max_abs
+
+
 def phase_kernel_bwd(dev, big_rows: int) -> dict:
     """K1b against its plain version on a ragged size and at the fine
-    level's rows of a training step, then timed at the latter."""
+    level's rows of a training step (each also a second launch's bits),
+    against float64 sums on the ragged size, on training coarse levels
+    under the route's own g (route_rule: the float64 rule's reading
+    logged), then timed at the fine level."""
     from nerf_projects_tpu_torch.models.nerf import NeRFMLP
     from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
 
@@ -481,20 +559,28 @@ def phase_kernel_bwd(dev, big_rows: int) -> dict:
     model = NeRFMLP(depth=8, width=256, use_viewdirs=True).reset_parameters(gen)
     model = random_biases(model, gen).to(dev)
     W = fm.pack_params(model)
-    wk, wkt = fm.kernel_weights(model), fm.kernel_weights_bwd(model)
+    wk, wkt = fm.backward_weights(model, False, fm.forward_weights(model, raw=False))  # the encoded route's
     max_abs = 0.0
     for n in (8192 + 37, big_rows):
         x, v = encodings(n, gen, dev)
         g = (torch.randn(n, 8, generator=gen) * 1e-3).to(dev)
         got = fm.fused_mlp_bwd(wk, wkt, x, v, g)
+        again = fm.fused_mlp_bwd(wk, wkt, x, v, g)
         want = fm.fused_mlp_bwd_reference(W, x, v, g)
         exact = None
         if n < big_rows:
             with fm.float64_sums():
                 exact = fm.fused_mlp_bwd_reference(W, x, v, g)
         torch.cuda.synchronize()
-        max_abs = max(max_abs, check_grads(f"kernel: fused_mlp_bwd n={n}", got, want,
-                                           fm.FusedMLPWeights._fields, exact))
+        tag = f"kernel: fused_mlp_bwd n={n}"
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"{tag}: a second launch gives the same bits: {same}")
+        if not same:
+            raise AssertionError(f"{tag}: two launches on the same inputs differ")
+        max_abs = max(max_abs, check_grads(tag, got, want, fm.FusedMLPWeights._fields, exact))
+    max_abs = max(max_abs, route_rule("kernel: fused_mlp_bwd on a coarse level under the route's own g",
+                                      fm.fused_mlp_bwd, fm.fused_mlp_bwd_reference, W, wk, wkt, gen, dev,
+                                      raw=False))
 
     ms = time_ms(lambda: fm.fused_mlp_bwd(wk, wkt, x, v, g), iters=10)
     plain_ms = time_ms(lambda: fm.fused_mlp_bwd_reference(W, x, v, g), iters=3, warmup=1)
@@ -812,8 +898,7 @@ def train_window(trainer, state, ds):
     return state, window, step_ms, losses, psnrs
 
 
-OUR_KERNELS = ("mlp_fwd_kernel", "mlp_dx_kernel", "mlp_dw_kernel", "mlp_grad_reduce_kernel", "sm90_fwd_kernel",
-               "sm90_dx_kernel", "sm90_dw_kernel",
+OUR_KERNELS = ("mlp_dw_kernel", "mlp_grad_reduce_kernel", "sm90_fwd_kernel", "sm90_dx_kernel", "sm90_dw_kernel",
                "composite_kernel", "march_kernel", "march_bwd_kernel", "sh_fwd_kernel", "sh_dx_kernel",
                "sh_grad_reduce_kernel")
 
@@ -1026,12 +1111,15 @@ def phase_kernel_raw(dev, serve_rows: int, train_rows: int) -> tuple:
     fwd_args = (p, v, x, ve)
 
     # 8192 + 37 and 128 * 128 + 1 rows leave ragged tiles (the padded rows'
-    # stash must stay finite and add nothing); all eight g columns are live
+    # stash must stay finite and add nothing); all eight g columns are live.
+    # K1b over K1rb's weights on the port's encodings of the same rows has
+    # the same stash, so the same gradients bit for bit
     for n in (8192 + 37, 128 * 128 + 1, train_rows):
         p, v = raw_inputs(n, gen, dev)
         g = (torch.randn(n, 8, generator=gen) * 1e-3).to(dev)
         got = fm.fused_mlp_raw_bwd(wk, wkt, p, v, g)
         again = fm.fused_mlp_raw_bwd(wk, wkt, p, v, g)
+        core = fm.fused_mlp_bwd(wk, wkt, *fm._encode_raw(p, v), g)
         want = fm.fused_mlp_raw_bwd_reference(W, p, v, g)
         exact = None
         if n < train_rows:
@@ -1040,11 +1128,19 @@ def phase_kernel_raw(dev, serve_rows: int, train_rows: int) -> tuple:
         torch.cuda.synchronize()
         tag = f"kernel_raw: fused_mlp_raw_bwd n={n}"
         same = all(torch.equal(a, b) for a, b in zip(got, again))
-        log(f"{tag}: a second launch gives the same bits: {same}")
+        as_k1b = all(torch.equal(a, b) for a, b in zip(got, core))
+        log(f"{tag}: a second launch gives the same bits: {same}; K1b over its weights on the port's encodings "
+            f"of the same rows gives the same bits: {as_k1b}")
         if not same:
             raise AssertionError(f"{tag}: two launches on the same inputs differ")
+        if not as_k1b:
+            raise AssertionError(f"{tag}: K1b over its weights on the same rows' encodings gives other bits")
         max_bwd = max(max_bwd, check_grads(tag, got, want, fm.FusedMLPWeights._fields, exact))
     bwd_args = (p, v, g)
+    del core
+    max_bwd = max(max_bwd, route_rule("kernel_raw: fused_mlp_raw_bwd on a coarse level under the route's own g",
+                                      fm.fused_mlp_raw_bwd, fm.fused_mlp_raw_bwd_reference, W, wk, wkt, gen, dev,
+                                      raw=True))
 
     # the raw route maps K1rb's gradients back through unpack_grads' raw
     # layout, which its plain version shares: held against the encoded
@@ -1084,9 +1180,8 @@ def phase_kernel_raw(dev, serve_rows: int, train_rows: int) -> tuple:
 
     p, v, g = bwd_args
     x, ve = fm._encode_raw(p, v)
-    tile_wk, tile_wkt = fm.kernel_weights(model, raw_layout=True), fm.kernel_weights_bwd(model)  # K1b's tile
     ms = time_ms(lambda: fm.fused_mlp_raw_bwd(wk, wkt, p, v, g), iters=10)
-    k1b_ms = time_ms(lambda: fm.fused_mlp_bwd(tile_wk, tile_wkt, x, ve, g), iters=10)
+    k1b_ms = time_ms(lambda: fm.fused_mlp_bwd(wk, wkt, x, ve, g), iters=10)
     plain_ms = time_ms(lambda: fm.fused_mlp_raw_bwd_reference(W, p, v, g), iters=3, warmup=1)
     flops = 3 * 2.0 * fm.LIVE_MACS_PER_SAMPLE * train_rows
     nbytes = fm.RAW_IO_BYTES_PER_SAMPLE * train_rows + fm.GRAD_ELEMS * 4 + (wk.numel() + wkt.numel()) * 2
@@ -2065,9 +2160,12 @@ def mmT_bf16_reduce(a: torch.Tensor, b: torch.Tensor, rows: int = 64) -> torch.T
 
 
 def phase_kernel_sh(dev) -> tuple:
-    """K5f against its plain version on 8192 + 37 rows (each head width the
-    kernel builds: 27, 48, 75 and 128 columns) and at a serving request's
-    fine level (1,572,864 rows, sh_deg 3). K5b against its plain version
+    """K5f (over the route's buffer, forward_weights) against its plain
+    version on 1, 100, 8192 + 1 and 8192 + 37 rows (each head width the
+    kernel builds: 27, 48, 75 and 128 columns; the first three drawn from a
+    generator of their own, so K5b's draws stay those of earlier runs) and
+    at a serving request's fine level (1,572,864 rows, sh_deg 3), a second
+    launch the same bits at each. K5b (over backward_weights) against its plain version
     and against float64 sums (SH_NOISE_FACTOR) on 8192 + 37 rows, for
     SH_NOISE_DRAWS draws of weights and inputs at each width, and at a
     training step's fine level (196,608 rows, sh_deg 3); two launches on
@@ -2079,31 +2177,37 @@ def phase_kernel_sh(dev) -> tuple:
     from nerf_projects_tpu_torch.ops.kernels import fused_sh_mlp as fsm
 
     gen = torch.Generator().manual_seed(SEED + 20)
+    edge_gen = torch.Generator().manual_seed(SEED + 25)
     serve_rows, train_rows = SH_CHUNK * (SH_COARSE + SH_FINE), TRAIN_RAYS * (SH_COARSE + SH_FINE)
     max_fwd = max_bwd = 0.0
     readings = []
     for num_rgb in (27, SH_RGB, 75, 128):
         for draw in range(SH_NOISE_DRAWS):
             mlp = random_biases(CondMLP(num_rgb_channels=num_rgb).reset_parameters(gen), gen).to(dev)
-            W, wk, wkt = fsm.pack_sh_params(mlp), fsm.kernel_weights(mlp), fsm.kernel_weights_bwd(mlp)
+            W, wf = fsm.pack_sh_params(mlp), fsm.forward_weights(mlp)
+            wk, wkt = fsm.backward_weights(mlp)
             headline = num_rgb == SH_RGB and draw == 0
-            for n in ((8192 + 37, serve_rows) if headline else (8192 + 37,) if draw == 0 else ()):
-                x = sh_points(n, gen, dev)
-                got = fsm.fused_sh_fwd(wk, x, num_rgb)
+            sizes = [(n, edge_gen) for n in (1, 100, 8192 + 1)] + [(8192 + 37, gen)] if draw == 0 else []
+            for n, ng in sizes + ([(serve_rows, gen)] if headline else []):
+                x = sh_points(n, ng, dev)
+                got = fsm.fused_sh_fwd(wf, x, num_rgb)
+                again = fsm.fused_sh_fwd(wf, x, num_rgb)
                 want = fsm.fused_sh_mlp_reference(W, x, num_rgb)
                 torch.cuda.synchronize()
                 if not all(bool(torch.isfinite(g).all()) for g in got):
                     raise AssertionError(f"kernel_sh: non-finite K5f output at n={n}, num_rgb={num_rgb}")
                 err = max(float((g - w).abs().max()) for g, w in zip(got, want))
                 rel = err / (float(torch.cat([w.abs().flatten() for w in want]).mean()) + 1.0)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
                 log(f"kernel_sh: fused_sh_fwd n={n} num_rgb={num_rgb} max_abs_err={err:.3e} "
-                    f"err/(mean|plain|+1)={rel:.3e} (tolerance {KERNEL_TOL})")
-                if not rel < KERNEL_TOL:
-                    raise AssertionError(f"kernel_sh: fused_sh_fwd disagrees with its plain version at n={n}, "
-                                         f"num_rgb={num_rgb}")
+                    f"err/(mean|plain|+1)={rel:.3e} (tolerance {KERNEL_TOL}); a second launch gives the same "
+                    f"bits: {same}")
+                if not (rel < KERNEL_TOL and same):
+                    raise AssertionError(f"kernel_sh: fused_sh_fwd disagrees with its plain version or itself at "
+                                         f"n={n}, num_rgb={num_rgb}")
                 max_fwd = max(max_fwd, err)
             if headline:
-                fwd_args = (mlp, W, wk, wkt, x)
+                fwd_args = (mlp, W, wf, x)
             for n in ((8192 + 37, train_rows) if headline else (8192 + 37,)):
                 x = sh_points(n, gen, dev)
                 g_rgb = (torch.randn(n, num_rgb, generator=gen) * 1e-3).to(dev)
@@ -2137,11 +2241,11 @@ def phase_kernel_sh(dev) -> tuple:
         f"{min(readings):.3f}x to {max(readings):.3f}x (median {float(np.median(readings)):.3f}x) as far as the "
         f"float32 plain version, tolerance {SH_NOISE_FACTOR}x")
 
-    mlp, W, wk, wkt, x = fwd_args
-    ms = time_ms(lambda: fsm.fused_sh_fwd(wk, x, SH_RGB), iters=20)
+    mlp, W, wf, x = fwd_args
+    ms = time_ms(lambda: fsm.fused_sh_fwd(wf, x, SH_RGB), iters=20)
     plain_ms = time_ms(lambda: fsm.fused_sh_mlp_reference(W, x, SH_RGB), iters=3, warmup=1)
     flops = 2.0 * fsm.fwd_macs(SH_RGB) * serve_rows
-    nbytes = fsm.io_bytes(SH_RGB) * serve_rows + wk.numel() * 2
+    nbytes = fsm.io_bytes(SH_RGB) * serve_rows + wf.numel() * 2
     b_ms, by, t_ops, t_bytes = bound(flops, nbytes)
     log(f"kernel_sh: fused_sh_fwd n={serve_rows}: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms (operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms), "
@@ -2150,12 +2254,12 @@ def phase_kernel_sh(dev) -> tuple:
 
     def launch_fwd(n):
         xs = sh_points(n, gen, dev)
-        return lambda: fsm.fused_sh_fwd(wk, xs, SH_RGB)
+        return lambda: fsm.fused_sh_fwd(wf, xs, SH_RGB)
 
     time_sizes("fused_sh_fwd", "serving fine", (ms, b_ms),
                (("serving coarse", SH_CHUNK * SH_COARSE), ("training coarse", TRAIN_RAYS * SH_COARSE),
                 ("training fine", train_rows)),
-               launch_fwd, lambda n: (2.0 * fsm.fwd_macs(SH_RGB) * n, fsm.io_bytes(SH_RGB) * n + wk.numel() * 2))
+               launch_fwd, lambda n: (2.0 * fsm.fwd_macs(SH_RGB) * n, fsm.io_bytes(SH_RGB) * n + wf.numel() * 2))
     fwd = {"name": "fused_sh_fwd", "route": "cuda", "source": "nerf_projects_tpu_torch/csrc/fused_sh_fwd.cu",
            "replaces": "nerf_projects_tpu/ops/pallas/fused_sh_mlp.py:215", "launches": 0,
            "max_abs_err": max_fwd, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,

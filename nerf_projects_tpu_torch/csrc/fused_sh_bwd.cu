@@ -93,15 +93,13 @@ __global__ void __launch_bounds__(THREADS, 2)
           acc[mt][nt][2 * half + 1] += gs * w1;
         }
     }
-    mlp::dx_epilogue<true, false>(acc, gt, nullptr, nullptr, A, A_TRUNK + 7 * 256, ld, row_base, colsum,
-                                  db_acc, G_TRUNK + 7 * 256);
+    mlp::dx_epilogue(acc, gt, A, A_TRUNK + 7 * 256, ld, row_base, colsum, db_acc, G_TRUNK + 7 * 256);
     mlp::stash_cols(gt, GS, 0, 256, G, G_TRUNK + 7 * 256, ld, row_base);
     // dense l for l = 6..0: (g_{l+1} @ w_{l+1}^T) * (a_l > 0); for l = 4
     // the product takes w5's h rows only (x carries no gradient)
     for (int l = 6; l >= 0; --l) {
       mlp::gemm_tile<256>(gt, GS, 0, wbuf, wt + offt_trunk(l + 1), 256, acc);
-      mlp::dx_epilogue<true, false>(acc, gt, nullptr, nullptr, A, A_TRUNK + l * 256, ld, row_base,
-                                    colsum, db_acc, G_TRUNK + l * 256);
+      mlp::dx_epilogue(acc, gt, A, A_TRUNK + l * 256, ld, row_base, colsum, db_acc, G_TRUNK + l * 256);
       mlp::stash_cols(gt, GS, 0, 256, G, G_TRUNK + l * 256, ld, row_base);
     }
   }
@@ -110,8 +108,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     db_part[static_cast<long long>(blockIdx.x) * G_FEATS + i] = db_acc[i];
 }
 
-// dW = A^T G for every weight, in mlp_dw_kernel's table: 11 entries, the
-// table's last two left empty (no tiles).
+// dW = A^T G for every weight, in mlp_dw_kernel's table of 11 entries.
 inline mlp::DwTable dw_table(int num_rgb) {
   using mlp::A_TRUNK;
   using mlp::A_X;
@@ -240,8 +237,7 @@ int fused_sh_bwd(const void* x, const void* g_rgb, const void* g_sig, const void
   const float* gs = static_cast<const float*>(g_sig);
 
   // pass 1: the trunk, writing the activation stash
-  cudaError_t err = sh::launch_forward(static_cast<const float*>(x), wb, nullptr, nullptr, n, num_rgb,
-                                       ws.A, npad, s);
+  cudaError_t err = sh::launch_forward(static_cast<const float*>(x), wb, n, ws.A, npad, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   // pass 2: the gradient down the layers

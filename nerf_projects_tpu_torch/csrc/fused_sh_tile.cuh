@@ -1,7 +1,9 @@
-// Shared device code of the fused NeRF-SH trunk kernels for Hopper
-// (sm_90a): fused_sh_fwd.cu (K5f) and fused_sh_bwd.cu (K5b), built on
+// Shared device code of the fused NeRF-SH trunk's weight-gradient
+// backward for Hopper (sm_90a), fused_sh_bwd.cu (K5b), built on
 // mlp_tile.cuh's primitives (gemm_tile, dense_layer, stash_cols,
-// dx_epilogue, mlp_dw_kernel), which this header uses as they are.
+// dx_epilogue, mlp_dw_kernel), which this header uses as they are. The
+// forward (fused_sh_fwd.cu, K5f) runs on the wgmma core (mlp_sm90.cuh);
+// K5b's recomputed trunk stays here until K5b moves onto that core too.
 //
 // The MLP is models/nerf_sh.py's CondMLP without a condition: trunk
 // dense 0..7 (8x256, relu) with the [h, x] concat after dense 4, a sigma
@@ -12,10 +14,6 @@
 // input columns permuted to [x | h] (ops/kernels/fused_sh_mlp.py packs
 // them so and un-permutes its gradient). Every product takes bf16
 // operands and accumulates in float32; biases are bf16, added in float32.
-//
-// The coefficient head runs on the tensor cores (gemm_tile<RN>) over RN =
-// num_rgb rounded up to 32 columns; rows past num_rgb of its weights are
-// zero and never stored. The sigma head is one dot product a row.
 
 #pragma once
 
@@ -32,8 +30,8 @@ using mlp::THREADS;
 
 constexpr int MAX_RGB = 128;
 
-// Forward weight buffer (ops/kernels/fused_sh_mlp.py::KERNEL_LAYOUT),
-// bf16, matrices as [out][in].
+// K5b's forward weight buffer (ops/kernels/fused_sh_mlp.py::KERNEL_LAYOUT),
+// bf16, matrices as [out][in]; the recomputed trunk reads OFF_W0..OFF_B.
 constexpr long long OFF_W0 = 0;                       // [256][64]
 constexpr long long OFF_W1 = OFF_W0 + 256 * 64;       // w1..w4, [256][256] each
 constexpr long long OFF_W5 = OFF_W1 + 4 * 256 * 256;  // [256][320], inputs [x 64 | h 256]
@@ -91,72 +89,35 @@ __device__ __forceinline__ void load_points(bf16* act, const float* x, long long
 }
 
 // The trunk of one 64-row tile whose inputs are in act (synchronised):
-// a7 ends in columns COL_H..COL_H+256. stash: null or the activation
-// stash (x, a0..a7).
+// a7 ends in columns COL_H..COL_H+256, each layer's output also in the
+// activation stash (x, a0..a7).
 __device__ __forceinline__ void trunk_tile(bf16* act, bf16* wbuf, const bf16* w, long long row_base,
                                            bf16* stash, long long ld) {
   using mlp::A_TRUNK;
   using mlp::dense_layer;
   using mlp::stash_cols;
-  if (stash) stash_cols(act, AS, COL_X, 64, stash, mlp::A_X, ld, row_base);
+  stash_cols(act, AS, COL_X, 64, stash, mlp::A_X, ld, row_base);
   dense_layer<256, true>(act, wbuf, w + OFF_W0, w + OFF_B, 64, COL_X, COL_H);
-  if (stash) stash_cols(act, AS, COL_H, 256, stash, A_TRUNK, ld, row_base);
+  stash_cols(act, AS, COL_H, 256, stash, A_TRUNK, ld, row_base);
   for (int l = 1; l <= 4; ++l) {
     dense_layer<256, true>(act, wbuf, w + OFF_W1 + (l - 1) * 256 * 256, w + OFF_B + l * 256, 256,
                            COL_H, COL_H);
-    if (stash) stash_cols(act, AS, COL_H, 256, stash, A_TRUNK + l * 256, ld, row_base);
+    stash_cols(act, AS, COL_H, 256, stash, A_TRUNK + l * 256, ld, row_base);
   }
   // dense 5 reads [x | h4], columns 0..319 (its weights permuted to match)
   dense_layer<256, true>(act, wbuf, w + OFF_W5, w + OFF_B + 5 * 256, 320, COL_X, COL_H);
-  if (stash) stash_cols(act, AS, COL_H, 256, stash, A_TRUNK + 5 * 256, ld, row_base);
+  stash_cols(act, AS, COL_H, 256, stash, A_TRUNK + 5 * 256, ld, row_base);
   for (int l = 6; l <= 7; ++l) {
     dense_layer<256, true>(act, wbuf, w + OFF_W6 + (l - 6) * 256 * 256, w + OFF_B + l * 256, 256,
                            COL_H, COL_H);
-    if (stash) stash_cols(act, AS, COL_H, 256, stash, A_TRUNK + l * 256, ld, row_base);
+    stash_cols(act, AS, COL_H, 256, stash, A_TRUNK + l * 256, ld, row_base);
   }
 }
 
-// The heads over a7: sig [n] and the live columns of rgb [n, num_rgb].
-template <int RN>
-__device__ __forceinline__ void heads_tile(bf16* act, bf16* wbuf, const bf16* w, long long row_base,
-                                           long long n, int num_rgb, float* rgb, float* sig) {
-  // sigma: four threads a row, 64 columns each, summed in a fixed order
-  {
-    const int r = threadIdx.x >> 2, j = threadIdx.x & 3;
-    float s = mlp::dot_bf16(act + r * AS + COL_H + j * 64, w + OFF_WSIG + j * 64, 64);
-    s += __shfl_xor_sync(mlp::FULL, s, 1);
-    s += __shfl_xor_sync(mlp::FULL, s, 2);
-    if (j == 0 && row_base + r < n) sig[row_base + r] = s + mlp::bf(w[OFF_BSIG]);
-  }
-  constexpr int NT = RN / 32;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = (warp >> 2) * 32;
-  const int col0 = (warp & 3) * (RN / 4);
-  float acc[2][NT][4];
-  mlp::gemm_tile<RN>(act, AS, COL_H, wbuf, w + OFF_WRGB, 256, acc);
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int c = col0 + nt * 8 + 2 * t;
-    const bool live0 = c < num_rgb, live1 = c + 1 < num_rgb;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const long long row = row_base + row0 + mt * 16 + g + 8 * half;
-        if (row >= n) continue;
-        if (live0) rgb[row * num_rgb + c] = acc[mt][nt][2 * half] + mlp::bf(w[OFF_BRGB + c]);
-        if (live1) rgb[row * num_rgb + c + 1] = acc[mt][nt][2 * half + 1] + mlp::bf(w[OFF_BRGB + c + 1]);
-      }
-  }
-}
-
-// One block a 64-row tile. rgb null: the trunk only, for the backward's
-// activation stash.
-template <int RN>
+// One block a 64-row tile: the trunk, writing the activation stash (row
+// stride ld).
 __global__ void __launch_bounds__(THREADS, 2)
-    sh_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ w, float* __restrict__ rgb,
-                  float* __restrict__ sig, long long n, int num_rgb, bf16* __restrict__ stash,
+    sh_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ w, long long n, bf16* __restrict__ stash,
                   long long ld) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* act = reinterpret_cast<bf16*>(smem_raw);
@@ -165,32 +126,16 @@ __global__ void __launch_bounds__(THREADS, 2)
   load_points(act, x, row_base, n);
   __syncthreads();
   trunk_tile(act, wbuf, w, row_base, stash, ld);
-  if (rgb) heads_tile<RN>(act, wbuf, w, row_base, n, num_rgb, rgb, sig);
 }
 
-template <int RN>
-inline cudaError_t launch_forward_rn(const float* x, const bf16* w, float* rgb, float* sig, long long n,
-                                     int num_rgb, bf16* stash, long long ld, cudaStream_t stream) {
+inline cudaError_t launch_forward(const float* x, const bf16* w, long long n, bf16* stash, long long ld,
+                                  cudaStream_t stream) {
   const long long blocks = (n + BM - 1) / BM;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(sh_fwd_kernel<RN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM_BYTES);
+  cudaError_t err = cudaFuncSetAttribute(sh_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  sh_fwd_kernel<RN><<<static_cast<unsigned>(blocks), THREADS, FWD_SMEM_BYTES, stream>>>(
-      x, w, rgb, sig, n, num_rgb, stash, ld);
+  sh_fwd_kernel<<<static_cast<unsigned>(blocks), THREADS, FWD_SMEM_BYTES, stream>>>(x, w, n, stash, ld);
   return cudaGetLastError();
-}
-
-// The forward at RN = num_rgb rounded up to 32 (1 <= num_rgb <= 128).
-inline cudaError_t launch_forward(const float* x, const bf16* w, float* rgb, float* sig, long long n,
-                                  int num_rgb, bf16* stash, long long ld, cudaStream_t stream) {
-  switch ((num_rgb + 31) / 32) {
-    case 1: return launch_forward_rn<32>(x, w, rgb, sig, n, num_rgb, stash, ld, stream);
-    case 2: return launch_forward_rn<64>(x, w, rgb, sig, n, num_rgb, stash, ld, stream);
-    case 3: return launch_forward_rn<96>(x, w, rgb, sig, n, num_rgb, stash, ld, stream);
-    case 4: return launch_forward_rn<128>(x, w, rgb, sig, n, num_rgb, stash, ld, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace sh

@@ -1,11 +1,13 @@
-// Hopper (sm_90a) core of the fused NeRF MLP: warpgroup matrix products
-// (wgmma) fed by bulk copies into a ring of shared-memory stages. The
-// fused train level (fused_train.cu, K2), the encoded forward
-// (fused_mlp_fwd.cu, K1f) and the raw-points forward and weight-gradient
-// backward (fused_mlp_raw_fwd.cu, fused_mlp_raw_bwd.cu: K1rf, K1rb) run on
-// it; K1b and K5 stay on mlp_tile.cuh's mma.sync tile, whose weight and
-// gradient layouts, stash feature map, encoder (encode_col) and
-// fixed-order reduce this header shares.
+// Hopper (sm_90a) core of the fused NeRF MLPs: warpgroup matrix products
+// (wgmma) fed by bulk copies into a ring of shared-memory stages. Every
+// NeRF MLP kernel runs on it: the fused train level (fused_train.cu, K2),
+// the encoded forward and weight-gradient backward (fused_mlp_fwd.cu,
+// fused_mlp_bwd.cu: K1f, K1b), the raw-points forward and backward
+// (fused_mlp_raw_fwd.cu, fused_mlp_raw_bwd.cu: K1rf, K1rb), and the NeRF-SH
+// trunk's forward (fused_sh_fwd.cu, K5f), whose trunk is the same eight
+// layers under another head. The NeRF-SH backward (K5b) stays on
+// mlp_tile.cuh's mma.sync GEMM core; this header shares that file's stash
+// feature map, gradient layout, encoder (encode_col) and fixed-order reduce.
 //
 // What bounds the MLP on this card is tensor-core throughput: 593,408
 // multiply-adds a row against 24-416 bytes of input; for the backward
@@ -237,6 +239,49 @@ __device__ __forceinline__ void wgmma_ss_t_n128(float (&d)[64], uint64_t a, uint
       : "l"(a), "l"(b), "r"(1));
 }
 
+// The NeRF-SH coefficient head's widths (32, 64, 96 columns; 128 is above).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
@@ -288,6 +333,18 @@ constexpr long long SW_BSIG = SW_BV + 128;             // [8]
 constexpr long long SW_BRGB = SW_BSIG + 8;             // [8]
 constexpr long long SW_WEIGHTS = SW_BRGB + 8;
 
+// NeRF-SH forward buffer (ops/kernels/fused_sh_mlp.py::SM90_LAYOUT): the
+// same trunk (dense 0..7 at SW_W0..SW_W6 + 65536, dense 5's input columns
+// permuted to [x | h4]) and sigma head (dense 8, row 0 live), then the
+// coefficient head (dense 9) as [128][256], rows past num_rgb zero, and
+// the biases.
+constexpr int SH_MAX_RGB = 128;
+constexpr long long SH_WRGB = SW_WSIG + 8 * 256;       // [128][256]
+constexpr long long SH_B = SH_WRGB + 128 * 256;        // b0..b7, [256] each
+constexpr long long SH_BSIG = SH_B + 8 * 256;          // [8], entry 0 live
+constexpr long long SH_BRGB = SH_BSIG + 8;             // [128]
+constexpr long long SH_WEIGHTS = SH_BRGB + 128;
+
 // dX weight buffer (SM90_LAYOUT_BWD): the [N = in][K = out] matrices of the
 // dX products, slabbed the same way.
 constexpr long long SWT_WRGB = 0;                      // [128][16]: rgb head^T, K 3 live
@@ -308,6 +365,9 @@ struct Layer {
   int n, k, kd;
 };
 
+// The NeRF forward's layers; the first TRUNK_LAYERS (dense 0..7) are the
+// NeRF-SH forward's too, whose head layers follow them in SH_HEAD_LAYERS.
+constexpr int TRUNK_LAYERS = 8;
 constexpr Layer FWD_LAYERS[] = {
     {SW_W0, 256, 64, 64},
     {SW_W1 + 0 * 65536, 256, 256, 64}, {SW_W1 + 1 * 65536, 256, 256, 64},
@@ -318,6 +378,10 @@ constexpr Layer FWD_LAYERS[] = {
     {SW_WB, 256, 256, 64},
     {SW_WV, 128, 288, 64},
     {SW_WRGB, 8, 128, 128},
+};
+constexpr Layer SH_HEAD_LAYERS[] = {
+    {SW_WSIG, 8, 256, 256},
+    {SH_WRGB, 128, 256, 64},
 };
 constexpr Layer DX_LAYERS[] = {
     {SWT_WRGB, 128, 16, 16},
@@ -335,6 +399,9 @@ constexpr int count_slabs(const Layer* l, int nl) {
 }
 constexpr int FWD_SLABS = count_slabs(FWD_LAYERS, sizeof(FWD_LAYERS) / sizeof(Layer));
 constexpr int DX_SLABS = count_slabs(DX_LAYERS, sizeof(DX_LAYERS) / sizeof(Layer));
+constexpr int SH_SLABS = count_slabs(FWD_LAYERS, TRUNK_LAYERS) + count_slabs(SH_HEAD_LAYERS, 2);
+static_assert(FWD_SLABS != DX_SLABS && SH_SLABS != FWD_SLABS && SH_SLABS != DX_SLABS,
+              "the rings tell their tables apart by length");
 
 template <int NS>
 struct SlabTable {
@@ -342,16 +409,19 @@ struct SlabTable {
   int bytes[NS];
 };
 
+// The slabs of layers a[0..na) and then b[0..nb), in the order a kernel
+// consumes them.
 template <int NS>
-constexpr SlabTable<NS> make_slabs(const Layer* l, int nl) {
+constexpr SlabTable<NS> make_slabs(const Layer* a, int na, const Layer* b = nullptr, int nb = 0) {
   SlabTable<NS> t{};
   int j = 0;
-  for (int i = 0; i < nl; ++i) {
-    const int np = l[i].n < NP_MAX ? l[i].n : NP_MAX;
-    for (int p = 0; p < l[i].n / np; ++p)
-      for (int k0 = 0; k0 < l[i].k; k0 += l[i].kd) {
-        const int kd = l[i].k - k0 < l[i].kd ? l[i].k - k0 : l[i].kd;
-        t.off[j] = l[i].off + static_cast<long long>(np) * (p * l[i].k + k0);
+  for (int i = 0; i < na + nb; ++i) {
+    const Layer& l = i < na ? a[i] : b[i - na];
+    const int np = l.n < NP_MAX ? l.n : NP_MAX;
+    for (int p = 0; p < l.n / np; ++p)
+      for (int k0 = 0; k0 < l.k; k0 += l.kd) {
+        const int kd = l.k - k0 < l.kd ? l.k - k0 : l.kd;
+        t.off[j] = l.off + static_cast<long long>(np) * (p * l.k + k0);
         t.bytes[j] = np * kd * 2;
         ++j;
       }
@@ -361,6 +431,7 @@ constexpr SlabTable<NS> make_slabs(const Layer* l, int nl) {
 
 static __constant__ SlabTable<FWD_SLABS> kFwdSlabs = make_slabs<FWD_SLABS>(FWD_LAYERS, sizeof(FWD_LAYERS) / sizeof(Layer));
 static __constant__ SlabTable<DX_SLABS> kDxSlabs = make_slabs<DX_SLABS>(DX_LAYERS, sizeof(DX_LAYERS) / sizeof(Layer));
+static __constant__ SlabTable<SH_SLABS> kShSlabs = make_slabs<SH_SLABS>(FWD_LAYERS, TRUNK_LAYERS, SH_HEAD_LAYERS, 2);
 
 // ---------------------------------------------------------------------------
 // The weight ring: slab j of a block's stream sits in stage j % STAGES; its
@@ -386,6 +457,8 @@ struct WeightRing {
   static __device__ __forceinline__ const SlabTable<NS>& table() {
     if constexpr (NS == FWD_SLABS) {
       return kFwdSlabs;
+    } else if constexpr (NS == SH_SLABS) {
+      return kShSlabs;
     } else {
       return kDxSlabs;
     }
@@ -431,6 +504,18 @@ struct Mma<128> {
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b) { wgmma_ss_t_n128(d, a, b); }
 };
 template <>
+struct Mma<96> {
+  static __device__ __forceinline__ void rs(float (&d)[48], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n96(d, a, b); }
+};
+template <>
+struct Mma<64> {
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n64(d, a, b); }
+};
+template <>
+struct Mma<32> {
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n32(d, a, b); }
+};
+template <>
 struct Mma<8> {
   static __device__ __forceinline__ void rs(float (&d)[4], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n8(d, a, b); }
   static __device__ __forceinline__ void ss(float (&d)[4], uint64_t a, uint64_t b) { wgmma_ss_t_n8(d, a, b); }
@@ -447,8 +532,9 @@ struct Mma<8> {
 // stray further from exact sums than cuBLAS's float32 ones, a 64-deep
 // chain's hardly (wgmma and mma.sync alike). Taking the partials 64 columns
 // at a time (32 registers fewer) cut the forward's spill but ran slower on
-// the card (PERF.md).
-template <int N, int K, int KD, bool PROMOTE, class Ring, class AF, class EPI>
+// the card (PERF.md). SR: the rows of N the staged slabs hold, of which the
+// product reads the first NP (the NeRF-SH coefficient head: RN of 128).
+template <int N, int K, int KD, bool PROMOTE, int SR = (N < NP_MAX ? N : NP_MAX), class Ring, class AF, class EPI>
 __device__ __forceinline__ void mma_layer(AF af, EPI epi, const Ring& ring, int& j) {
   constexpr int NP = N < NP_MAX ? N : NP_MAX;
   constexpr int NSL = (K + KD - 1) / KD;
@@ -472,7 +558,7 @@ __device__ __forceinline__ void mma_layer(AF af, EPI epi, const Ring& ring, int&
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < KB; ++kk)
-          if (s * KD + kk * 16 < K) Mma<NP>::rs(part, fr[kk].r, make_desc(base + kk * (2 * NP * 16), NP * 16, 128));
+          if (s * KD + kk * 16 < K) Mma<NP>::rs(part, fr[kk].r, make_desc(base + kk * (2 * SR * 16), SR * 16, 128));
         wg_commit();
         wg_wait<0>();
         fence_regs(part);
@@ -484,7 +570,7 @@ __device__ __forceinline__ void mma_layer(AF af, EPI epi, const Ring& ring, int&
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < KB; ++kk)
-          if (s * KD + kk * 16 < K) Mma<NP>::rs(acc, fr[kk].r, make_desc(base + kk * (2 * NP * 16), NP * 16, 128));
+          if (s * KD + kk * 16 < K) Mma<NP>::rs(acc, fr[kk].r, make_desc(base + kk * (2 * SR * 16), SR * 16, 128));
         wg_commit();
         if (s > 0) {
           wg_wait<1>();
@@ -566,7 +652,6 @@ __host__ __device__ constexpr int fwd_smem(bool staged) {
   return fwd_stages(staged) * SLAB_BYTES + 2 * XV_KB * 128 * 16 + (staged ? 2 * STAGING_BYTES : 0) +
          fwd_stages(staged) * 16;
 }
-static_assert(FWD_SLABS != DX_SLABS, "the rings tell their tables apart by length");
 
 // bias, relu (RELU), round to bf16: fragment q0 + 2 jb + h (n8 block jb,
 // row half h) of the next layer, handed to put(q, bf16 pair).
@@ -603,15 +688,50 @@ __device__ __forceinline__ void head_out(const float (&acc)[4], const bf16* bias
   }
 }
 
-// The forward's inputs. IN_ENCODED: x [n, 64], v [n, 32] per row (K1f).
+// The NeRF-SH sigma head: column 0 of its n8 product (t = 0 holds it) plus
+// its bias, to sig [n] at the thread's rows below n.
+__device__ __forceinline__ void sigma_out(const float (&acc)[4], const bf16* bias, float* sig, long long row_a,
+                                          long long n, const Lane& L) {
+  if (L.t != 0) return;
+  const float b = __bfloat162float(bias[0]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (row_a + 8 * h < n) sig[row_a + 8 * h] = acc[2 * h] + b;
+}
+
+// The NeRF-SH coefficient head: columns c < num_rgb of its RN-column
+// product plus their biases, to rgb [n, num_rgb] at the thread's rows below
+// n. Rows of num_rgb floats start at any 4-byte offset: scalar stores.
+template <int RN>
+__device__ __forceinline__ void coef_out(const float (&acc)[RN / 2], const bf16* bias, float* rgb, int num_rgb,
+                                         long long row_a, long long n, const Lane& L) {
+#pragma unroll
+  for (int jb = 0; jb < RN / 8; ++jb) {
+    const int c = 8 * jb + 2 * L.t;
+    const float2 b = unpack_bf16(*reinterpret_cast<const uint32_t*>(bias + c));
+    const bool live[2] = {c < num_rgb, c + 1 < num_rgb};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = row_a + 8 * h;
+      if (row >= n) continue;
+      if (live[0]) rgb[row * num_rgb + c] = acc[4 * jb + 2 * h] + b.x;
+      if (live[1]) rgb[row * num_rgb + c + 1] = acc[4 * jb + 2 * h + 1] + b.y;
+    }
+  }
+}
+
+// The forward's inputs. IN_ENCODED: x [n, 64], v [n, 32] per row (K1f, K1b).
 // IN_TRAIN_RAW: x [n, 8] raw points, v = vt [T, 8, 8] raw directions of ray
 // row / S at [ray / R][ray % R] (K2; per row at S = 1, R = 8: K1rf, K1rb).
-// IN_TRAIN_ENC: x [n, 64], v = vt [T, 8, 32] (K2).
-enum InMode { IN_ENCODED = 0, IN_TRAIN_RAW = 1, IN_TRAIN_ENC = 2 };
+// IN_TRAIN_ENC: x [n, 64], v = vt [T, 8, 32] (K2). IN_SH: x [n, 63] (its
+// rows 252 bytes apart, so read a float at a time; column 63 zero), no v,
+// and the NeRF-SH head (K5f).
+enum InMode { IN_ENCODED = 0, IN_TRAIN_RAW = 1, IN_TRAIN_ENC = 2, IN_SH = 3 };
 
 // The thread's input fragments, rounded to bf16, into xv[kb][thread]
-// (x k-blocks 0..3, v 4..5) and, with stash, the A_X and A_V stash. Rows
-// past n are zeros, so every row of a stashed tile is written and finite.
+// (x k-blocks 0..3, v 4..5; IN_SH: x only) and, with stash, the A_X and
+// A_V stash. Rows past n are zeros, so every row of a stashed tile is
+// written and finite.
 template <int MODE>
 __device__ __forceinline__ void load_inputs(const float* x, const float* v, long long n, int S, int R,
                                             long long tile64, uint4* xv, uint32_t* stash, const Lane& L) {
@@ -630,13 +750,13 @@ __device__ __forceinline__ void load_inputs(const float* x, const float* v, long
     }
     if (MODE == IN_ENCODED) {
       vrow[h] = v + row * 32;
-    } else {
+    } else if (MODE != IN_SH) {
       const long long ray = row / S;
       vrow[h] = v + ((ray / R) * 8 + ray % R) * (MODE == IN_TRAIN_RAW ? 8 : 32);
     }
   }
 #pragma unroll
-  for (int kb = 0; kb < XV_KB; ++kb) {
+  for (int kb = 0; kb < (MODE == IN_SH ? 4 : XV_KB); ++kb) {
     uint32_t r4[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -649,6 +769,9 @@ __device__ __forceinline__ void load_inputs(const float* x, const float* v, long
           if (MODE == IN_TRAIN_RAW) {
             v0 = mlp::encode_col(p[h], c, 10);
             v1 = mlp::encode_col(p[h], c + 1, 10);
+          } else if (MODE == IN_SH) {
+            v0 = x[row * 63 + c];
+            v1 = c + 1 < 63 ? x[row * 63 + c + 1] : 0.f;
           } else {
             const float2 xx = *reinterpret_cast<const float2*>(x + row * 64 + c);
             v0 = xx.x;
@@ -676,16 +799,20 @@ __device__ __forceinline__ void load_inputs(const float* x, const float* v, long
   }
 }
 
-// The forward of a warpgroup's 64-row tile: out [n, 8] float32 (columns
-// 0..3 the rgb head, 4..7 the sigma head) and, with stash, every
-// activation the backward reads (x, a0..a7, bottleneck, v, hv).
-// STAGED (the fused train level): each layer's output goes through the
-// warpgroup's staging block, which a bulk copy stores to the activation
+// The forward of a warpgroup's 64-row tile. The NeRF head: out [n, 8]
+// float32 (columns 0..3 the rgb head, 4..7 the sigma head) and, with stash,
+// every activation the backward reads (x, a0..a7, bottleneck, v, hv).
+// IN_SH, the NeRF-SH head over the same trunk: out = rgb [n, num_rgb] and
+// sig [n]. STAGED (a backward's forward): each layer's output goes through
+// the warpgroup's staging block, which a bulk copy stores to the activation
 // stash; otherwise it stays in registers.
 template <int MODE, bool PROMOTE, bool STAGED, class Ring>
-__device__ __forceinline__ void forward_tile(const float* x, const float* v, const bf16* w, float* out,
-                                             long long n, uint32_t* stash, int S, int R, long long tile64,
-                                             uint4* xv, const Staging& stg, const Ring& ring, int& j) {
+__device__ __forceinline__ void forward_tile(const float* x, const float* v, const bf16* w, float* out, float* sig,
+                                             long long n, int num_rgb, uint32_t* stash, int S, int R,
+                                             long long tile64, uint4* xv, const Staging& stg, const Ring& ring,
+                                             int& j) {
+  constexpr bool SH = MODE == IN_SH;
+  const int B = SH ? SH_B : SW_B;  // the trunk's biases
   const Lane L;
   const int wtid = threadIdx.x & 127;
   load_inputs<MODE>(x, v, n, S, R, tile64, xv, stash, L);
@@ -727,39 +854,60 @@ __device__ __forceinline__ void forward_tile(const float* x, const float* v, con
   using Relu = std::true_type;
   using Linear = std::false_type;
   auto fa = [&](int kb) { return frag_of(a, kb); };
-  mma_layer<256, 64, 64, PROMOTE>(xf, act(SW_B, Relu{}), ring, j);
+  mma_layer<256, 64, 64, PROMOTE>(xf, act(B, Relu{}), ring, j);
   next(a, mlp::A_TRUNK, 64);
 #pragma unroll 1
   for (int l = 1; l <= 4; ++l) {
-    mma_layer<256, 256, 64, PROMOTE>(fa, act(SW_B + l * 256, Relu{}), ring, j);
+    mma_layer<256, 256, 64, PROMOTE>(fa, act(B + l * 256, Relu{}), ring, j);
     next(a, mlp::A_TRUNK + l * 256, 64);
   }
   // trunk_5 reads [x | h4]
   mma_layer<256, 320, 64, PROMOTE>([&](int kb) { return kb < 4 ? xf(kb) : frag_of(a, kb - 4); },
-                                   act(SW_B + 5 * 256, Relu{}), ring, j);
+                                   act(B + 5 * 256, Relu{}), ring, j);
   next(a, mlp::A_TRUNK + 5 * 256, 64);
 #pragma unroll 1
   for (int l = 6; l <= 7; ++l) {
-    mma_layer<256, 256, 64, PROMOTE>(fa, act(SW_B + l * 256, Relu{}), ring, j);
+    mma_layer<256, 256, 64, PROMOTE>(fa, act(B + l * 256, Relu{}), ring, j);
     next(a, mlp::A_TRUNK + l * 256, 64);
   }
-  mma_layer<8, 256, 256, PROMOTE>(
-      fa, [&](float (&acc)[4], int) { if (out) head_out(acc, w + SW_BSIG, out, 4, row_a, n, L); }, ring, j);
-  mma_layer<256, 256, 64, PROMOTE>(fa, act(SW_BB, Linear{}), ring, j);
-  next(a, mlp::A_BNECK, 64);
-  // the view layer reads [bottleneck | v]; hv's 32 fragments land in a
-  mma_layer<128, 288, 64, PROMOTE>([&](int kb) { return kb < 16 ? frag_of(a, kb) : xf(kb - 12); },
-                                   act(SW_BV, Relu{}), ring, j);
-  next(a, mlp::A_HV, 32);
-  mma_layer<8, 128, 128, PROMOTE>(
-      fa, [&](float (&acc)[4], int) { if (out) head_out(acc, w + SW_BRGB, out, 0, row_a, n, L); }, ring, j);
+  if constexpr (SH) {
+    mma_layer<8, 256, 256, PROMOTE>(
+        fa, [&](float (&acc)[4], int) { sigma_out(acc, w + SH_BSIG, sig, row_a, n, L); }, ring, j);
+    // the coefficient head over RN = num_rgb rounded up to 32 columns of
+    // its 128-row slabs: one product a width, each a whole wgmma pipeline
+    auto coef = [&](auto rn) {
+      constexpr int RN = decltype(rn)::value;
+      mma_layer<RN, 256, 64, PROMOTE, NP_MAX>(
+          fa, [&](float (&acc)[RN / 2], int) { coef_out<RN>(acc, w + SH_BRGB, out, num_rgb, row_a, n, L); }, ring,
+          j);
+    };
+    switch ((num_rgb + 31) / 32) {
+      case 1: coef(std::integral_constant<int, 32>{}); break;
+      case 2: coef(std::integral_constant<int, 64>{}); break;
+      case 3: coef(std::integral_constant<int, 96>{}); break;
+      default: coef(std::integral_constant<int, 128>{}); break;
+    }
+  } else {
+    mma_layer<8, 256, 256, PROMOTE>(
+        fa, [&](float (&acc)[4], int) { if (out) head_out(acc, w + SW_BSIG, out, 4, row_a, n, L); }, ring, j);
+    mma_layer<256, 256, 64, PROMOTE>(fa, act(SW_BB, Linear{}), ring, j);
+    next(a, mlp::A_BNECK, 64);
+    // the view layer reads [bottleneck | v]; hv's 32 fragments land in a
+    mma_layer<128, 288, 64, PROMOTE>([&](int kb) { return kb < 16 ? frag_of(a, kb) : xf(kb - 12); },
+                                     act(SW_BV, Relu{}), ring, j);
+    next(a, mlp::A_HV, 32);
+    mma_layer<8, 128, 128, PROMOTE>(
+        fa, [&](float (&acc)[4], int) { if (out) head_out(acc, w + SW_BRGB, out, 0, row_a, n, L); }, ring, j);
+  }
 }
 
 template <int MODE, bool PROMOTE, bool STAGED>
 __global__ void __launch_bounds__(THREADS, 1)
     sm90_fwd_kernel(const float* __restrict__ x, const float* __restrict__ v, const bf16* __restrict__ w,
-                    float* __restrict__ out, long long n, uint32_t* __restrict__ stash, int S, int R) {
+                    float* __restrict__ out, float* __restrict__ sig, long long n, int num_rgb,
+                    uint32_t* __restrict__ stash, int S, int R) {
   constexpr int STAGES = fwd_stages(STAGED);
+  constexpr int NSLABS = MODE == IN_SH ? SH_SLABS : FWD_SLABS;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* p = smem + STAGES * SLAB_BYTES;
   uint4* xv = reinterpret_cast<uint4*>(p) + (threadIdx.x >> 7) * XV_KB * 128;
@@ -771,13 +919,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   int* released = reinterpret_cast<int*>(full + STAGES);
   const long long tiles = (n + BLOCK_ROWS - 1) / BLOCK_ROWS;
   const int mine = static_cast<int>((tiles - 1 - blockIdx.x) / gridDim.x + 1);
-  const WeightRing<STAGES, FWD_SLABS> ring{smem, full, released, w, mine * FWD_SLABS};
+  const WeightRing<STAGES, NSLABS> ring{smem, full, released, w, mine * NSLABS};
   init_ring<STAGES>(full, released);
   if (threadIdx.x == 0) ring.prologue();
   int j = 0;
   for (int it = 0; it < mine; ++it) {
     const long long tile64 = (blockIdx.x + static_cast<long long>(it) * gridDim.x) * 2 + (threadIdx.x >> 7);
-    forward_tile<MODE, PROMOTE, STAGED>(x, v, w, out, n, stash, S, R, tile64, xv, stg, ring, j);
+    forward_tile<MODE, PROMOTE, STAGED>(x, v, w, out, sig, n, num_rgb, stash, S, R, tile64, xv, stg, ring, j);
   }
   if (STAGED && (threadIdx.x & 127) == 0) bulk_wait();
 }
@@ -793,10 +941,12 @@ inline long long padded_rows(long long n) { return (n + BLOCK_ROWS - 1) / BLOCK_
 
 // A persistent grid of one block per SM (or per 128-row tile, if fewer).
 // With a stash, each layer's output goes out by bulk copies (STAGED); PROMOTE
-// as mma_layer says.
+// as mma_layer says. IN_SH also takes sig [n] and num_rgb (1..SH_MAX_RGB),
+// out being the coefficients [n, num_rgb].
 template <int MODE, bool PROMOTE>
 inline cudaError_t launch_forward(const float* x, const float* v, const bf16* w, float* out, long long n,
-                                  bf16* stash, int S, int R, cudaStream_t stream) {
+                                  bf16* stash, int S, int R, cudaStream_t stream, float* sig = nullptr,
+                                  int num_rgb = 0) {
   if (n <= 0) return cudaSuccess;
   int sms = 0;
   cudaError_t err = sm_count(&sms);
@@ -808,12 +958,12 @@ inline cudaError_t launch_forward(const float* x, const float* v, const bf16* w,
     constexpr auto kernel = sm90_fwd_kernel<MODE, PROMOTE, true>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem(true));
     if (err != cudaSuccess) return err;
-    kernel<<<blocks, THREADS, fwd_smem(true), stream>>>(x, v, w, out, n, st, S, R);
+    kernel<<<blocks, THREADS, fwd_smem(true), stream>>>(x, v, w, out, sig, n, num_rgb, st, S, R);
   } else {
     constexpr auto kernel = sm90_fwd_kernel<MODE, PROMOTE, false>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem(false));
     if (err != cudaSuccess) return err;
-    kernel<<<blocks, THREADS, fwd_smem(false), stream>>>(x, v, w, out, n, st, S, R);
+    kernel<<<blocks, THREADS, fwd_smem(false), stream>>>(x, v, w, out, sig, n, num_rgb, st, S, R);
   }
   return cudaGetLastError();
 }

@@ -1,42 +1,35 @@
-// The mma.sync tile of the fused NeRF MLP for Hopper (sm_90a): the
-// weight-gradient backward fused_mlp_bwd.cu (K1b) runs on it, and the
-// NeRF-SH trunk (fused_sh_tile.cuh, K5) on its GEMM and stash code. Its
-// weight and gradient layouts, stash feature map, encoder (encode_col) and
-// fixed-order reduce are shared with the wgmma core (mlp_sm90.cuh), which
-// runs K1f, K1rf, K1rb and K2.
+// The mma.sync tile of the fused NeRF-SH trunk's weight-gradient backward
+// for Hopper (sm_90a): fused_sh_bwd.cu (K5b), through fused_sh_tile.cuh,
+// runs on its GEMM, stash and dW code. Its stash feature map, gradient
+// layout, encoder (encode_col) and fixed-order reduce are shared with the
+// wgmma core (mlp_sm90.cuh), which runs every other MLP kernel (K1f, K1b,
+// K1rf, K1rb, K2, K5f). Once K5b moves onto that core, the GEMM code here
+// (gemm_tile, dense_layer, the dX epilogue and mlp_dw_kernel) goes.
 //
-// The MLP is the 8x256 viewdirs NeRF MLP of models/nerf.py: trunk_0..7
-// with the [x, h] concat after trunk_4's relu, the sigma head, the
-// bottleneck, one 128-wide view layer over [bottleneck, views] and the
-// rgb head. Every product takes bf16 operands and accumulates in
-// float32 (mma.sync.m16n8k16), as the TPU kernels' _mm / mmT / mmBT do.
+// The feature maps are those of the 8x256 viewdirs NeRF MLP of
+// models/nerf.py: trunk_0..7 with the [x, h] concat after trunk_4's relu,
+// the sigma head, the bottleneck, one 128-wide view layer over
+// [bottleneck, views] and the rgb head. Every product takes bf16 operands
+// and accumulates in float32 (mma.sync.m16n8k16), as the TPU kernels' _mm
+// / mmT / mmBT do.
 //
-// Forward (forward_tile): a block owns a 64-row tile whose activations
-// stay in shared memory as bf16 and streams each layer's weights through
-// a double-buffered 32-deep K-slice with cp.async.
-//
-// Backward: the TPU kernel recomputes the forward per tile and adds each
-// tile's dW into resident gradient blocks, which works because its grid
-// runs in order. Here blocks run in parallel, and one row's activations
-// (3,040 values) do not fit a block's shared memory for a useful tile,
-// so the backward is three passes over bf16 stashes in device memory:
-//   1. forward_tile writes every activation the backward reads (x, a0..a7,
-//      bottleneck, v, hv) to the activation stash A, feature-major
-//      ([feature][row], rows padded to 64);
-//   2. mlp_dx_kernel walks the gradient down the layers for a 64-row tile
-//      (dX products with the transposed weights, relu masks from A),
-//      writes each layer's output gradient, rounded to bf16, to the
-//      gradient stash G, and sums the float32 gradients into bias
-//      partials per block (fixed row order);
-//   3. mlp_dw_kernel computes dW = A^T G for every layer as a split-K
-//      product over rows: each block owns a 128x128 tile of one dW and a
-//      fixed span of rows and writes its partial; mlp_grad_reduce_kernel
-//      sums the partials over the splits, and the bias partials over the
-//      blocks, in a fixed order. The result is the same bits on every run.
-// The bf16 stashes hold exactly what the reference rounds to bf16 at its
-// products (mmT rounds both operands, mmBT rounds g), and relu masks of
-// a bf16 value have the sign of the float32 one, so the stash changes no
-// number.
+// A block owns a 64-row tile whose activations stay in shared memory as
+// bf16 and streams each layer's weights through a double-buffered 32-deep
+// K-slice with cp.async (dense_layer). The backward is three passes over
+// bf16 stashes in device memory, feature-major ([feature][row], rows padded
+// to 64): the forward writes every activation the backward reads to the
+// activation stash (stash_cols); a dX pass walks the gradient down the
+// layers (dX products with the transposed weights, relu masks from the
+// activation stash; dx_epilogue), writes each layer's output gradient,
+// rounded to bf16, to the gradient stash and sums the float32 gradients
+// into bias partials per block; mlp_dw_kernel computes dW = A^T G as a
+// split-K product over rows, each block a 128x128 tile of one dW over a
+// fixed span of rows; a last pass sums the partials over the splits, and
+// the bias partials over the blocks, in a fixed order. The result is the
+// same bits on every run. The bf16 stashes hold exactly what the reference
+// rounds to bf16 at its products (mmT rounds both operands, mmBT rounds
+// g), and relu masks of a bf16 value have the sign of the float32 one, so
+// the stash changes no number.
 
 #pragma once
 
@@ -56,35 +49,9 @@ constexpr int KS = 32;        // depth of a staged weight slice
 constexpr int WS = KS + 8;    // padded row stride of a staged slice (bf16)
 constexpr int AS = 352 + 8;   // padded row stride of the activation tile (bf16)
 constexpr int GS = 256 + 8;   // padded row stride of the gradient tile (bf16)
-constexpr int COL_X = 0;      // activation columns: [x 0..63 | h 64..319 | v 320..351]
+constexpr int COL_X = 0;      // activation columns: [x 0..63 | h 64..319]
 constexpr int COL_H = 64;
-constexpr int COL_V = 320;
 constexpr float HALF_PI = 1.5707963267948966f;
-
-// Forward weight buffer (ops/kernels/fused_mlp.py::KERNEL_LAYOUT): the
-// matrices as [out][in], the heads' four columns, then the biases.
-constexpr long long OFF_W0 = 0;                       // [256][64]
-constexpr long long OFF_W1 = OFF_W0 + 256 * 64;       // w1..w4, [256][256] each
-constexpr long long OFF_W5 = OFF_W1 + 4 * 256 * 256;  // [256][320]
-constexpr long long OFF_W6 = OFF_W5 + 256 * 320;      // w6, w7, [256][256] each
-constexpr long long OFF_WB = OFF_W6 + 2 * 256 * 256;  // [256][256]
-constexpr long long OFF_WV = OFF_WB + 256 * 256;      // [128][288]
-constexpr long long OFF_WSIG = OFF_WV + 128 * 288;    // [4][256]
-constexpr long long OFF_WRGB = OFF_WSIG + 4 * 256;    // [4][128]
-constexpr long long OFF_B = OFF_WRGB + 4 * 128;       // b0..b7, [256] each
-constexpr long long OFF_BB = OFF_B + 8 * 256;         // [256]
-constexpr long long OFF_BV = OFF_BB + 256;            // [128]
-constexpr long long OFF_BSIG = OFF_BV + 128;          // [4]
-constexpr long long OFF_BRGB = OFF_BSIG + 4;          // [4]
-constexpr long long N_WEIGHTS = OFF_BRGB + 4;
-
-// Backward weight buffer (ops/kernels/fused_mlp.py::KERNEL_LAYOUT_BWD):
-// the matrices of the dX products as [in][out].
-constexpr long long OFFT_WV = 0;                      // [256][128], view_0's bottleneck rows
-constexpr long long OFFT_WB = OFFT_WV + 256 * 128;    // [256][256]
-constexpr long long OFFT_W7 = OFFT_WB + 256 * 256;    // w7, w6, w5 (h rows), w4, w3, w2, w1
-constexpr long long NT_WEIGHTS = OFFT_W7 + 7 * 256 * 256;
-__host__ __device__ constexpr long long offt_trunk(int l) { return OFFT_W7 + (7 - l) * 256 * 256; }
 
 // Activation stash features: x, a0..a7, bottleneck, v, hv ([bottleneck | v]
 // is view_0's input, contiguous).
@@ -121,8 +88,6 @@ constexpr long long GRAD_ELEMS = GBRGB + 128;
 
 constexpr int FWD_SMEM_BYTES = (BM * AS + 2 * 256 * WS) * 2;
 constexpr int DX_MAX_BLOCKS = 264;  // fixed, so the bias sums' order does not depend on the card
-constexpr int DX_SMEM_BYTES =
-    (BM * GS + 2 * 256 * WS) * 2 + (BM * 8 + 2 * 256 + G_FEATS) * 4;
 constexpr int DW_TILE = 128;
 constexpr int DW_SMEM_BYTES = 2 * 2 * DW_TILE * WS * 2;
 constexpr unsigned FULL = 0xffffffffu;
@@ -270,18 +235,6 @@ __device__ __forceinline__ void dense_layer(bf16* act, bf16* wbuf, const bf16* w
   __syncthreads();
 }
 
-// float32 dot product of k bf16 pairs (k even).
-__device__ __forceinline__ float dot_bf16(const bf16* a, const bf16* b, int k) {
-  float s = 0.f;
-  for (int i = 0; i < k; i += 2) {
-    const float2 av = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a + i));
-    const float2 bv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b + i));
-    s = fmaf(av.x, bv.x, s);
-    s = fmaf(av.y, bv.y, s);
-  }
-  return s;
-}
-
 // Copy columns col..col+ncols of a 64-row bf16 tile (row stride ld_tile)
 // to stash features feat..feat+ncols, rows row_base..row_base+63 (stash
 // row stride ld). Reads the tile only.
@@ -294,25 +247,6 @@ __device__ __forceinline__ void stash_cols(const bf16* tile, int ld_tile, int co
     val.x = tile[rp * ld_tile + col + c];
     val.y = tile[(rp + 1) * ld_tile + col + c];
     *reinterpret_cast<__nv_bfloat162*>(stash + (feat + c) * ld + row_base + rp) = val;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Inputs of a forward tile
-// ---------------------------------------------------------------------------
-
-// A [BM, C] float32 tile (row stride C) as bf16 into act columns col..col+C.
-template <int C>
-__device__ __forceinline__ void load_input(bf16* act, const float* src, long long row_base,
-                                           long long n, int col) {
-  constexpr int V4 = C / 4;
-  for (int i = threadIdx.x; i < BM * V4; i += THREADS) {
-    const int r = i / V4, c = (i % V4) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row_base + r < n) val = *reinterpret_cast<const float4*>(src + (row_base + r) * C + c);
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(act + r * AS + col + c);
-    dst[0] = __floats2bfloat162_rn(val.x, val.y);
-    dst[1] = __floats2bfloat162_rn(val.z, val.w);
   }
 }
 
@@ -333,66 +267,6 @@ __device__ __forceinline__ float encode_col(const float* p, int c, int n_freqs) 
 }
 
 // ---------------------------------------------------------------------------
-// Forward
-// ---------------------------------------------------------------------------
-
-// The forward of one 64-row tile whose inputs are in act (x columns 0..63,
-// v 320..351, synchronised), writing every activation the backward reads
-// (x, a0..a7, bottleneck, v, hv) to the activation stash; the heads'
-// outputs are not needed there and not computed.
-__device__ __forceinline__ void forward_tile(bf16* act, bf16* wbuf, const bf16* w,
-                                             long long row_base, bf16* stash, long long ld) {
-  stash_cols(act, AS, COL_X, 64, stash, A_X, ld, row_base);
-  stash_cols(act, AS, COL_V, 32, stash, A_V, ld, row_base);
-  dense_layer<256, true>(act, wbuf, w + OFF_W0, w + OFF_B, 64, COL_X, COL_H);
-  stash_cols(act, AS, COL_H, 256, stash, A_TRUNK, ld, row_base);
-  for (int l = 1; l <= 4; ++l) {
-    dense_layer<256, true>(act, wbuf, w + OFF_W1 + (l - 1) * 256 * 256, w + OFF_B + l * 256,
-                           256, COL_H, COL_H);
-    stash_cols(act, AS, COL_H, 256, stash, A_TRUNK + l * 256, ld, row_base);
-  }
-  // trunk_5 reads [x | h4], columns 0..319
-  dense_layer<256, true>(act, wbuf, w + OFF_W5, w + OFF_B + 5 * 256, 320, COL_X, COL_H);
-  stash_cols(act, AS, COL_H, 256, stash, A_TRUNK + 5 * 256, ld, row_base);
-  for (int l = 6; l <= 7; ++l) {
-    dense_layer<256, true>(act, wbuf, w + OFF_W6 + (l - 6) * 256 * 256, w + OFF_B + l * 256,
-                           256, COL_H, COL_H);
-    stash_cols(act, AS, COL_H, 256, stash, A_TRUNK + l * 256, ld, row_base);
-  }
-  dense_layer<256, false>(act, wbuf, w + OFF_WB, w + OFF_BB, 256, COL_H, COL_H);
-  stash_cols(act, AS, COL_H, 256, stash, A_BNECK, ld, row_base);
-  // view layer reads [bottleneck | v], columns 64..351
-  dense_layer<128, true>(act, wbuf, w + OFF_WV, w + OFF_BV, 288, COL_H, COL_H);
-  stash_cols(act, AS, COL_H, 128, stash, A_HV, ld, row_base);
-}
-
-// x [n, 64], v [n, 32] float32 per row -> the activation stash (row stride
-// ld).
-__global__ void __launch_bounds__(THREADS, 2)
-    mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ v,
-                   const bf16* __restrict__ w, long long n, bf16* __restrict__ stash, long long ld) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* act = reinterpret_cast<bf16*>(smem_raw);
-  bf16* wbuf = act + BM * AS;
-  const long long row_base = static_cast<long long>(blockIdx.x) * BM;
-  load_input<64>(act, x, row_base, n, COL_X);
-  load_input<32>(act, v, row_base, n, COL_V);
-  __syncthreads();
-  forward_tile(act, wbuf, w, row_base, stash, ld);
-}
-
-inline cudaError_t launch_forward(const float* x, const float* v, const bf16* w, long long n,
-                                  bf16* stash, long long ld, cudaStream_t stream) {
-  const long long blocks = (n + BM - 1) / BM;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         FWD_SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  mlp_fwd_kernel<<<static_cast<unsigned>(blocks), THREADS, FWD_SMEM_BYTES, stream>>>(x, v, w, n, stash, ld);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
 // Backward, pass 2: the gradient down the layers (dX)
 // ---------------------------------------------------------------------------
 
@@ -400,15 +274,12 @@ __device__ __forceinline__ bool positive(const bf16* A, int feat, long long ld, 
   return bf(A[static_cast<long long>(feat) * ld + row]) > 0.f;
 }
 
-// Epilogue of a dX product over a 64-row tile: acc (+ the sigma head's
-// rank-4 term for trunk_7), times the relu mask of activation feature
-// mask_feat.., rounded to bf16 into gt; the float32 column sums go to
-// db_acc[g_feat..] in a fixed order. Ends synchronised.
-template <bool MASK, bool SIGTERM>
-__device__ __forceinline__ void dx_epilogue(float (&acc)[2][8][4], bf16* gt, const float* g8s,
-                                            const bf16* w, const bf16* A, int mask_feat,
-                                            long long ld, long long row_base, float* colsum,
-                                            float* db_acc, int g_feat) {
+// Epilogue of a dX product over a 64-row tile: acc times the relu mask of
+// activation feature mask_feat.., rounded to bf16 into gt; the float32
+// column sums go to db_acc[g_feat..] in a fixed order. Ends synchronised.
+__device__ __forceinline__ void dx_epilogue(float (&acc)[2][8][4], bf16* gt, const bf16* A, int mask_feat,
+                                            long long ld, long long row_base, float* colsum, float* db_acc,
+                                            int g_feat) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = (warp >> 2) * 32;
@@ -424,21 +295,8 @@ __device__ __forceinline__ void dx_epilogue(float (&acc)[2][8][4], bf16* gt, con
         const int r = row0 + mt * 16 + g + 8 * half;
         float v0 = acc[mt][nt][2 * half];
         float v1 = acc[mt][nt][2 * half + 1];
-        if (SIGTERM) {
-          float t0 = 0.f, t1 = 0.f;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const float gs = round_bf16(g8s[r * 8 + 4 + c]);
-            t0 = fmaf(gs, bf(w[OFF_WSIG + c * 256 + n]), t0);
-            t1 = fmaf(gs, bf(w[OFF_WSIG + c * 256 + n + 1]), t1);
-          }
-          v0 += t0;
-          v1 += t1;
-        }
-        if (MASK) {
-          if (!positive(A, mask_feat + n, ld, row_base + r)) v0 = 0.f;
-          if (!positive(A, mask_feat + n + 1, ld, row_base + r)) v1 = 0.f;
-        }
+        if (!positive(A, mask_feat + n, ld, row_base + r)) v0 = 0.f;
+        if (!positive(A, mask_feat + n + 1, ld, row_base + r)) v1 = 0.f;
         *reinterpret_cast<__nv_bfloat162*>(gt + r * GS + n) = __floats2bfloat162_rn(v0, v1);
         s0 += v0;
         s1 += v1;
@@ -457,90 +315,10 @@ __device__ __forceinline__ void dx_epilogue(float (&acc)[2][8][4], bf16* gt, con
   for (int c = threadIdx.x; c < 256; c += THREADS) db_acc[g_feat + c] += colsum[c] + colsum[256 + c];
 }
 
-// g8 [n, 8] float32: columns 0..3 the gradient of the rgb head's output,
-// 4..7 the sigma head's. Writes G (bf16, [G_FEATS][ld]) and, per block,
-// the float32 bias-gradient sums db_part[blockIdx.x][G_FEATS].
-__global__ void __launch_bounds__(THREADS, 2)
-    mlp_dx_kernel(const float* __restrict__ g8, long long n, const bf16* __restrict__ w,
-                  const bf16* __restrict__ wt, const bf16* __restrict__ A,
-                  bf16* __restrict__ G, long long ld, int n_tiles, float* __restrict__ db_part) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* gt = reinterpret_cast<bf16*>(smem_raw);
-  bf16* wbuf = gt + BM * GS;
-  float* g8s = reinterpret_cast<float*>(wbuf + 2 * 256 * WS);
-  float* colsum = g8s + BM * 8;
-  float* db_acc = colsum + 2 * 256;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  for (int i = tid; i < G_FEATS; i += THREADS) db_acc[i] = 0.f;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long row_base = static_cast<long long>(tile) * BM;
-    __syncthreads();
-    for (int i = tid; i < BM * 8; i += THREADS) {
-      const long long row = row_base + i / 8;
-      g8s[i] = row < n ? g8[row * 8 + i % 8] : 0.f;
-    }
-    __syncthreads();
-    // the heads' bias gradients and their gradient stash
-    if (tid < 8) {
-      float s = 0.f;
-      for (int r = 0; r < BM; ++r) s += g8s[r * 8 + tid];
-      db_acc[G_RGB + tid] += s;
-    }
-    for (int i = tid; i < 8 * (BM / 2); i += THREADS) {
-      const int c = i / (BM / 2), rp = (i % (BM / 2)) * 2;
-      *reinterpret_cast<__nv_bfloat162*>(G + static_cast<long long>(G_RGB + c) * ld + row_base + rp) =
-          __floats2bfloat162_rn(g8s[rp * 8 + c], g8s[(rp + 1) * 8 + c]);
-    }
-    // view layer: g_hv = (g_rgb @ wrgb^T) * (hv > 0); thread: row tid % 64,
-    // columns (tid / 64) * 32 .. +32; a warp holds 32 rows of one column group
-    {
-      const int r = tid & 63, jg = tid >> 6;
-      float gr[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) gr[c] = round_bf16(g8s[r * 8 + c]);
-      for (int jj = 0; jj < 32; ++jj) {
-        const int j = jg * 32 + jj;
-        float val = 0.f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) val = fmaf(gr[c], bf(w[OFF_WRGB + c * 128 + j]), val);
-        if (!positive(A, A_HV + j, ld, row_base + r)) val = 0.f;
-        gt[r * GS + j] = __float2bfloat16_rn(val);
-        float s = val;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
-        if (lane == 0) colsum[(warp & 1) * 256 + j] = s;
-      }
-      __syncthreads();
-      for (int c = tid; c < 128; c += THREADS) db_acc[G_V + c] += colsum[c] + colsum[256 + c];
-      stash_cols(gt, GS, 0, 128, G, G_V, ld, row_base);
-    }
-    float acc[2][8][4];
-    // bottleneck: g_bneck = (g_hv @ wv^T)[:, :256]
-    gemm_tile<256>(gt, GS, 0, wbuf, wt + OFFT_WV, 128, acc);
-    dx_epilogue<false, false>(acc, gt, g8s, w, A, 0, ld, row_base, colsum, db_acc, G_B);
-    stash_cols(gt, GS, 0, 256, G, G_B, ld, row_base);
-    // trunk_7: (g_bneck @ wb^T + g_sig @ wsig^T) * (a7 > 0)
-    gemm_tile<256>(gt, GS, 0, wbuf, wt + OFFT_WB, 256, acc);
-    dx_epilogue<true, true>(acc, gt, g8s, w, A, A_TRUNK + 7 * 256, ld, row_base, colsum, db_acc,
-                            G_TRUNK + 7 * 256);
-    stash_cols(gt, GS, 0, 256, G, G_TRUNK + 7 * 256, ld, row_base);
-    // trunk_l for l = 6..0: (g_{l+1} @ w_{l+1}^T) * (a_l > 0); for l = 4
-    // the product takes w5's h rows only (x carries no gradient)
-    for (int l = 6; l >= 0; --l) {
-      gemm_tile<256>(gt, GS, 0, wbuf, wt + offt_trunk(l + 1), 256, acc);
-      dx_epilogue<true, false>(acc, gt, g8s, w, A, A_TRUNK + l * 256, ld, row_base, colsum,
-                               db_acc, G_TRUNK + l * 256);
-      stash_cols(gt, GS, 0, 256, G, G_TRUNK + l * 256, ld, row_base);
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < G_FEATS; i += THREADS)
-    db_part[static_cast<long long>(blockIdx.x) * G_FEATS + i] = db_acc[i];
-}
-
 // ---------------------------------------------------------------------------
-// Backward, pass 3: dW = A^T G, split over rows, then the fixed-order sums
+// Backward, pass 3: dW = A^T G, split over rows (a table of DW_ENTRIES
+// products, fused_sh_bwd.cu's), then the fixed-order sums (the wgmma core's
+// too)
 // ---------------------------------------------------------------------------
 
 struct DwEntry {
@@ -549,38 +327,11 @@ struct DwEntry {
   long long out_off;   // first element in the gradient buffer
   int out_ld;          // dW's padded width; columns n..out_ld are written as 0
 };
-constexpr int DW_ENTRIES = 13;
+constexpr int DW_ENTRIES = 11;
 struct DwTable {
   DwEntry e[DW_ENTRIES];
   int first_tile[DW_ENTRIES + 1];
 };
-
-inline DwTable dw_table() {
-  const DwEntry e[DW_ENTRIES] = {
-      {A_X, 64, G_TRUNK + 0 * 256, 256, GW0, 256},
-      {A_TRUNK + 0 * 256, 256, G_TRUNK + 1 * 256, 256, GW1 + 0 * 65536, 256},
-      {A_TRUNK + 1 * 256, 256, G_TRUNK + 2 * 256, 256, GW1 + 1 * 65536, 256},
-      {A_TRUNK + 2 * 256, 256, G_TRUNK + 3 * 256, 256, GW1 + 2 * 65536, 256},
-      {A_TRUNK + 3 * 256, 256, G_TRUNK + 4 * 256, 256, GW1 + 3 * 65536, 256},
-      {A_X, 64, G_TRUNK + 5 * 256, 256, GW5, 256},                         // w5: x rows
-      {A_TRUNK + 4 * 256, 256, G_TRUNK + 5 * 256, 256, GW5 + 64 * 256, 256},  // w5: h rows
-      {A_TRUNK + 5 * 256, 256, G_TRUNK + 6 * 256, 256, GW6, 256},
-      {A_TRUNK + 6 * 256, 256, G_TRUNK + 7 * 256, 256, GW6 + 65536, 256},
-      {A_TRUNK + 7 * 256, 256, G_SIG, 4, GWSIG, 128},
-      {A_TRUNK + 7 * 256, 256, G_B, 256, GWB, 256},
-      {A_BNECK, 288, G_V, 128, GWV, 128},  // [bottleneck | v]
-      {A_HV, 128, G_RGB, 4, GWRGB, 128},
-  };
-  DwTable tab;
-  int tiles = 0;
-  for (int i = 0; i < DW_ENTRIES; ++i) {
-    tab.e[i] = e[i];
-    tab.first_tile[i] = tiles;
-    tiles += ((e[i].m + DW_TILE - 1) / DW_TILE) * ((e[i].out_ld + DW_TILE - 1) / DW_TILE);
-  }
-  tab.first_tile[DW_ENTRIES] = tiles;
-  return tab;
-}
 
 // Stage src features feat0..feat0+128 (those below `valid`; zeros past
 // it), rows k0..k0+KS, into a padded [128][WS] slice.
@@ -708,7 +459,7 @@ __global__ void mlp_grad_reduce_kernel(const float* __restrict__ part, int split
 }
 
 // ---------------------------------------------------------------------------
-// Host side: workspace and the backward passes
+// Host side
 // ---------------------------------------------------------------------------
 
 inline long long align256(long long bytes) { return (bytes + 255) / 256 * 256; }
@@ -716,64 +467,6 @@ inline long long padded_rows(long long n) { return (n + BM - 1) / BM * BM; }
 inline int max_splits(long long npad) {
   const long long s = npad / 16384;
   return s < 1 ? 1 : (s > 16 ? 16 : static_cast<int>(s));
-}
-
-struct Workspace {
-  bf16* A;        // [A_FEATS][npad]
-  bf16* G;        // [G_FEATS][npad]
-  float* part;    // [splits][GB0]
-  float* db_part; // [DX_MAX_BLOCKS][G_FEATS]
-};
-
-inline long long workspace_bytes(long long n) {
-  const long long npad = padded_rows(n);
-  return align256(A_FEATS * npad * 2) + align256(G_FEATS * npad * 2) +
-         align256(max_splits(npad) * GB0 * 4) + align256(DX_MAX_BLOCKS * G_FEATS * 4LL);
-}
-
-inline Workspace carve(void* base, long long n) {
-  const long long npad = padded_rows(n);
-  char* p = static_cast<char*>(base);
-  Workspace ws{};
-  ws.A = reinterpret_cast<bf16*>(p);
-  p += align256(A_FEATS * npad * 2);
-  ws.G = reinterpret_cast<bf16*>(p);
-  p += align256(G_FEATS * npad * 2);
-  ws.part = reinterpret_cast<float*>(p);
-  p += align256(max_splits(npad) * GB0 * 4);
-  ws.db_part = reinterpret_cast<float*>(p);
-  return ws;
-}
-
-// Passes 2 and 3 over a filled activation stash: g8 [n, 8] -> grads
-// [GRAD_ELEMS] float32.
-inline cudaError_t run_backward(const float* g8, long long n, const bf16* w, const bf16* wt,
-                                const Workspace& ws, float* grads, cudaStream_t stream) {
-  const long long npad = padded_rows(n);
-  const long long n_tiles = npad / BM;
-  if (n_tiles > INT_MAX) return cudaErrorInvalidValue;
-  const int dx_blocks = n_tiles < DX_MAX_BLOCKS ? static_cast<int>(n_tiles) : DX_MAX_BLOCKS;
-  cudaError_t err = cudaFuncSetAttribute(mlp_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         DX_SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  mlp_dx_kernel<<<dx_blocks, THREADS, DX_SMEM_BYTES, stream>>>(
-      g8, n, w, wt, ws.A, ws.G, npad, static_cast<int>(n_tiles), ws.db_part);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  const int splits_max = max_splits(npad);
-  const long long rows_per_split = ((npad + splits_max - 1) / splits_max + BM - 1) / BM * BM;
-  const int splits = static_cast<int>((npad + rows_per_split - 1) / rows_per_split);
-  const DwTable tab = dw_table();
-  err = cudaFuncSetAttribute(mlp_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             DW_SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  mlp_dw_kernel<<<dim3(tab.first_tile[DW_ENTRIES], splits), THREADS, DW_SMEM_BYTES, stream>>>(
-      ws.A, ws.G, npad, rows_per_split, ws.part, tab);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  mlp_grad_reduce_kernel<<<static_cast<unsigned>((GRAD_ELEMS + 255) / 256), 256, 0, stream>>>(
-      ws.part, splits, ws.db_part, dx_blocks, grads);
-  return cudaGetLastError();
 }
 
 }  // namespace mlp

@@ -15,8 +15,8 @@ with ctypes), each with a launch counter and its plain PyTorch version:
   ``fused_nerf_mlp_reference`` over ``pack_params``.
 - ``fused_mlp_bwd`` (``csrc/fused_mlp_bwd.cu``, K1b): the 24 padded
   weight gradients from the inputs and the output gradient, recomputing
-  the forward, on the mma.sync tile (``csrc/mlp_tile.cuh``) over
-  ``kernel_weights(model)`` and ``kernel_weights_bwd(model)``; plain:
+  the forward, on the wgmma core over ``kernel_weights_sm90(model)`` (K1f's
+  buffer) and ``kernel_weights_sm90_bwd(model)``; plain:
   ``fused_mlp_bwd_reference`` over ``mlp_backward_reference``, with the
   same bf16 rounding points.
 - ``fused_mlp_raw_fwd`` / ``fused_mlp_raw_bwd`` (``csrc/fused_mlp_raw_fwd.cu``
@@ -28,7 +28,7 @@ with ctypes), each with a launch counter and its plain PyTorch version:
   ``fused_nerf_mlp_raw_reference`` and ``fused_mlp_raw_bwd_reference``.
 
 ``forward_weights`` / ``backward_weights`` say which buffers each route's
-kernels take.
+kernels take: one forward gather a route, which its backward reuses.
 
 ``fused_nerf_mlp`` / ``fused_apply`` (encodings) and ``fused_nerf_mlp_raw``
 / ``fused_apply_raw`` (raw points) take a ``NeRFMLP`` and are
@@ -386,9 +386,10 @@ def fused_mlp_raw_bwd_reference(W: FusedMLPWeights, p: torch.Tensor, v: torch.Te
 # The kernel
 # ---------------------------------------------------------------------------
 
-# The forward weight buffer, in order: (field, rows, cols) of each piece,
-# [out][in] as nn.Linear holds it; the heads keep four rows. Offsets must
-# match OFF_* in csrc/mlp_tile.cuh.
+# The staging layout the wgmma core's buffers are built from (in float64,
+# over the model's parameters): (field, rows, cols) of each piece, [out][in]
+# as nn.Linear holds it, the inputs padded as the kernels read them; the
+# heads keep four rows.
 KERNEL_LAYOUT = (
     ("w0", 256, 64), ("w1", 256, 256), ("w2", 256, 256), ("w3", 256, 256),
     ("w4", 256, 256), ("w5", 256, 320), ("w6", 256, 256), ("w7", 256, 256),
@@ -397,15 +398,15 @@ KERNEL_LAYOUT = (
     ("b4", 1, 256), ("b5", 1, 256), ("b6", 1, 256), ("b7", 1, 256),
     ("bb", 1, 256), ("bv", 1, 128), ("bsig", 1, 4), ("brgb", 1, 4),
 )
-# The backward weight buffer: the matrices of the dX products as [in][out]
-# (view_0's bottleneck rows, trunk_5's h rows). Offsets: OFFT_* in
-# csrc/mlp_tile.cuh.
+# The staging layout of the dX products' matrices, [in][out] (view_0's
+# bottleneck rows, trunk_5's h rows).
 KERNEL_LAYOUT_BWD = (
     ("wv", 256, 128), ("wb", 256, 256), ("w7", 256, 256), ("w6", 256, 256),
     ("w5", 256, 256), ("w4", 256, 256), ("w3", 256, 256), ("w2", 256, 256),
     ("w1", 256, 256),
 )
-# FusedMLPWeights' padded shapes: the layout of the kernels' gradient buffer.
+# FusedMLPWeights' padded shapes: the layout of the kernels' gradient buffer
+# (GW* in csrc/mlp_tile.cuh).
 GRAD_SHAPES = (
     (64, 256), (256, 256), (256, 256), (256, 256), (256, 256), (320, 256),
     (256, 256), (256, 256), (256, 128), (256, 256), (288, 128), (128, 128),
@@ -458,7 +459,7 @@ def _fill(layout, sources) -> torch.Tensor:
 
 
 def _build_kernel_weights(model: NeRFMLP, raw_layout: bool) -> torch.Tensor:
-    """The forward buffer in float64 from a model on the host."""
+    """The KERNEL_LAYOUT staging buffer in float64 from a model on the host."""
     t, sig, bn, v0, rgb = model.trunk, model.sigma_head, model.bottleneck, model.view_0, model.rgb_head
     dev = t[0].weight.device
     pp = _perm_index(10, dev) if raw_layout else slice(None)
@@ -480,7 +481,7 @@ def _build_kernel_weights(model: NeRFMLP, raw_layout: bool) -> torch.Tensor:
 
 
 def _build_kernel_weights_bwd(model: NeRFMLP) -> torch.Tensor:
-    """The backward buffer in float64 from a model on the host."""
+    """The KERNEL_LAYOUT_BWD staging buffer in float64 from a model on the host."""
     t = model.trunk
     sources = {f"w{i}": ((t[i].weight.T, 0),) for i in (1, 2, 3, 4, 6, 7)}
     sources.update(
@@ -518,12 +519,18 @@ def sm90_slabs(m: torch.Tensor, n: int, k: int, kd: int) -> torch.Tensor:
     return torch.cat(out)
 
 
+def sm90_buffer(staged: torch.Tensor, layout, slab_layout, biases) -> torch.Tensor:
+    """A staging buffer of ``layout`` -> a wgmma core buffer: each matrix of
+    ``slab_layout`` as ``sm90_slabs`` stores it, then each bias of
+    ``biases`` zero-padded to its length."""
+    p = _pieces(staged, layout)
+    mats = [sm90_slabs(p[name], n, k, kd) for name, n, k, kd in slab_layout]
+    return torch.cat(mats + [F.pad(p[name].reshape(-1), (0, n - p[name].numel())) for name, n in biases])
+
+
 def _build_kernel_weights_sm90(model: NeRFMLP, raw_layout: bool) -> torch.Tensor:
     """The wgmma core's forward buffer in float64 from a model on the host."""
-    p = _pieces(_build_kernel_weights(model, raw_layout), KERNEL_LAYOUT)
-    mats = [sm90_slabs(p[name], n, k, kd) for name, n, k, kd in SM90_LAYOUT]
-    biases = [F.pad(p[name].reshape(-1), (0, n - p[name].numel())) for name, n in SM90_BIASES]
-    return torch.cat(mats + biases)
+    return sm90_buffer(_build_kernel_weights(model, raw_layout), KERNEL_LAYOUT, SM90_LAYOUT, SM90_BIASES)
 
 
 def _build_kernel_weights_sm90_bwd(model: NeRFMLP) -> torch.Tensor:
@@ -560,33 +567,12 @@ def gather_weights(model: torch.nn.Module, layout, build) -> torch.Tensor:
     return flat.to(torch.bfloat16)[index]
 
 
-def _gathered(model: NeRFMLP, bwd: bool, raw_layout: bool = False) -> torch.Tensor:
-    _check_arch(model)
-    if bwd:
-        return gather_weights(model, ("fused_mlp_bwd",), _build_kernel_weights_bwd)
-    return gather_weights(model, ("fused_mlp", raw_layout),
-                          lambda probe: _build_kernel_weights(probe, raw_layout))
-
-
-def kernel_weights(model: NeRFMLP, raw_layout: bool = False) -> torch.Tensor:
-    """The kernels' flat bf16 forward weight buffer (KERNEL_LAYOUT), built
-    from the 8x256 viewdirs ``NeRFMLP``'s parameters (input rows permuted
-    to the block encoding with ``raw_layout``). Gathered afresh on every
-    call: no cache can miss a write through ``p.data``."""
-    return _gathered(model, bwd=False, raw_layout=raw_layout)
-
-
-def kernel_weights_bwd(model: NeRFMLP) -> torch.Tensor:
-    """The backward kernels' flat bf16 buffer of transposed weights
-    (KERNEL_LAYOUT_BWD), gathered afresh on every call like
-    ``kernel_weights``."""
-    return _gathered(model, bwd=True)
-
-
 def kernel_weights_sm90(model: NeRFMLP, raw_layout: bool = False) -> torch.Tensor:
     """The wgmma core's flat bf16 forward buffer (``SM90_LAYOUT`` slabs, then
-    ``SM90_BIASES``): ``kernel_weights``' entries in the slab order, gathered
-    afresh on every call like it."""
+    ``SM90_BIASES``) from the 8x256 viewdirs ``NeRFMLP``'s parameters (input
+    rows permuted to the block encoding with ``raw_layout``): each entry of
+    the ``KERNEL_LAYOUT`` staging buffer once, in the slab order. Gathered
+    afresh on every call: no cache can miss a write through ``p.data``."""
     _check_arch(model)
     return gather_weights(model, ("fused_mlp_sm90", raw_layout),
                           lambda probe: _build_kernel_weights_sm90(probe, raw_layout))
@@ -719,10 +705,10 @@ def fused_mlp_fwd(wk: torch.Tensor, x: torch.Tensor, v: torch.Tensor) -> torch.T
 
 def fused_mlp_bwd(wk: torch.Tensor, wkt: torch.Tensor, x: torch.Tensor, v: torch.Tensor,
                   g: torch.Tensor) -> FusedMLPWeights:
-    """Launch the backward kernel (K1b): wk / wkt the ``kernel_weights`` /
-    ``kernel_weights_bwd`` buffers, x [N, 64], v [N, 32] and the output
-    gradient g [N, 8] float32 on one card -> the padded float32 weight
-    gradients (views into one buffer). Any N >= 0."""
+    """Launch the backward kernel (K1b): wk / wkt the ``kernel_weights_sm90``
+    / ``kernel_weights_sm90_bwd`` buffers, x [N, 64], v [N, 32] and the
+    output gradient g [N, 8] float32 (all eight columns read) on one card ->
+    the padded float32 weight gradients (views into one buffer). Any N >= 0."""
     return _launch_bwd(fused_mlp_bwd, wk, wkt, x, v, g, 64, 32)
 
 
@@ -756,12 +742,10 @@ def forward_weights(model: NeRFMLP, raw: bool) -> torch.Tensor:
 
 def backward_weights(model: NeRFMLP, raw: bool, wk: torch.Tensor) -> tuple:
     """The (forward, dX) buffers a route's weight-gradient kernel takes,
-    given ``wk`` from ``forward_weights``: K1rb reuses K1rf's gather; K1b is
-    still on mlp_tile.cuh's tile and gathers its own layouts, a second
-    gather that ends when K1b moves onto the wgmma core (ROADMAP 11c)."""
-    if raw:
-        return wk, kernel_weights_sm90_bwd(model)
-    return kernel_weights(model), kernel_weights_bwd(model)
+    given ``wk`` from ``forward_weights(model, raw)``: K1b and K1rb reuse
+    their route's forward gather and gather only the dX buffer, which has
+    no raw layout (the dX products never read the permuted input rows)."""
+    return wk, kernel_weights_sm90_bwd(model)
 
 
 class _FusedNeRFMLP(torch.autograd.Function):

@@ -12,16 +12,20 @@ Kernels (CUDA C++ for sm_90a under ``csrc/``, built with nvcc and loaded
 with ctypes), each with a launch counter and its plain PyTorch version:
 
 - ``fused_sh_fwd`` (``csrc/fused_sh_fwd.cu``, K5f): x [n, 63] -> the
-  coefficient head [n, num_rgb] and the sigma head [n, 1]; plain:
-  ``fused_sh_mlp_reference`` over ``pack_sh_params``.
+  coefficient head [n, num_rgb] and the sigma head [n, 1], on the NeRF
+  MLP's wgmma core (``csrc/mlp_sm90.cuh``) over ``kernel_weights_sm90(mlp)``;
+  plain: ``fused_sh_mlp_reference`` over ``pack_sh_params``.
 - ``fused_sh_bwd`` (``csrc/fused_sh_bwd.cu``, K5b): the padded weight
   gradients from x and the heads' output gradients, recomputing the
-  forward; plain: ``fused_sh_bwd_reference``, with the same bf16 rounding
-  points.
+  forward, on the mma.sync tile (``csrc/fused_sh_tile.cuh`` over
+  ``mlp_tile.cuh``) over ``kernel_weights(mlp)`` and
+  ``kernel_weights_bwd(mlp)``; plain: ``fused_sh_bwd_reference``, with the
+  same bf16 rounding points.
 
-The kernels' tile keeps its activation columns as [x | h], so their
-weight buffer holds dense 5's input columns permuted to [x | h]
-(``_build_kernel_weights``) and their gradient buffer holds w5's rows in
+``forward_weights`` / ``backward_weights`` say which buffers the route
+hands each kernel. Both kernels keep the activation columns as [x | h], so
+their weight buffers hold dense 5's input columns permuted to [x | h]
+(``_build_kernel_weights``) and K5b's gradient buffer holds w5's rows in
 that order, which ``split_kernel_grads`` un-permutes to the reference's
 [h | x].
 
@@ -238,9 +242,9 @@ def fused_sh_bwd_reference(W: FusedSHWeights, x: torch.Tensor, g_rgb: torch.Tens
 # The kernels
 # ---------------------------------------------------------------------------
 
-# The forward weight buffer, in order: (field, rows, cols) of each piece,
+# K5b's forward weight buffer, in order: (field, rows, cols) of each piece,
 # [out][in] as nn.Linear holds it. Offsets must match OFF_* in
-# csrc/fused_sh_tile.cuh.
+# csrc/fused_sh_tile.cuh. K5f's buffer (SM90_LAYOUT) is built from it.
 KERNEL_LAYOUT = (
     ("w0", 256, 64), ("w1", 256, 256), ("w2", 256, 256), ("w3", 256, 256),
     ("w4", 256, 256), ("w5", 256, 320), ("w6", 256, 256), ("w7", 256, 256),
@@ -268,8 +272,8 @@ GRAD_ELEMS = sum(r * c for r, c in GRAD_SHAPES)
 
 
 def _build_kernel_weights(mlp) -> torch.Tensor:
-    """The forward buffer in float64 from a CondMLP on the host. Dense 5's
-    input columns go to the tile's [x 0..63 | h 64..319]."""
+    """K5b's forward buffer in float64 from a CondMLP on the host. Dense 5's
+    input columns go to the kernels' [x 0..63 | h 64..319]."""
     d = mlp.dense
     sources = {f"w{i}": ((d[i].weight, 0),) for i in range(8) if i != 5}
     sources.update({f"b{i}": ((d[i].bias[None], 0),) for i in range(8)})
@@ -291,12 +295,37 @@ def _build_kernel_weights_bwd(mlp) -> torch.Tensor:
     return fm._fill(kernel_layout_bwd(d[9].out_features), sources)
 
 
+# K5f's buffer on the wgmma core (csrc/mlp_sm90.cuh: the trunk at SW_W0..,
+# then SH_*): (field, N, K, KD) of each layer's [N][K] matrix as
+# fused_mlp.sm90_slabs stores it, KERNEL_LAYOUT's pieces with the sigma head
+# padded to 8 rows; then the biases, the sigma head's padded to 8.
+SM90_LAYOUT = (
+    ("w0", 256, 64, 64), ("w1", 256, 256, 64), ("w2", 256, 256, 64), ("w3", 256, 256, 64),
+    ("w4", 256, 256, 64), ("w5", 256, 320, 64), ("w6", 256, 256, 64), ("w7", 256, 256, 64),
+    ("wsig", 8, 256, 256), ("wrgb", MAX_RGB, 256, 64),
+)
+SM90_BIASES = tuple((f"b{i}", 256) for i in range(8)) + (("bsig", 8), ("brgb", MAX_RGB))
+
+
+def _build_kernel_weights_sm90(mlp) -> torch.Tensor:
+    """K5f's buffer in float64 from a CondMLP on the host."""
+    return fm.sm90_buffer(_build_kernel_weights(mlp), KERNEL_LAYOUT, SM90_LAYOUT, SM90_BIASES)
+
+
 def kernel_weights(mlp) -> torch.Tensor:
-    """The forward kernel's flat bf16 weight buffer (KERNEL_LAYOUT),
-    gathered afresh from the CondMLP's parameters on every call: no cache
-    can miss a write through ``p.data``."""
+    """K5b's flat bf16 forward weight buffer (KERNEL_LAYOUT), gathered
+    afresh from the CondMLP's parameters on every call: no cache can miss a
+    write through ``p.data``."""
     check_arch(mlp)
     return fm.gather_weights(mlp, ("fused_sh",), _build_kernel_weights)
+
+
+def kernel_weights_sm90(mlp) -> torch.Tensor:
+    """K5f's flat bf16 weight buffer on the wgmma core (``SM90_LAYOUT``
+    slabs, then ``SM90_BIASES``): each entry of ``kernel_weights``' buffer
+    once, gathered afresh on every call like it."""
+    check_arch(mlp)
+    return fm.gather_weights(mlp, ("fused_sh_sm90",), _build_kernel_weights_sm90)
 
 
 def kernel_weights_bwd(mlp) -> torch.Tensor:
@@ -349,9 +378,9 @@ def _check_num_rgb(num_rgb: int) -> None:
 
 
 def fused_sh_fwd(wk: torch.Tensor, x: torch.Tensor, num_rgb: int):
-    """Launch the forward kernel: wk a ``kernel_weights`` buffer, x [N, 63]
-    float32 on one card -> (coefficients [N, num_rgb], sigma [N, 1])
-    float32. Any N >= 0."""
+    """Launch the forward kernel (K5f): wk a ``kernel_weights_sm90`` buffer,
+    x [N, 63] float32 on one card -> (coefficients [N, num_rgb], sigma
+    [N, 1]) float32. Any N >= 0."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_sh_fwd runs on a CUDA device, got {x.device}")
     _check_num_rgb(num_rgb)
@@ -377,7 +406,7 @@ fused_sh_fwd.launches = 0
 
 def fused_sh_bwd(wk: torch.Tensor, wkt: torch.Tensor, x: torch.Tensor, g_rgb: torch.Tensor,
                  g_sig: torch.Tensor) -> FusedSHWeights:
-    """Launch the backward kernel: wk / wkt the ``kernel_weights`` /
+    """Launch the backward kernel (K5b): wk / wkt the ``kernel_weights`` /
     ``kernel_weights_bwd`` buffers, x [N, 63], the heads' output gradients
     g_rgb [N, num_rgb] and g_sig [N, 1] float32 on one card -> the padded
     float32 weight gradients in the reference's layout. Any N >= 0."""
@@ -408,6 +437,18 @@ def fused_sh_bwd(wk: torch.Tensor, wkt: torch.Tensor, x: torch.Tensor, g_rgb: to
 fused_sh_bwd.launches = 0
 
 
+def forward_weights(mlp) -> torch.Tensor:
+    """The buffer the route hands K5f: the wgmma core's."""
+    return kernel_weights_sm90(mlp)
+
+
+def backward_weights(mlp) -> tuple:
+    """The (forward, dX) buffers the route hands K5b, which stays on the
+    mma.sync tile and recomputes the trunk from its own layout: a second
+    gather beside the forward's, until K5b moves onto the wgmma core."""
+    return kernel_weights(mlp), kernel_weights_bwd(mlp)
+
+
 class _FusedSH(torch.autograd.Function):
     """Forward: the forward kernel (card) or its plain version (CPU).
     Backward: the backward kernel or its plain version, whose padded
@@ -418,8 +459,7 @@ class _FusedSH(torch.autograd.Function):
         ctx.mlp = mlp
         ctx.save_for_backward(x)
         if x.device.type == "cuda":
-            ctx.wk = kernel_weights(mlp)  # the backward reuses the forward's buffer
-            return fused_sh_fwd(ctx.wk, x, num_rgb)
+            return fused_sh_fwd(forward_weights(mlp), x, num_rgb)
         return fused_sh_mlp_reference(pack_sh_params(mlp), x, num_rgb)
 
     @staticmethod
@@ -428,7 +468,7 @@ class _FusedSH(torch.autograd.Function):
         mlp = ctx.mlp
         g_rgb, g_sig = g_rgb.float().contiguous(), g_sig.float().contiguous()
         if x.device.type == "cuda":
-            grads = fused_sh_bwd(ctx.wk, kernel_weights_bwd(mlp), x, g_rgb, g_sig)
+            grads = fused_sh_bwd(*backward_weights(mlp), x, g_rgb, g_sig)
         else:
             grads = fused_sh_bwd_reference(pack_sh_params(mlp), x, g_rgb, g_sig)
         named = unpack_sh_grads(grads, mlp)

@@ -92,8 +92,23 @@ def fused_train_level_reference(
     v = venc.repeat_interleave(S, dim=0)
     with _full_fp32_matmul(x.device):
         rgb_raw, sig_raw, acts = _fwd_tile(W, xe, v)
+    rgb_out, acc, w, d_rgb, d_sig = composite_grads(rgb_raw[:, :3], sig_raw[:, 0], dist, target, S=S,
+                                                    n_rays_total=n_rays_total, bkgd=bkgd)
+    g_rgb = F.pad(d_rgb, (0, 125))
+    g_sig = F.pad(d_sig[:, None], (0, 127))
+    grads = mlp_backward_reference(xe, W, acts, g_rgb, g_sig)
+    return rgb_out, acc, (w if want_weights else None), grads
 
-    logit = sig_raw[:, 0].reshape(n_rays, S)
+
+def composite_grads(rgb_raw: torch.Tensor, logit: torch.Tensor, dist: torch.Tensor, target: torch.Tensor, *,
+                    S: int, n_rays_total: int, bkgd: float):
+    """The level's compositing and the MSE loss's gradient at the MLP's
+    head outputs, term by term as the kernel (reference fused_train.py:
+    142-176): rgb_raw [N, 3] and the sigma logit [N] of the ray-major rows,
+    dist [N] (dist * |d|), target [N / S, 3] -> (rgb_out [n_rays, 3], acc
+    [n_rays], weights [n_rays, S], d_rgb [N, 3], d_sig [N])."""
+    n_rays = logit.shape[0] // S
+    logit = logit.reshape(n_rays, S)
     dist = dist.reshape(n_rays, S)
     tau = torch.relu(logit) * dist
     e = torch.exp(-tau)
@@ -101,7 +116,7 @@ def fused_train_level_reference(
     log_t = F.pad(torch.cumsum(lterm, dim=-1)[:, :-1], (1, 0))  # exclusive prefix
     tr = torch.exp(log_t)
     w = (1.0 - e) * tr
-    rgb3 = torch.sigmoid(rgb_raw[:, :3]).reshape(n_rays, S, 3)
+    rgb3 = torch.sigmoid(rgb_raw).reshape(n_rays, S, 3)
     acc = w.sum(-1)
     rgb_out = (w[..., None] * rgb3).sum(-2) + (1.0 - acc[:, None]) * bkgd
     g = 2.0 * (rgb_out - target) / (3.0 * n_rays_total)
@@ -112,12 +127,7 @@ def fused_train_level_reference(
     dtau = tr * e * s_row - r_eps * suf
     d_sig = dtau * dist * (logit > 0.0)
     d_rgb = g[:, None, :] * w[..., None] * rgb3 * (1.0 - rgb3)
-
-    n = n_rays * S
-    g_rgb = F.pad(d_rgb.reshape(n, 3), (0, 125))
-    g_sig = F.pad(d_sig.reshape(n, 1), (0, 127))
-    grads = mlp_backward_reference(xe, W, acts, g_rgb, g_sig)
-    return rgb_out, acc, (w if want_weights else None), grads
+    return rgb_out, acc, w, d_rgb.reshape(n_rays * S, 3), d_sig.reshape(n_rays * S)
 
 
 @functools.lru_cache(maxsize=None)

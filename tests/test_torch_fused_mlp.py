@@ -178,49 +178,64 @@ def _cuda_constants():
     return env
 
 
+def _cuda_layers(table):
+    """(n, k, kd) of each entry of a ``constexpr Layer`` table of
+    csrc/mlp_sm90.cuh."""
+    src = (Path(tfm.__file__).resolve().parents[2] / "csrc" / "mlp_sm90.cuh").read_text()
+    body = re.search(rf"constexpr Layer {table}\[\] = \{{(.*?)\n\}};", src, re.S).group(1)
+    return [tuple(int(v) for v in e) for e in re.findall(r"\{[^{}]*?,\s*(\d+),\s*(\d+),\s*(\d+)\}", body)]
+
+
 def test_kernel_layout_matches_cuda_source():
-    """KERNEL_LAYOUT's offsets are the OFF_* constants of the CUDA source."""
-    env = _cuda_constants()
-    offsets, total = {}, 0
-    for name, rows, cols in tfm.KERNEL_LAYOUT:
-        offsets[name] = total
-        total += rows * cols
-    assert env["N_WEIGHTS"] == total
-    for name in ("w0", "w1", "w5", "w6", "wb", "wv", "wsig", "wrgb", "bb", "bv", "bsig", "brgb"):
-        assert env[f"OFF_{name.upper()}"] == offsets[name], name
-    assert env["OFF_B"] == offsets["b0"]
+    """KERNEL_LAYOUT, the staging layout the wgmma core's buffer is built
+    from, holds each matrix the core's layer table (FWD_LAYERS) takes, in
+    its order, as [N][K] (the heads' N padded to 8 there); SM90_LAYOUT and
+    SM90_LAYOUT_BWD are FWD_LAYERS and DX_LAYERS."""
+    layers = _cuda_layers("FWD_LAYERS")
+    assert [(n, k, kd) for _, n, k, kd in tfm.SM90_LAYOUT] == layers
+    assert [(n, k, kd) for _, n, k, kd in tfm.SM90_LAYOUT_BWD] == _cuda_layers("DX_LAYERS")
+    staged = {name: (rows, cols) for name, rows, cols in tfm.KERNEL_LAYOUT}
+    for name, n, k, _ in tfm.SM90_LAYOUT:
+        rows, cols = staged[name]
+        assert cols == k and (rows == n or (rows == 4 and n == 8)), name
+    for name, n in tfm.SM90_BIASES:
+        rows, cols = staged[name]
+        assert rows == 1 and (cols == n or (cols == 4 and n == 8)), name
+    assert {name for name, _ in tfm.SM90_BIASES} | {name for name, *_ in tfm.SM90_LAYOUT} == set(staged)
 
 
 def test_kernel_weights_layout(full_width):
-    """Each piece of the flat buffer, built from the nn.Linear weights, is
-    the matching pack_params field (held against the JAX pack_params
-    above) transposed to [out][in], biases included."""
+    """Unslabbed, each piece of the wgmma core's forward buffer, built from
+    the nn.Linear weights, is the matching pack_params field (held against
+    the JAX pack_params above) transposed to [out][in], the heads' rows and
+    biases padded to 8."""
     _, model = full_width
     W = tfm.pack_params(model)
-    wk = tfm.kernel_weights(model)
+    wk = tfm.kernel_weights_sm90(model)
     assert wk.dtype == torch.bfloat16 and wk.ndim == 1
-    at = 0
-    for name, rows, cols in tfm.KERNEL_LAYOUT:
-        piece = wk[at: at + rows * cols].reshape(rows, cols)
-        field = getattr(W, name)
-        want = field[:, :cols] if name.startswith("b") else field.T[:rows]
-        torch.testing.assert_close(piece, want, rtol=0, atol=0)
-        at += rows * cols
+    offsets, at = _layout_offsets(tfm.SM90_LAYOUT)
+    for name, n, k, kd in tfm.SM90_LAYOUT:
+        want = getattr(W, name).T[:n]
+        want = torch.nn.functional.pad(want, (0, 0, 0, n - want.shape[0]))
+        torch.testing.assert_close(_unslab(wk, offsets[name], n, k, kd), want, rtol=0, atol=0, msg=name)
+    for name, n in tfm.SM90_BIASES:
+        torch.testing.assert_close(wk[at: at + n], getattr(W, name)[0, :n], rtol=0, atol=0, msg=name)
+        at += n
     assert at == wk.numel()
 
 
 def test_kernel_weights_is_kept_until_a_parameter_changes():
     model = NeRFMLP(depth=8, width=256, use_viewdirs=True).reset_parameters(torch.Generator().manual_seed(0))
-    wk = tfm.kernel_weights(model)
-    assert torch.equal(tfm.kernel_weights(model), wk)
+    wk = tfm.kernel_weights_sm90(model)
+    assert torch.equal(tfm.kernel_weights_sm90(model), wk)
     with torch.no_grad():
         model.sigma_head.bias.fill_(0.5)
-    wk2 = tfm.kernel_weights(model)
+    wk2 = tfm.kernel_weights_sm90(model)
     assert wk2 is not wk
-    bsig = sum(r * c for n, r, c in tfm.KERNEL_LAYOUT[: [n for n, _, _ in tfm.KERNEL_LAYOUT].index("bsig")])
+    bsig = _sm90_constants()["SW_BSIG"]
     assert wk2[bsig].item() == 0.5 and wk[bsig].item() == 0.0
     model.load_state_dict(NeRFMLP(depth=8, width=256, use_viewdirs=True).state_dict())
-    assert not torch.equal(tfm.kernel_weights(model), wk2)
+    assert not torch.equal(tfm.kernel_weights_sm90(model), wk2)
 
 
 def test_kernel_weights_rebuild_after_a_write_through_data():
@@ -233,17 +248,17 @@ def test_kernel_weights_rebuild_after_a_write_through_data():
 
     def follows_the_parameters(wk, wkt):
         fresh.load_state_dict(model.state_dict())
-        torch.testing.assert_close(wk, tfm.kernel_weights(fresh), rtol=0, atol=0)
-        torch.testing.assert_close(wkt, tfm.kernel_weights_bwd(fresh), rtol=0, atol=0)
+        torch.testing.assert_close(wk, tfm.kernel_weights_sm90(fresh), rtol=0, atol=0)
+        torch.testing.assert_close(wkt, tfm.kernel_weights_sm90_bwd(fresh), rtol=0, atol=0)
 
-    wk, wkt = tfm.kernel_weights(model), tfm.kernel_weights_bwd(model)
+    wk, wkt = tfm.kernel_weights_sm90(model), tfm.kernel_weights_sm90_bwd(model)
     model.trunk[1].weight.data.copy_(torch.randn(model.trunk[1].weight.shape, generator=gen))
     model.sigma_head.bias.data.fill_(0.25)
-    wk2, wkt2 = tfm.kernel_weights(model), tfm.kernel_weights_bwd(model)
+    wk2, wkt2 = tfm.kernel_weights_sm90(model), tfm.kernel_weights_sm90_bwd(model)
     assert not torch.equal(wk2, wk) and not torch.equal(wkt2, wkt)
     follows_the_parameters(wk2, wkt2)
     model.view_0.weight.data.mul_(0.5)
-    wk3, wkt3 = tfm.kernel_weights(model), tfm.kernel_weights_bwd(model)
+    wk3, wkt3 = tfm.kernel_weights_sm90(model), tfm.kernel_weights_sm90_bwd(model)
     assert not torch.equal(wk3, wk2) and not torch.equal(wkt3, wkt2)
     follows_the_parameters(wk3, wkt3)
 
@@ -324,9 +339,9 @@ def test_fused_apply_backward_on_cpu_runs_the_plain_version(full_width):
 
 def test_fused_mlp_bwd_refuses_host_tensors(full_width):
     _, model = full_width
+    wk, wkt = tfm.backward_weights(model, False, tfm.forward_weights(model, raw=False))
     with pytest.raises(ValueError, match="CUDA"):
-        tfm.fused_mlp_bwd(tfm.kernel_weights(model), tfm.kernel_weights_bwd(model),
-                          torch.zeros(8, 64), torch.zeros(8, 32), torch.zeros(8, 8))
+        tfm.fused_mlp_bwd(wk, wkt, torch.zeros(8, 64), torch.zeros(8, 32), torch.zeros(8, 8))
 
 
 @pytest.mark.parametrize("n_freqs,out_cols", [(10, 64), (4, 32)])
@@ -373,13 +388,13 @@ def test_unpack_grads_round_trip_and_matches_jax(full_width, raw_layout):
 
 
 def test_kernel_weights_raw_and_bwd_layouts(full_width):
-    """The raw-layout forward buffer is pack_params(raw_layout=True)
-    transposed, piece by piece; the backward buffer holds the dX
-    products' matrices as [in][out]; offsets match OFFT_* and the
-    gradient buffer's size matches GRAD_ELEMS of the CUDA source."""
+    """The raw-layout staging buffer is pack_params(raw_layout=True)
+    transposed, piece by piece; the dX staging buffer holds the dX
+    products' matrices as [in][out]; the gradient buffer's size matches
+    GRAD_ELEMS of the CUDA source."""
     _, model = full_width
-    W = tfm.pack_params(model, raw_layout=True)
-    wk = tfm.kernel_weights(model, raw_layout=True)
+    W = tfm.pack_params(model, dtype=torch.float64, raw_layout=True)
+    wk = tfm._build_kernel_weights(model, raw_layout=True)
     at = 0
     for name, rows, cols in tfm.KERNEL_LAYOUT:
         piece = wk[at: at + rows * cols].reshape(rows, cols)
@@ -387,23 +402,20 @@ def test_kernel_weights_raw_and_bwd_layouts(full_width):
         want = field[:, :cols] if name.startswith("b") else field.T[:rows]
         torch.testing.assert_close(piece, want, rtol=0, atol=0)
         at += rows * cols
-    assert torch.equal(tfm.kernel_weights(model, raw_layout=True), wk)
-    assert not torch.equal(tfm.kernel_weights(model), wk)
+    assert at == wk.numel()
+    assert not torch.equal(tfm._build_kernel_weights(model, raw_layout=False), wk)
 
-    Wp = tfm.pack_params(model)
-    wkt = tfm.kernel_weights_bwd(model)
-    env = _cuda_constants()
+    Wp = tfm.pack_params(model, dtype=torch.float64)
+    wkt = tfm._build_kernel_weights_bwd(model)
     fields = {"wv": Wp.wv[:256], "wb": Wp.wb, "w5": Wp.w5[64:320],
               **{f"w{i}": getattr(Wp, f"w{i}") for i in (1, 2, 3, 4, 6, 7)}}
     at = 0
     for name, rows, cols in tfm.KERNEL_LAYOUT_BWD:
         piece = wkt[at: at + rows * cols].reshape(rows, cols)
         torch.testing.assert_close(piece, fields[name], rtol=0, atol=0)
-        if name in ("wv", "wb", "w7"):
-            assert env[f"OFFT_{name.upper()}"] == at, name
         at += rows * cols
-    assert env["NT_WEIGHTS"] == at == wkt.numel()
-    assert env["GRAD_ELEMS"] == tfm.GRAD_ELEMS == 645_760
+    assert at == wkt.numel()
+    assert _cuda_constants()["GRAD_ELEMS"] == tfm.GRAD_ELEMS == 645_760
 
 
 def test_build_hash_tracks_included_headers(tmp_path):
@@ -422,19 +434,19 @@ def test_build_hash_tracks_included_headers(tmp_path):
         assert "mlp_tile.cuh" in [p.name for p in _build.sources(name)]
 
 
-@pytest.mark.parametrize("name", ["fused_mlp_fwd", "fused_train", "fused_mlp_raw_fwd", "fused_mlp_raw_bwd"])
+@pytest.mark.parametrize("name", ["fused_mlp_fwd", "fused_train", "fused_mlp_raw_fwd", "fused_mlp_raw_bwd",
+                                  "fused_mlp_bwd", "fused_sh_fwd"])
 def test_wgmma_kernels_build_over_the_core(name):
-    """K1f, K2, K1rf and K1rb include the wgmma core over the tile's
-    layouts, so an edit to either rebuilds them."""
+    """K1f, K2, K1rf, K1rb, K1b and K5f include the wgmma core over the
+    tile's layouts, so an edit to either rebuilds them."""
     from nerf_projects_tpu_torch.ops.kernels import _build
 
     assert [p.name for p in _build.sources(name)] == [f"{name}.cu", "mlp_sm90.cuh", "mlp_tile.cuh"]
 
 
-@pytest.mark.parametrize("name", ["fused_mlp_bwd", "fused_sh_fwd", "fused_sh_bwd"])
+@pytest.mark.parametrize("name", ["fused_sh_bwd"])
 def test_tile_kernels_do_not_build_over_the_core(name):
-    """K1b and K5 stay on the mma.sync tile: the core is not in their
-    sources."""
+    """K5b stays on the mma.sync tile: the core is not in its sources."""
     from nerf_projects_tpu_torch.ops.kernels import _build
 
     names = [p.name for p in _build.sources(name)]
@@ -568,6 +580,9 @@ def test_sm90_bwd_weights_unpack_to_the_linear_weights(full_width):
 # buffer the route hands it: forward, dX or gradients)
 _SM90_ENTRIES = [
     ("fused_mlp_fwd", "weight_elems", "SW_WEIGHTS", "encoded forward"),
+    ("fused_mlp_bwd", "weight_elems", "SW_WEIGHTS", "encoded backward"),
+    ("fused_mlp_bwd", "weight_t_elems", "SWT_WEIGHTS", "encoded dX"),
+    ("fused_mlp_bwd", "grad_elems", "GRAD_ELEMS", "gradients"),
     ("fused_mlp_raw_fwd", "weight_elems", "SW_WEIGHTS", "raw forward"),
     ("fused_mlp_raw_bwd", "weight_elems", "SW_WEIGHTS", "raw backward"),
     ("fused_mlp_raw_bwd", "weight_t_elems", "SWT_WEIGHTS", "raw dX"),
@@ -577,7 +592,7 @@ _SM90_ENTRIES = [
 
 @pytest.mark.parametrize("lib, entry, const, buffer", _SM90_ENTRIES)
 def test_wgmma_kernels_report_the_sm90_buffer_sizes(full_width, lib, entry, const, buffer):
-    """K1f's, K1rf's and K1rb's C interfaces report the wgmma core's
+    """K1f's, K1b's, K1rf's and K1rb's C interfaces report the wgmma core's
     buffer sizes, and those are the sizes of the buffers the routes hand
     them (forward_weights / backward_weights)."""
     _, model = full_width
@@ -587,8 +602,10 @@ def test_wgmma_kernels_report_the_sm90_buffer_sizes(full_width, lib, entry, cons
     enc = tfm.forward_weights(model, raw=False)
     raw = tfm.forward_weights(model, raw=True)
     raw_bwd = tfm.backward_weights(model, True, raw)
+    enc_bwd = tfm.backward_weights(model, False, enc)
     numel = {"encoded forward": enc.numel(), "raw forward": raw.numel(), "raw backward": raw_bwd[0].numel(),
-             "raw dX": raw_bwd[1].numel(), "gradients": tfm.GRAD_ELEMS}[buffer]
+             "raw dX": raw_bwd[1].numel(), "encoded backward": enc_bwd[0].numel(),
+             "encoded dX": enc_bwd[1].numel(), "gradients": tfm.GRAD_ELEMS}[buffer]
     assert _sm90_constants()[const] == numel
 
 
@@ -609,11 +626,22 @@ def test_raw_route_draws_both_kernels_from_one_gather(full_width, monkeypatch):
 
 def test_encoded_route_hands_k1f_the_model_layout(full_width):
     """The encoded route's K1f takes the wgmma core's buffer in the
-    model's layout; K1b, still on the tile, takes the tile's two buffers."""
+    model's layout; K1b takes the same buffer and the dX buffer."""
     _, model = full_width
     wk = tfm.forward_weights(model, raw=False)
     torch.testing.assert_close(wk, tfm.kernel_weights_sm90(model), rtol=0, atol=0)
     assert not torch.equal(wk, tfm.kernel_weights_sm90(model, raw_layout=True))
     fwd, wkt = tfm.backward_weights(model, False, wk)
-    torch.testing.assert_close(fwd, tfm.kernel_weights(model), rtol=0, atol=0)
-    torch.testing.assert_close(wkt, tfm.kernel_weights_bwd(model), rtol=0, atol=0)
+    assert fwd is wk
+    torch.testing.assert_close(wkt, tfm.kernel_weights_sm90_bwd(model), rtol=0, atol=0)
+
+
+def test_encoded_route_draws_both_kernels_from_one_gather(full_width, monkeypatch):
+    """The encoded route gathers K1f's buffer once; K1b's backward reuses
+    it and gathers only the dX buffer (no second forward gather)."""
+    _, model = full_width
+    calls, real = [], tfm.gather_weights
+    monkeypatch.setattr(tfm, "gather_weights", lambda m, layout, build: calls.append(layout) or real(m, layout, build))
+    wk = tfm.forward_weights(model, raw=False)
+    assert tfm.backward_weights(model, False, wk)[0] is wk
+    assert calls == [("fused_mlp_sm90", False), ("fused_mlp_sm90_bwd",)]

@@ -385,11 +385,10 @@ def test_kernel_weights_bwd_holds_the_transposed_weights(mlps):
 
 def test_kernels_refuse_host_tensors(mlps):
     _, port, num_rgb = mlps["sh_deg 2"]
-    wk = tfsm.kernel_weights(port)
     with pytest.raises(ValueError, match="CUDA"):
-        tfsm.fused_sh_fwd(wk, torch.zeros(8, 63), num_rgb)
+        tfsm.fused_sh_fwd(tfsm.forward_weights(port), torch.zeros(8, 63), num_rgb)
     with pytest.raises(ValueError, match="CUDA"):
-        tfsm.fused_sh_bwd(wk, tfsm.kernel_weights_bwd(port), torch.zeros(8, 63), torch.zeros(8, num_rgb),
+        tfsm.fused_sh_bwd(*tfsm.backward_weights(port), torch.zeros(8, 63), torch.zeros(8, num_rgb),
                           torch.zeros(8, 1))
 
 
@@ -398,3 +397,145 @@ def test_fused_trunk_refuses_other_architectures():
         tfsm.fused_sh_apply(CondMLP(net_depth=4, net_width=64, num_rgb_channels=27), torch.zeros(4, 63), 27)
     with pytest.raises(ValueError, match="fused SH trunk"):
         tfsm.fused_sh_apply(CondMLP(in_ch_condition=27, num_rgb_channels=3), torch.zeros(4, 63), 3)
+
+
+# ---------------------------------------------------------------------------
+# K5f's buffer on the wgmma core (csrc/mlp_sm90.cuh)
+# ---------------------------------------------------------------------------
+
+def _port_mlp(num_rgb, seed):
+    """A condition-free CondMLP with flax's init and seeded random biases."""
+    gen = torch.Generator().manual_seed(seed)
+    mlp = CondMLP(num_rgb_channels=num_rgb).reset_parameters(gen)
+    with torch.no_grad():
+        for layer in mlp.dense:
+            layer.bias.copy_(torch.randn(layer.bias.shape, generator=gen) * 0.2)
+    return mlp
+
+
+def _sm90_matrices(wk):
+    """K5f's buffer -> its [N][K] matrices by name (fused_mlp.sm90_slabs
+    undone) and its biases by name."""
+    from tests.test_torch_fused_mlp import _unslab
+
+    mats, at = {}, 0
+    for name, n, k, kd in tfsm.SM90_LAYOUT:
+        mats[name] = _unslab(wk, at, n, k, kd)
+        at += n * k
+    biases = {}
+    for name, n in tfsm.SM90_BIASES:
+        biases[name] = wk[at: at + n]
+        at += n
+    assert at == wk.numel()
+    return mats, biases
+
+
+@pytest.mark.parametrize("num_rgb", [27, 48, 128])
+def test_sm90_packing_maps_onto_pack_sh_params(num_rgb):
+    """Unslabbed, K5f's buffer is pack_sh_params' padded weights (held to
+    JAX's above) entry for entry: each matrix transposed to [out][in],
+    dense 5's input rows in the kernels' [x | h] order, the sigma head's
+    rows past 0 and the coefficient head's rows past num_rgb zero; then the
+    biases. Each of kernel_weights' entries appears once."""
+    mlp = _port_mlp(num_rgb, num_rgb)
+    W = tfsm.pack_sh_params(mlp)
+    mats, biases = _sm90_matrices(tfsm.kernel_weights_sm90(mlp))
+    want = {f"w{i}": getattr(W, f"w{i}").T for i in (0, 1, 2, 3, 4, 6, 7)}
+    want["w5"] = torch.cat([W.w5[256:], W.w5[:256]]).T
+    want["wsig"] = W.wsig.T[:8]
+    want["wrgb"] = W.wrgb.T
+    for name, _, _, _ in tfsm.SM90_LAYOUT:
+        torch.testing.assert_close(mats[name], want[name], rtol=0, atol=0, msg=name)
+    assert not mats["wsig"][1:].any() and mats["wsig"][0].any()
+    assert not mats["wrgb"][num_rgb:].any() and mats["wrgb"][num_rgb - 1].any()
+    for name, n in tfsm.SM90_BIASES:
+        torch.testing.assert_close(biases[name], getattr(W, name)[0, :n], rtol=0, atol=0, msg=name)
+    assert not biases["bsig"][1:].any() and not biases["brgb"][num_rgb:].any()
+
+    probe = _port_mlp(num_rgb, 0).double()
+    with torch.no_grad():
+        at = 1
+        for prm in probe.parameters():
+            prm.copy_(torch.arange(at, at + prm.numel(), dtype=torch.float64).view(prm.shape))
+            at += prm.numel()
+    old, new = tfsm._build_kernel_weights(probe), tfsm._build_kernel_weights_sm90(probe)
+    torch.testing.assert_close(torch.sort(new[new != 0]).values, torch.sort(old[old != 0]).values, rtol=0, atol=0)
+    assert torch.unique(new[new != 0]).numel() == int((new != 0).sum())
+
+
+def _sm90_source():
+    return (Path(tfsm.__file__).resolve().parents[2] / "csrc" / "mlp_sm90.cuh").read_text()
+
+
+def test_sm90_layout_matches_cuda_source():
+    """SM90_LAYOUT's and SM90_BIASES' offsets are the trunk's SW_* and the
+    head's SH_* constants of csrc/mlp_sm90.cuh; its layers are FWD_LAYERS'
+    trunk (TRUNK_LAYERS of them) and SH_HEAD_LAYERS, the ring's table."""
+    from tests.test_torch_fused_mlp import _cuda_layers, _sm90_constants
+
+    env = _sm90_constants()
+    at, offsets = 0, {}
+    for name, n, k, _ in tfsm.SM90_LAYOUT:
+        offsets[name] = at
+        at += n * k
+    for name in ("w0", "w1", "w5", "w6", "wsig"):
+        assert env[f"SW_{name.upper()}"] == offsets[name], name
+    assert env["SH_WRGB"] == offsets["wrgb"] and env["SH_B"] == at
+    for name, n in tfsm.SM90_BIASES:
+        if name in ("bsig", "brgb"):
+            assert env[f"SH_{name.upper()}"] == at, name
+        at += n
+    assert env["SH_WEIGHTS"] == at
+    trunk = int(re.search(r"constexpr int TRUNK_LAYERS = (\d+);", _sm90_source()).group(1))
+    layers = [(n, k, kd) for _, n, k, kd in tfsm.SM90_LAYOUT]
+    assert layers[:trunk] == _cuda_layers("FWD_LAYERS")[:trunk] and layers[trunk:] == _cuda_layers("SH_HEAD_LAYERS")
+    assert int(re.search(r"constexpr int SH_MAX_RGB = (\d+);", _sm90_source()).group(1)) == tfsm.MAX_RGB
+
+
+def test_k5f_reports_the_sm90_buffer_size(mlps):
+    """K5f's C interface reports the wgmma core's NeRF-SH buffer size, the
+    size of the buffer the route hands it."""
+    src = (Path(tfsm.__file__).resolve().parents[2] / "csrc" / "fused_sh_fwd.cu").read_text()
+    ret = re.search(r"long long fused_sh_fwd_weight_elems\(\) \{ return ([\w:]+); \}", src).group(1)
+    assert ret == "sm90::SH_WEIGHTS"
+    from tests.test_torch_fused_mlp import _sm90_constants
+
+    for _, port, _ in mlps.values():
+        assert tfsm.forward_weights(port).numel() == _sm90_constants()["SH_WEIGHTS"]
+
+
+def test_route_hands_k5b_its_tile_buffer_and_k5f_the_cores(mlps, monkeypatch):
+    """The route's forward gathers the wgmma core's buffer for K5f; its
+    backward gathers K5b's own two tile buffers (K5b recomputes the trunk
+    from its layout)."""
+    _, port, num_rgb = mlps["sh_deg 3"]
+    calls, real = [], fm.gather_weights
+    monkeypatch.setattr(fm, "gather_weights", lambda m, layout, build: calls.append(layout) or real(m, layout, build))
+    wf = tfsm.forward_weights(port)
+    wk, wkt = tfsm.backward_weights(port)
+    assert calls == [("fused_sh_sm90",), ("fused_sh",), ("fused_sh_bwd",)]
+    monkeypatch.undo()
+    torch.testing.assert_close(wf, tfsm.kernel_weights_sm90(port), rtol=0, atol=0)
+    torch.testing.assert_close(wk, tfsm.kernel_weights(port), rtol=0, atol=0)
+    torch.testing.assert_close(wkt, tfsm.kernel_weights_bwd(port), rtol=0, atol=0)
+    assert wf.numel() != wk.numel()
+
+
+def test_sm90_buffer_walked_in_the_kernels_order_matches_jax(mlps, jax_forward):
+    """A host walk of K5f's buffer in the order its kernel reads it (the
+    trunk over [x | h4], the sigma head's row 0, the coefficient head's
+    first num_rgb rows), with the kernel's bf16 rounding points, meets the
+    forward rule against JAX's fused_sh_apply."""
+    _, port, num_rgb = mlps["sh_deg 3"]
+    mats, biases = _sm90_matrices(tfsm.kernel_weights_sm90(port).float())
+    x = torch.nn.functional.pad(torch.from_numpy(_inputs(1, num_rgb)[0]), (0, 1))
+    mm = fm._mm
+    h = x
+    for i in range(8):
+        inp = torch.cat([x, h], dim=-1) if i == 5 else h
+        h = torch.relu(mm(inp, mats[f"w{i}"].T) + biases[f"b{i}"])
+    sig = mm(h, mats["wsig"].T)[:, :1] + biases["bsig"][:1]
+    rgb = mm(h, mats["wrgb"].T)[:, :num_rgb] + biases["brgb"][:num_rgb]
+    want_rgb, want_sig = jax_forward["sh_deg 3"]
+    assert_forward_near(rgb.numpy(), want_rgb, "rgb")
+    assert_forward_near(sig.numpy(), want_sig, "sigma")
