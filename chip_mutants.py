@@ -8,7 +8,11 @@ code (the kernel phases of K1f, K1b, K2, K3, K4, K5 and K1r, the encoded
 render, the raw-points training step) on the copy; each must fail. K3's
 mutants include its empty-space skip (the reach rule without the
 upper-neighbour bricks) and its cache of a brick's link rows (kept when
-the lower corner crosses into another brick along y or z); the wgmma
+the lower corner crosses into another brick along y or z), both shared
+with K4 and run by both phases; K4's include its suffix term, its stop with
+sparsity on, a ray's last run of a corner slot dropped, a run's colour
+sums not reset when the slot's cell changes and its SH row's scalar tail
+dropped; the wgmma
 core's (mlp_sm90.cuh: K1f, K1b, K1rf, K1rb, K2 and K5f) include the
 concat, the relu mask, the stage ring, the dW jobs, the view encoder, the
 encoding stash, K1rb's and K1b's forwards without their per-slab
@@ -95,16 +99,16 @@ MUTANTS = {
         ("tile_march_fwd",),
     ),
     "the tile march's reach rule without the upper-neighbour bricks": (
-        "nerf_projects_tpu_torch/csrc/tile_march_fwd.cu",
+        "nerf_projects_tpu_torch/csrc/tile_march.cuh",
         "any |= nb[c] >= 0;",
         "any |= nb[0] >= 0;",
-        ("tile_march_fwd",),
+        ("tile_march_fwd", "tile_march_bwd"),
     ),
     "the tile march's cached link rows kept when the lower corner crosses into another brick along y or z": (
-        "nerf_projects_tpu_torch/csrc/tile_march_fwd.cu",
-        "if ((lx >> 3) != bx || (ly >> 3) != by || (lz >> 3) != bz) {",
-        "if ((lx >> 3) != bx) {",
-        ("tile_march_fwd",),
+        "nerf_projects_tpu_torch/csrc/tile_march.cuh",
+        "if ((lx >> 3) != s.bx || (ly >> 3) != s.by || (lz >> 3) != s.bz) {",
+        "if ((lx >> 3) != s.bx) {",
+        ("tile_march_fwd", "tile_march_bwd"),
     ),
     "y and z taps swapped in the tile march's cell offset": (
         "nerf_projects_tpu_torch/csrc/tile_march.cuh",
@@ -122,6 +126,24 @@ MUTANTS = {
         "nerf_projects_tpu_torch/csrc/tile_march_bwd.cu",
         "if (!active && p.sparsity_scale == 0.f) break;",
         "if (!active) break;",
+        ("tile_march_bwd",),
+    ),
+    "the march backward drops a ray's last run of each corner slot": (
+        "nerf_projects_tpu_torch/csrc/tile_march_bwd.cu",
+        "  flush<B, SCATTER>(p, acc, basis, probe);  // the ray's last run",
+        "  // the ray's last run dropped",
+        ("tile_march_bwd",),
+    ),
+    "the march backward's colour sums not reset when a slot's cell changes": (
+        "nerf_projects_tpu_torch/csrc/tile_march_bwd.cu",
+        "acc.gd = acc.g0 = acc.g1 = acc.g2 = 0.f;",
+        "acc.gd = 0.f;",
+        ("tile_march_bwd",),
+    ),
+    "the march backward's SH row without its scalar tail after the float4 adds": (
+        "nerf_projects_tpu_torch/csrc/tile_march_bwd.cu",
+        "for (int j = HEAD + BODY; j < N; ++j) add<SCATTER>(dst + j, v[j], probe);",
+        "for (int j = HEAD + BODY; j < HEAD + BODY; ++j) add<SCATTER>(dst + j, v[j], probe);",
         ("tile_march_bwd",),
     ),
     "K5's w5 rows left unpermuted (the reference's [h, x] order in the [x | h] tile)": (

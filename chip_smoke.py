@@ -128,15 +128,26 @@ Phases, each of which raises (exit code 1) on failure:
           densities and whole (tile_march_fwd_probe).
   kernel_march_bwd
           the tile march's backward (K4) against its plain PyTorch
-          version on the card: a random 32^3 grid whose rays stop
-          (density U[20, 60]) with tiles of 128, 256 and 512 rays, the
-          bias and sigmoid decodes, the beta and sparsity losses off and
-          on; then one training batch of the fog scene at 256^3 (40
-          tiles of 8x16 rays); each gradient tensor within BWD_FRO_TOL
-          (relative Frobenius) and BWD_MAX_TOL of its largest entry.
-          Then that batch's backward timed with CUDA events beside its
-          bound, the plain version, the same kernel without its atomics
-          (tile_march_bwd_probe) and the forward (K3).
+          version on the card (BWD_CASES): a random 32^3 grid whose rays
+          stop (density U[20, 60]) with tiles of 128, 256 and 512 rays,
+          tiles of 100 rays and of 1 (partial warps), the skip grid of
+          kernel_march on camera tiles and on its grazing and upper-face
+          rays (the kernel's probe counts the samples each ray visits,
+          held to the host twin's count, kernel_visits; the twins count
+          the samples skipped and the adds),
+          basis 1 and 25 beside 9, the bias and sigmoid decodes, the
+          beta and sparsity losses off and on; then one training batch
+          of the fog scene at 256^3 (40 tiles of 8x16 rays); each
+          gradient tensor within BWD_FRO_TOL (relative Frobenius) and
+          BWD_MAX_TOL of its largest entry. Then that batch's backward
+          timed with CUDA events beside its bound, the plain version, the
+          same kernel without its global adds (tile_march_bwd_probe), the
+          wrapper's zero fill and the forward (K3), with the samples it
+          visits by its probe's count beside the host twin's; the probe
+          with the sparsity loss on marches each ray to its exit and must
+          visit the samples that K3 visits by the host twin; and the add
+          instructions it issues (backward_flushes, host twin) beside the
+          first port's scalar adds.
   train_plenoxels
           PlenoxelsTrainer.train_step_tiles_pallas (K3 + K4, sampled TV,
           RMSprop) at bench.py's two training configurations: fog 256^3
@@ -152,7 +163,8 @@ Phases, each of which raises (exit code 1) on failure:
           and K4 launches (zeroed just before, read just after), the
           first and last MSE (the loss must fall and stay finite); K3
           and K4 alone timed on the batch with CUDA events beside their
-          bounds.
+          bounds, K4 with its probe, zero fill and its visits and adds
+          as in kernel_march_bwd.
   kernel_sh
           the fused NeRF-SH trunk's forward (K5f, on the wgmma core)
           against its plain PyTorch version on 1, 100, 8192 + 1 and
@@ -206,6 +218,7 @@ import copy
 import dataclasses
 import faulthandler
 import json
+import re
 import subprocess
 import sys
 import time
@@ -299,6 +312,7 @@ def phase_build():
         for line in b.log.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line.strip()
+                entry = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "", entry)  # the anonymous namespace
             elif "warpgroup.arrive is injected" in line:
                 injected += 1
             elif "Used" in line or "spill" in line:
@@ -1594,6 +1608,31 @@ def skip_rays(dev):
     return Rays(o, d, d)
 
 
+def skip_grid(dev, seed: int, opaque_sigma: float = 8.0, basis_dim: int = GRID_BASIS):
+    """(BrickGrid, cells) of the 32^3 skip grid: data only in SKIP_BRICKS."""
+    from nerf_projects_tpu_torch.ops.brick_grid import create_brick_grid
+
+    full = create_brick_grid(32, basis_dim=basis_dim, use_sphere_bound=False, alloc_data=False, device=dev)
+    coords = [tuple(c) for c in full.brick_coords.cpu().numpy().tolist()]
+    bg = select_bricks(full, np.array([c in SKIP_BRICKS for c in coords]))
+    return bg, random_cells(bg, torch.Generator(device=dev).manual_seed(seed), opaque_sigma=opaque_sigma)
+
+
+def camera_tiles(th: int, tw: int, dev):
+    """A 4th x 4tw camera's rays (focal 1.2 x 4tw, 2.6 in front of a
+    32^3 grid of radius 1) in th x tw tiles, and the same rays in image
+    order [4th x 4tw]."""
+    from nerf_projects_tpu_torch.core.rays import camera_rays_opencv
+    from nerf_projects_tpu_torch.ops.tile_render import tiles_from_image_rays
+
+    H, W = 4 * th, 4 * tw
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = [0.3, -0.2, -2.6]
+    rays = camera_rays_opencv(H, W, 1.2 * W, 1.2 * W, W / 2.0, H / 2.0, pose, device=dev)
+    flat = rays.map(lambda x: x.reshape(-1, 3))
+    return tiles_from_image_rays(flat, H, W, th, tw), flat
+
+
 def phase_kernel_march(dev) -> dict:
     """K3 against its plain version: a random 32^3 grid with 128-, 256-
     and 512-ray tiles; the skip grid (SKIP_BRICKS) on grazing rays, rays
@@ -1601,30 +1640,21 @@ def phase_kernel_march(dev) -> dict:
     then a whole 800x800 frame of the 512^3 fog scene, whose plain run
     also counts the work of the bound; then that frame's march timed, and
     the plain version's."""
-    from nerf_projects_tpu_torch.core.rays import camera_rays_opencv
     from nerf_projects_tpu_torch.ops.brick_grid import create_brick_grid
     from nerf_projects_tpu_torch.ops.grid import GridRenderOptions
     from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
-    from nerf_projects_tpu_torch.ops.tile_render import tiles_from_image_rays
 
     opts = GridRenderOptions(step_size=0.5)
     max_abs = 0.0
     bg = create_brick_grid(32, basis_dim=GRID_BASIS, use_sphere_bound=True, alloc_data=False, device=dev)
     cells = random_cells(bg, torch.Generator(device=dev).manual_seed(SEED + 4), opaque_sigma=40.0)
-    full = create_brick_grid(32, basis_dim=GRID_BASIS, use_sphere_bound=False, alloc_data=False, device=dev)
-    coords = [tuple(c) for c in full.brick_coords.cpu().numpy().tolist()]
-    skip_bg = select_bricks(full, np.array([c in SKIP_BRICKS for c in coords]))
-    skip_cells = random_cells(skip_bg, torch.Generator(device=dev).manual_seed(SEED + 12), opaque_sigma=8.0)
+    skip_bg, skip_cells = skip_grid(dev, SEED + 12)
     C = tm.default_chunks_for(bg, opts)
     tm.tile_march_fwd.launches = 0
     n_calls = 0
     cases = []
     for th, tw in ((8, 16), (16, 16), (16, 32)):
-        H, W = 4 * th, 4 * tw
-        pose = np.eye(4, dtype=np.float32)
-        pose[:3, 3] = [0.3, -0.2, -2.6]
-        rays = camera_rays_opencv(H, W, 1.2 * W, 1.2 * W, W / 2.0, H / 2.0, pose, device=dev)
-        tiles = tiles_from_image_rays(rays.map(lambda x: x.reshape(-1, 3)), H, W, th, tw)
+        tiles, _ = camera_tiles(th, tw, dev)
         cases.append((f"32^3, {th}x{tw}-ray tiles", bg, cells, tiles))
         if th == 16:
             cases.append((f"32^3 skip grid, {th}x{tw}-ray camera tiles", skip_bg, skip_cells, tiles))
@@ -1887,14 +1917,16 @@ def march_bwd_bound(n_touched: int, nb: int, basis_dim: int, n_rays: int, n_tile
     backward: the touched bricks' live channels (1 + 3B bf16 a cell) read
     once, the float32 gradient arrays ((1 + 3B) a cell) written once, and
     each ray's pack, g and S_total and each tile's basis read once, over
-    HBM; the re-march's and the backward's float operations (itemised in
+    HBM; the re-march's float operations (the samples that can reach
+    data, a brick step per run of samples in an unreachable brick, as
+    K3's bound counts them) and the backward's (itemised in
     ops/kernels/tile_march.py) over the float32 rate."""
     from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
 
     B = basis_dim
     nbytes = (n_touched * 512 * (1 + 3 * B) * 2 + nb * 512 * (1 + 3 * B) * 4
               + n_rays * (tm.PACK + 3 + 1) * 4 + n_tiles * B * 4)
-    flops = (counts["marched"] * tm.FLOPS_PER_SAMPLE
+    flops = (counts["reach"] * tm.FLOPS_PER_SAMPLE + counts["brick_steps"] * tm.FLOPS_PER_BRICK_STEP
              + counts["shaded"] * (tm.flops_per_shaded(B) + tm.bwd_flops_per_shaded(B)))
     if sparsity:
         flops += (counts["dense"] * tm.BWD_FLOPS_SPARSITY
@@ -1903,34 +1935,117 @@ def march_bwd_bound(n_touched: int, nb: int, basis_dim: int, n_rays: int, n_tile
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), t_ops, t_bytes
 
 
+def k4_work(cells, bg, pack, basis, g, s_total, **kw) -> dict:
+    """What K4 does on a batch without the sparsity loss: the plain
+    version's counts of its bound (skipping as the kernel does, up to each
+    ray's first inactive sample, where K4 stops); the samples the kernel
+    visits by its probe's count (visits) beside the host twin's
+    (kernel_visits: twin_visits); the samples the kernel visits to each
+    ray's exit (the probe with the sparsity loss on: to_exit), which must
+    be the twin's count of the samples K3 visits on the batch (k3_visits:
+    training runs K3 without its early stop); the global add instructions
+    of its runs and the floats they add (backward_flushes,
+    PLAIN_BATCH_TILES tiles at a time: a run never leaves its ray) beside
+    the first port's 8 (1 + 3B) scalar adds a shaded sample."""
+    from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
+
+    march_kw = {k: v for k, v in kw.items() if k != "sparsity_scale"}
+    _, c = plain_march(cells, bg, pack, basis, counts=True, early_stop=True, skip_empty=True, **march_kw)
+    c["twin_visits"] = c["marched"]
+    c["k3_visits"] = plain_march(cells, bg, pack, basis, counts=True, skip_empty=True, **march_kw)[1]["marched"]
+    for key, spars in (("visits", 0.0), ("to_exit", 1.0)):
+        v = tm.tile_march_bwd_probe(cells, bg.brick_links, bg.reso, pack, basis, g, s_total, sparsity_scale=spars,
+                                    **march_kw)[1]
+        c[key] = int(v.long().sum())
+    if c["to_exit"] != c["k3_visits"]:
+        raise AssertionError(f"K4 visits {c['to_exit']} samples to the rays' exits where the host twin "
+                             f"(kernel_visits) counts {c['k3_visits']}")
+    if not c["visits"] <= c["to_exit"]:
+        raise AssertionError(f"K4 visits {c['visits']} samples, more than K3's {c['to_exit']}")
+    reach = tm.reachable_bricks(bg.brick_links, bg.reso)
+    n = PLAIN_BATCH_TILES
+    c["adds"] = c["add_ops"] = 0
+    for i in range(0, pack.shape[0], n):
+        f = tm.backward_flushes(cells, bg.brick_links, bg.reso, pack[i:i + n], basis[i:i + n], g[i:i + n],
+                                s_total[i:i + n], reach=reach, **kw)
+        c["adds"] += f["adds"]
+        c["add_ops"] += f["add_ops"]
+    c["first_port_adds"] = c["shaded"] * 8 * (1 + 3 * bg.basis_dim)
+    return c
+
+
+def k4_text(ms: float, probe_ms: float, zero_ms: float, c: dict, b: tuple) -> str:
+    """A log line's account of K4 on a training batch."""
+    b_ms, by, t_ops, t_bytes = b
+    return (f"K4 {ms:.4f} ms (the wrapper: zeroed gradient arrays {zero_ms:.4f} ms, then the kernel); without its "
+            f"global adds (tile_march_bwd_probe) {probe_ms:.4f} ms; {c['add_ops']} global add instructions issued "
+            f"for {c['adds']} floats (host twin, backward_flushes; the first port's 8 (1 + 3B) scalar adds a shaded "
+            f"sample: {c['first_port_adds']}, {c['first_port_adds'] / max(c['add_ops'], 1):.2f}x as many "
+            f"instructions); samples visited {c['visits']} (the probe's count; host twin {c['twin_visits']}), "
+            f"{c['to_exit']} to the rays' exits (the probe with the sparsity loss on; the samples K3 visits, by "
+            f"the host twin, {c['k3_visits']}); by the plain version {c['reach']} reach data, "
+            f"{c['brick_steps']} brick steps, {c['shaded']} shaded, {c['touched']} bricks touched; bound {b_ms:.4f} "
+            f"ms ({by}; operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms), {b_ms / ms:.3f} of bound")
+
+
+# K4's cases at 32^3: (name, grid kind, basis_dim, tiles, decodes); each
+# with the losses off and on (BWD_LOSSES)
+BWD_CASES = [(f"{th}x{tw}-ray tiles", "random", GRID_BASIS, (th, tw), ("bias", "sigmoid"))
+             for th, tw in ((8, 16), (16, 16), (16, 32))]
+BWD_CASES += [("tiles of 100 rays", "random", GRID_BASIS, 100, ("bias",)),
+              ("tiles of 1 ray", "random", GRID_BASIS, 1, ("sigmoid",)),
+              ("skip grid, 16x16-ray camera tiles", "skip", GRID_BASIS, (16, 16), ("bias",)),
+              ("skip grid, grazing and upper-face rays", "skip", GRID_BASIS, "skip", ("bias", "sigmoid")),
+              ("basis 1, 8x16-ray tiles", "random", 1, (8, 16), ("bias",)),
+              ("basis 25, 8x16-ray tiles", "random", 25, (8, 16), ("sigmoid",)),
+              ("basis 25, skip grid, 16x16-ray camera tiles", "skip", 25, (16, 16), ("bias",))]
+
+
+def bwd_case_rays(tiles, dev):
+    """A BWD_CASES entry's rays: camera tiles of th x tw rays, the 8x16
+    case's camera rays in tiles of n rays (image order; the last partial
+    tile dropped), or the skip rays."""
+    from nerf_projects_tpu_torch.core.rays import Rays
+
+    if tiles == "skip":
+        return skip_rays(dev)
+    if isinstance(tiles, tuple):
+        return camera_tiles(*tiles, dev)[0]
+    flat = camera_tiles(8, 16, dev)[1]
+    n = flat.origins.shape[0] // tiles * tiles
+    return Rays(*(x[:n].reshape(-1, tiles, 3).contiguous() for x in (flat.origins, flat.directions, flat.viewdirs)))
+
+
 def phase_kernel_march_bwd(dev) -> dict:
-    """K4 against its plain version: a random 32^3 grid whose rays stop,
-    tiles of 128, 256 and 512 rays, both decodes, the losses off and on;
-    then one training batch of the 256^3 fog scene, whose plain run
-    also counts the work of the bound; then that batch's backward timed
-    beside the plain version, the kernel without atomics and K3."""
-    from nerf_projects_tpu_torch.core.rays import camera_rays_opencv
+    """K4 against its plain version (BWD_CASES: a random 32^3 grid whose
+    rays stop, tiles of 128, 256 and 512 rays, tiles of 100 and of 1 ray
+    (partial warps), the skip grid on camera tiles and on grazing and
+    upper-face rays, basis 1 and 25 beside 9, both decodes, the losses off
+    and on); then one training batch of the 256^3 fog scene, whose plain
+    run also counts the work of the bound; then that batch's backward
+    timed beside the plain version, the kernel without its global adds
+    and K3, with the host twins' counts of its samples and adds."""
     from nerf_projects_tpu_torch.ops.brick_grid import create_brick_grid
     from nerf_projects_tpu_torch.ops.grid import GridRenderOptions
     from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
-    from nerf_projects_tpu_torch.ops.tile_render import tiles_from_image_rays
 
     max_abs = 0.0
-    bg = create_brick_grid(32, basis_dim=GRID_BASIS, use_sphere_bound=True, alloc_data=False, device=dev)
-    cells = random_cells(bg, torch.Generator(device=dev).manual_seed(SEED + 8), opaque_sigma=40.0)
+    grids = {}
+    for i, B in enumerate((GRID_BASIS, 1, 25)):
+        bg = create_brick_grid(32, basis_dim=B, use_sphere_bound=True, alloc_data=False, device=dev)
+        grids["random", B] = bg, random_cells(bg, torch.Generator(device=dev).manual_seed(SEED + 8 + 20 * i),
+                                              opaque_sigma=40.0)
+        grids["skip", B] = skip_grid(dev, SEED + 13 + 20 * i, basis_dim=B)
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     tm.tile_march_bwd.launches = 0
     n_calls = 0
-    for th, tw in ((8, 16), (16, 16), (16, 32)):
-        H, W = 4 * th, 4 * tw
-        pose = np.eye(4, dtype=np.float32)
-        pose[:3, 3] = [0.3, -0.2, -2.6]
-        rays = camera_rays_opencv(H, W, 1.2 * W, 1.2 * W, W / 2.0, H / 2.0, pose, device=dev)
-        tiles = tiles_from_image_rays(rays.map(lambda x: x.reshape(-1, 3)), H, W, th, tw)
-        gt = torch.rand(tiles.origins.shape, generator=gen, device=dev)
-        for mode in ("bias", "sigmoid"):
+    for name, kind, B, tiles, modes in BWD_CASES:
+        bg, cells = grids[kind, B]
+        rays = bwd_case_rays(tiles, dev)
+        gt = torch.rand(rays.origins.shape, generator=gen, device=dev)
+        for mode in modes:
             opts = GridRenderOptions(step_size=0.5, color_mode=mode)
-            cells_, pack, basis, max_steps = tm.march_inputs(bg, tiles, opts, kernel_arrays=cells)
+            _, pack, basis, max_steps = tm.march_inputs(bg, rays, opts, kernel_arrays=cells)
             for losses, (beta, spars) in BWD_LOSSES.items():
                 g, s_total = bwd_inputs(cells, bg, pack, basis, gt, opts, beta, max_steps)
                 kw = dict(max_steps=max_steps, color_mode=mode, sparsity_scale=spars)
@@ -1938,8 +2053,26 @@ def phase_kernel_march_bwd(dev) -> dict:
                 want = tm.march_backward_reference(cells, bg.brick_links, bg.reso, pack, basis, g, s_total, **kw)
                 torch.cuda.synchronize()
                 n_calls += 1
-                max_abs = max(max_abs, check_bwd(
-                    f"kernel_march_bwd: 32^3, {th}x{tw}-ray tiles, {pack.shape[0]} tiles, {mode}, {losses}", got, want))
+                tag = f"kernel_march_bwd: 32^3 {name}, {pack.shape[0]} tiles, {mode}, {losses}"
+                max_abs = max(max_abs, check_bwd(tag, got, want))
+                if kind == "skip" and mode == "bias":  # the skip at work: the kernel's visits and the host twins'
+                    f = tm.backward_flushes(cells, bg.brick_links, bg.reso, pack, basis, g, s_total, **kw)
+                    c = [tm.march_reference(cells, bg.brick_links, bg.reso, pack, basis, counts=True,
+                                            skip_empty=skip, max_steps=max_steps, color_mode=mode)[1]
+                         for skip in (True, False)]
+                    visits = tm.tile_march_bwd_probe(cells, bg.brick_links, bg.reso, pack, basis, g, s_total,
+                                                     sigma_thresh=opts.sigma_thresh, stop_thresh=opts.stop_thresh,
+                                                     **kw)[1]
+                    twin = c[0]["marched"].float()  # to each ray's exit, as K4 marches with the sparsity loss on
+                    log(f"{tag}: {int(c[0]['marched'].sum())} samples visited of {int(c[1]['marched'].sum())} by "
+                        f"the host twin, {int(visits.long().sum())} by the kernel (its probe's count), "
+                        f"{int(c[0]['brick_steps'].sum())} brick steps; {f['add_ops']} global add instructions "
+                        f"for {f['adds']} floats")
+                    if int(c[0]["brick_steps"].sum()) == 0:
+                        raise AssertionError(f"{tag}: no sample of the skip case is skipped")
+                    if not bool((visits == twin).all() if spars > 0 else (visits <= twin).all()):
+                        raise AssertionError(f"{tag}: the kernel's visits per ray disagree with the host twin's "
+                                             f"(kernel_visits)")
 
     # one training batch of the fog scene: bench.py's plenoxels_train
     name = "fog"
@@ -1950,7 +2083,8 @@ def phase_kernel_march_bwd(dev) -> dict:
     gt = torch.full(rays.origins.shape, TRAIN_TARGET, device=dev)
     cells, pack, basis, max_steps = tm.march_inputs(bg, rays, opts)
     g, s_total = bwd_inputs(cells, bg, pack, basis, gt, opts, 0.0, max_steps)
-    kw = dict(max_steps=max_steps, color_mode=opts.color_mode)
+    kw = dict(max_steps=max_steps, color_mode=opts.color_mode, sigma_thresh=opts.sigma_thresh,
+              stop_thresh=opts.stop_thresh)
     got = tm.tile_march_bwd(cells, bg.brick_links, bg.reso, pack, basis, g, s_total, **kw)
     want = tm.march_backward_reference(cells, bg.brick_links, bg.reso, pack, basis, g, s_total, **kw)
     torch.cuda.synchronize()
@@ -1960,31 +2094,19 @@ def phase_kernel_march_bwd(dev) -> dict:
     T, r = pack.shape[:2]
     max_abs = max(max_abs, check_bwd(f"kernel_march_bwd: {reso}^3 fog training batch, {T} tiles of {r} rays",
                                      got, want))
-    # the backward marches until each ray goes inactive (no sparsity loss)
-    _, counts = tm.march_reference(cells, bg.brick_links, bg.reso, pack, basis, counts=True, early_stop=True,
-                                   max_steps=max_steps)
-    counts = {k: int(v.sum()) for k, v in counts.items()}
+    work = k4_work(cells, bg, pack, basis, g, s_total, **kw)
 
     ms = time_ms(lambda: tm.tile_march_bwd(cells, bg.brick_links, bg.reso, pack, basis, g, s_total, **kw),
                  iters=10)
     probe_ms = time_ms(lambda: tm.tile_march_bwd_probe(cells, bg.brick_links, bg.reso, pack, basis, g, s_total,
-                                                       sigma_thresh=opts.sigma_thresh,
-                                                       stop_thresh=opts.stop_thresh, sparsity_scale=0.0, **kw),
-                       iters=10)
+                                                       sparsity_scale=0.0, **kw), iters=10)
     zero_ms = time_ms(lambda: (torch.zeros_like(bg.density_bricks), torch.zeros_like(bg.sh_bricks)), iters=10)
     fwd_ms = time_ms(lambda: tm.tile_march_fwd(cells, bg.brick_links, bg.reso, pack, basis, **kw), iters=10)
     plain_ms = time_ms(lambda: tm.march_backward_reference(cells, bg.brick_links, bg.reso, pack, basis, g, s_total,
                                                            **kw), iters=2, warmup=1)
-    b_ms, by, t_ops, t_bytes = march_bwd_bound(counts["touched"], bg.n_bricks, bg.basis_dim, T * r, T, counts, 0.0)
-    issue_bytes_ms = (counts["touched"] * 512 * (1 + 3 * bg.basis_dim) * (2 + 8) + T * r * 64) / H100_HBM_BYTES_S * 1e3
-    atomics = counts["shaded"] * 8 * (1 + 3 * bg.basis_dim)
-    log(f"kernel_march_bwd: {reso}^3 fog training batch ({T * r} rays, {bg.n_bricks} bricks): K4 {ms:.4f} ms "
-        f"(the wrapper: zeroed gradient arrays {zero_ms:.4f} ms, then the kernel); without its atomics "
-        f"{probe_ms:.4f} ms; K3 on the batch {fwd_ms:.4f} ms; {counts['marched']} samples marched, "
-        f"{counts['shaded']} shaded ({atomics} atomic adds), {counts['touched']} bricks touched, by the plain "
-        f"version; plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms (operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms; "
-        f"touched gradients read and written instead of the arrays written: {issue_bytes_ms:.4f} ms), "
-        f"{b_ms / ms:.3f} of bound")
+    b = march_bwd_bound(work["touched"], bg.n_bricks, bg.basis_dim, T * r, T, work, 0.0)
+    log(f"kernel_march_bwd: {reso}^3 fog training batch ({T * r} rays, {bg.n_bricks} bricks): "
+        f"{k4_text(ms, probe_ms, zero_ms, work, b)}; K3 on the batch {fwd_ms:.4f} ms; plain {plain_ms:.4f} ms")
     del cells, bg, got, want
     torch.cuda.empty_cache()
     return {
@@ -1992,7 +2114,7 @@ def phase_kernel_march_bwd(dev) -> dict:
         "source": "nerf_projects_tpu_torch/csrc/tile_march_bwd.cu",
         "replaces": "nerf_projects_tpu/ops/pallas/tile_march.py:1341",
         "launches": 0, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+        "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
     }
 
 
@@ -2097,12 +2219,13 @@ def phase_train_plenoxels(dev, card: str) -> dict:
         g, s_total = bwd_inputs(cells, bg, pack, basis, target, trainer.opts, 0.0, max_steps)
         k4_ms = time_ms(lambda: tm.tile_march_bwd(cells, bg.brick_links, bg.reso, pack, basis, g, s_total, **kw),
                         iters=10)
-        _, cnt = plain_march(cells, bg, pack, basis, counts=True, early_stop=True, **kw)
-        k4_bound, by, t_ops, t_bytes = march_bwd_bound(cnt["touched"], bg.n_bricks, bg.basis_dim, n_rays,
-                                                       pack.shape[0], cnt, 0.0)
-        SIZE_TIMES.setdefault("tile_march_bwd", {})[f"{name} batch"] = (k4_ms, k4_bound)
-        log(f"{tag}: K4 alone on a step's batch: {k4_ms:.4f} ms (CUDA events), bound {k4_bound:.4f} ms ({by}; "
-            f"operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms), {k4_bound / k4_ms:.3f} of bound")
+        probe_ms = time_ms(lambda: tm.tile_march_bwd_probe(cells, bg.brick_links, bg.reso, pack, basis, g, s_total,
+                                                           sparsity_scale=0.0, **kw), iters=10)
+        zero_ms = time_ms(lambda: (torch.zeros_like(bg.density_bricks), torch.zeros_like(bg.sh_bricks)), iters=10)
+        work = k4_work(cells, bg, pack, basis, g, s_total, **kw)
+        b4 = march_bwd_bound(work["touched"], bg.n_bricks, bg.basis_dim, n_rays, pack.shape[0], work, 0.0)
+        SIZE_TIMES.setdefault("tile_march_bwd", {})[f"{name} batch"] = (k4_ms, b4[0])
+        log(f"{tag}: K4 alone on a step's batch: {k4_text(k4_ms, probe_ms, zero_ms, work, b4)} (CUDA events)")
         del cells, g, s_total
 
         def run_steps(n, state=(bg, rms)):

@@ -1,25 +1,27 @@
 // Shared stepping of the Plenoxels tile march, forward (K3,
 // tile_march_fwd.cu) and backward (K4, tile_march_bwd.cu).
 //
-// Both kernels march a ray with one thread through the same arithmetic,
-// so they mark exactly the same samples valid and active: the backward's
-// running suffix (S_total minus the prefix of w * (c . g)) is the
-// forward's only if every sample and every transmittance agree bit for
-// bit. What is shared:
+// Both kernels march a ray through the same arithmetic, so they mark
+// exactly the same samples valid and active: the backward's running
+// suffix (S_total minus the prefix of w * (c . g)) is the forward's only
+// if every sample and every transmittance agree bit for bit. What is
+// shared:
 //   * the per-ray geometry of ops/kernels/tile_march.py::pack_rays;
 //   * sample k at tt = T0 + k * dt, and its position og + tt * dg, each
 //     formed with __fmul_rn / __fadd_rn so that nvcc fuses nothing and
 //     the plain PyTorch version (a separate multiply and add) marks the
 //     same samples valid;
+//   * the empty-space skip: a sample whose lower corner lies in a brick
+//     none of whose upper neighbourhood is occupied reads zeros, and the
+//     march jumps past the brick (reach, skip_to);
 //   * the 8 corners: the lower corner clamped to [0, reso - 2] and the
 //     weights to [0, 1] (a sample on an upper face reads, and receives
 //     its gradient in, the last cell, never past the grid), each cell
-//     found through brick_links (-1 = empty brick). Corner slot s holds,
-//     along each axis, the one of the two cells (l, l + 1) whose
-//     coordinate has the parity of s's bit for that axis (x: bit 2, y:
-//     bit 1, z: bit 0): a cell keeps its slot while it stays a corner
-//     (K3 finds the cells through the link rows of the lower corner's
-//     brick and its upper neighbours, K4 reads brick_links directly);
+//     found through the link rows of the lower corner's brick and its
+//     upper neighbours (-1 = empty brick). Corner slot s holds, along
+//     each axis, the one of the two cells (l, l + 1) whose coordinate has
+//     the parity of s's bit for that axis (x: bit 2, y: bit 1, z: bit 0):
+//     a cell keeps its slot while it stays a corner;
 //   * the interpolated density, summed over the slots in order with
 //     explicit fused multiply-adds (an empty corner adds 0, which leaves
 //     the sum's bits as they are), with the sigma threshold;
@@ -27,7 +29,8 @@
 //     tile basis) and the weighted sum of the 8, in the same way; the
 //     decode;
 //   * tau = sigma * step_world and its running sum, rounded without
-//     fusion (__fmul_rn, __fadd_rn) in both kernels.
+//     fusion (__fmul_rn, __fadd_rn) in both kernels;
+//   * the compact patches of a tile that a warp marches (patch_ray).
 
 #pragma once
 
@@ -116,6 +119,16 @@ __device__ __forceinline__ void corner_weights(int lx, int ly, int lz, float wx,
   }
 }
 
+// v[s] of the slot s a lane holds, selected without indexing the array
+// at run time (which would put it in local memory).
+template <typename V>
+__device__ __forceinline__ V pick(const V v[8], int s) {
+  V x = v[0];
+#pragma unroll
+  for (int c = 1; c < 8; ++c) x = s == c ? v[c] : x;
+  return x;
+}
+
 // A cell's index inside its 8^3 brick.
 __device__ __forceinline__ int cell_in_brick(int cx, int cy, int cz) {
   return ((cx & 7) * 64 + (cy & 7) * 8 + (cz & 7));
@@ -156,33 +169,6 @@ __device__ __forceinline__ void corner_colour(const __nv_bfloat16* cell, const f
   col[2] = c2;
 }
 
-// The 8 corner slots of the sample at tt: the element offset of each
-// corner cell in `cells` (-1 when its brick is empty) and its trilinear
-// weight. Returns the interpolated density, 0 at or below sigma_thresh.
-template <int CP>
-__device__ __forceinline__ float corners(const Grid& g, const Ray& r, float tt, float sigma_thresh,
-                                         long long off[8], float cw[8]) {
-  float px, py, pz, wx, wy, wz;
-  int lx, ly, lz;
-  position(r, tt, px, py, pz);
-  lower_corner(g, px, py, pz, lx, ly, lz, wx, wy, wz);
-  corner_weights(lx, ly, lz, wx, wy, wz, cw);
-  float dens[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int cx = slot_coord(lx, c >> 2), cy = slot_coord(ly, (c >> 1) & 1), cz = slot_coord(lz, c & 1);
-    const int row = __ldg(g.links + ((cx >> 3) * g.BY + (cy >> 3)) * g.BZ + (cz >> 3));
-    off[c] = -1;
-    dens[c] = 0.f;
-    if (row >= 0) {
-      off[c] = (static_cast<long long>(row) * CELLS + cell_in_brick(cx, cy, cz)) * CP;
-      dens[c] = __bfloat162float(g.cells[off[c]]);
-    }
-  }
-  const float sigma = corner_sum(cw, dens);
-  return sigma > sigma_thresh ? sigma : 0.f;
-}
-
 // The sample's colour before its decode: the corners' colours weighted
 // (corner_sum's order; an empty corner adds 0).
 template <int B>
@@ -205,6 +191,148 @@ __device__ __forceinline__ void shade(const Grid& g, const long long off[8], con
 // rgb = max(raw + 0.5, 0), or a sigmoid.
 __device__ __forceinline__ float decode(float raw, int sigmoid) {
   return sigmoid ? 1.f / (1.f + expf(-raw)) : fmaxf(raw + 0.5f, 0.f);
+}
+
+// ---------------------------------------------------------------------------
+// The empty-space skip
+// ---------------------------------------------------------------------------
+
+constexpr float SKIP_EPS = 1.f / 128.f;  // cells: a skip stays this far inside its brick
+
+// The link row of each corner slot from the link rows nb of the lower
+// corner's brick and its upper neighbours: along an axis only the corner
+// l + 1 of a lower corner on the brick's last cell (l & 7 == 7) lies in
+// the next brick. Selected axis by axis, so that no register array is
+// indexed at run time.
+__device__ __forceinline__ void corner_rows(const int nb[8], int lx, int ly, int lz, int rows[8]) {
+  const bool ex = (lx & 7) == 7, ey = (ly & 7) == 7, ez = (lz & 7) == 7;
+  int a[2][4], b[2][2][2];
+#pragma unroll
+  for (int px = 0; px < 2; ++px) {
+    const bool up = ex && ((px ^ lx) & 1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[px][j] = up ? nb[4 + j] : nb[j];
+  }
+#pragma unroll
+  for (int px = 0; px < 2; ++px)
+#pragma unroll
+    for (int py = 0; py < 2; ++py) {
+      const bool up = ey && ((py ^ ly) & 1);
+      b[px][py][0] = up ? a[px][2] : a[px][0];
+      b[px][py][1] = up ? a[px][3] : a[px][1];
+    }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const bool up = ez && (((c & 1) ^ lz) & 1);
+    rows[c] = up ? b[c >> 2][(c >> 1) & 1][1] : b[c >> 2][(c >> 1) & 1][0];
+  }
+}
+
+// The link rows of bricks (bx, by, bz) + {0, 1}^3, nb[4 dx + 2 dy + dz],
+// each index clamped to the last brick that holds a cell of the grid.
+// True if one of them is occupied: a sample whose lower corner lies in
+// the brick can read data.
+__device__ __forceinline__ bool neighbourhood(const Grid& g, int bx, int by, int bz, int nb[8]) {
+  const int mx = (g.X - 1) >> 3, my = (g.Y - 1) >> 3, mz = (g.Z - 1) >> 3;
+  bool any = false;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int x = min(bx + (c >> 2), mx), y = min(by + ((c >> 1) & 1), my), z = min(bz + (c & 1), mz);
+    nb[c] = __ldg(g.links + (x * g.BY + y) * g.BZ + z);
+    any |= nb[c] >= 0;
+  }
+  return any;
+}
+
+// A ray's state for the skip: its reciprocal direction and step, the
+// brick of its last lower corner and that brick's neighbourhood.
+struct Skip {
+  float ix, iy, iz, idt;
+  int bx, by, bz;
+  int nb[8];  // the neighbourhood's link rows
+  bool reach;
+};
+
+__device__ __forceinline__ Skip skip_start(const Ray& r) {
+  Skip s;
+  s.ix = 1.f / r.dx;
+  s.iy = 1.f / r.dy;
+  s.iz = 1.f / r.dz;
+  s.idt = 1.f / r.dt;
+  s.bx = s.by = s.bz = -1;
+  s.reach = false;
+  return s;
+}
+
+// Whether a sample whose clamped lower corner is (lx, ly, lz) can read
+// data: the link rows are loaded once per brick the lower corner enters.
+__device__ __forceinline__ bool reach(const Grid& g, int lx, int ly, int lz, Skip& s) {
+  if ((lx >> 3) != s.bx || (ly >> 3) != s.by || (lz >> 3) != s.bz) {
+    s.bx = lx >> 3;
+    s.by = ly >> 3;
+    s.bz = lz >> 3;
+    s.reach = neighbourhood(g, s.bx, s.by, s.bz, s.nb);
+  }
+  return s.reach;
+}
+
+// The t at which the ray (origin o, direction d, inv = 1 / d) leaves
+// [8 b + SKIP_EPS, 8 b + 8 - SKIP_EPS] along one axis (INFINITY if it does
+// not move along it); clears inside if the position p is not in that span.
+__device__ __forceinline__ float axis_exit(float o, float d, float inv, float p, int b, bool& inside) {
+  const float lo = static_cast<float>(8 * b) + SKIP_EPS, hi = static_cast<float>(8 * b + 8) - SKIP_EPS;
+  inside = inside && p >= lo && p <= hi;
+  if (d > 0.f) return __fmul_rn(__fsub_rn(hi, o), inv);
+  if (d < 0.f) return __fmul_rn(__fsub_rn(lo, o), inv);
+  return INFINITY;
+}
+
+// Sample k at (px, py, pz) lies in a brick that reach() found empty
+// around: sigma is 0 there and on every later sample whose lower corner
+// stays in the brick, so they add nothing. The step to continue from
+// (the loop adds one): the last one before the ray leaves the brick
+// shrunk by SKIP_EPS on every face (sample positions carry ~1e-4 cells of
+// rounding, far below the margin), or k itself if the sample is not that
+// far inside.
+__device__ __forceinline__ int skip_to(const Ray& r, const Skip& s, float px, float py, float pz, int k,
+                                       int max_steps) {
+  bool inside = true;
+  const float tx = axis_exit(r.ox, r.dx, s.ix, px, s.bx, inside);
+  const float ty = axis_exit(r.oy, r.dy, s.iy, py, s.by, inside);
+  const float tz = axis_exit(r.oz, r.dz, s.iz, pz, s.bz, inside);
+  if (inside) {
+    const float kf = floorf(__fmul_rn(__fsub_rn(fminf(tx, fminf(ty, tz)), r.T0), s.idt));
+    if (kf > static_cast<float>(k)) k = static_cast<int>(fminf(kf, static_cast<float>(max_steps - 1)));
+  }
+  return k;
+}
+
+// ---------------------------------------------------------------------------
+// Rays to warps
+// ---------------------------------------------------------------------------
+
+// The ray that unit u marches (a thread in K3, a group of lanes in K4):
+// with tile_w, each run of PH * PW units takes a patch of PH rows of PW
+// rays of its tile, the tile read as rows of tile_w rays; else ray u.
+template <int PH, int PW>
+__device__ __forceinline__ long long patch_ray(long long u, int r, int tile_w) {
+  constexpr int P = PH * PW;
+  static_assert((P & (P - 1)) == 0, "a patch holds a power of two of rays");
+  constexpr int LOG_P = P == 32 ? 5 : P == 16 ? 4 : P == 8 ? 3 : P == 4 ? 2 : P == 2 ? 1 : 0;
+  if (!tile_w) return u;
+  const long long gw = u >> LOG_P, wpt = r >> LOG_P, tile = gw / wpt;
+  const int wi = static_cast<int>(gw - tile * wpt), lane = static_cast<int>(u & (P - 1)), cols = tile_w / PW;
+  return tile * r + ((wi / cols) * PH + lane / PW) * tile_w + (wi % cols) * PW + lane % PW;
+}
+
+// The tile width patch_ray takes: the largest power of two w with w^2 <=
+// 2r (32 for the frame path's 16x32 tiles, 16 for 8x16 and 16x16), if the
+// tile then splits into whole patches; else 0 (rays in order).
+template <int PH, int PW>
+inline int patch_tile_width(int r) {
+  int w = 1;
+  while (4 * w * w <= 2 * r) w *= 2;
+  return r % w == 0 && (r / w) % PH == 0 && w % PW == 0 ? w : 0;
 }
 
 }  // namespace tile_march

@@ -63,7 +63,7 @@
 //   * The 8 link rows of the brick serve its samples' corners: no link
 //     read in a sample, one dependent read (the densities) before sigma.
 //   * A warp marches a compact patch of its tile, 8 rows of 4 rays
-//     (thread_ray; the tile's width is taken from r, and any other shape
+//     (patch_ray; the tile's width is taken from r, and any other shape
 //     only changes which thread marches which ray), and the corners sit
 //     in slots by the parities of their coordinates (tile_march.cuh): a
 //     warp's load for one slot then falls on few cells, since
@@ -73,9 +73,9 @@
 //     it stays a corner was tried and was slower on every shape: the 32
 //     rays of a warp refresh different corners, so the warp still issues
 //     all 8 corners' code each sample, with more registers and branches.
-// The density and colour sums over the corners are tile_march.cuh's, the
-// ones K4 recomputes each sample, so K3 and K4 see the same samples and
-// transmittances bit for bit.
+// The skip, the link rows, the patches and the density and colour sums
+// over the corners are tile_march.cuh's, the ones K4 re-marches with, so
+// K3 and K4 see the same samples and transmittances bit for bit.
 // tile_march_fwd_probe runs the per-sample march of the first port (8
 // link reads, 8 densities and 8 SH lines a sample, no skip) cut after its
 // link reads, after its densities, or whole, to time where that design's
@@ -87,7 +87,6 @@ namespace {
 
 using namespace tile_march;
 
-constexpr float SKIP_EPS = 1.f / 128.f;  // cells: a skip stays this far inside its brick
 constexpr int PATCH_H = 8, PATCH_W = 4;  // a warp's rays: 8 rows of 4 of its tile
 
 struct Params {
@@ -102,85 +101,11 @@ struct Params {
   float sigma_thresh, stop_thresh;
 };
 
-// The link row of each corner slot (tile_march.cuh) from the link rows
-// nb of the lower corner's brick and its upper neighbours: along an axis
-// only the corner l + 1 of a lower corner on the brick's last cell
-// (l & 7 == 7) lies in the next brick. Selected axis by axis, so that no
-// register array is indexed at run time.
-__device__ __forceinline__ void corner_rows(const int nb[8], int lx, int ly, int lz, int rows[8]) {
-  const bool ex = (lx & 7) == 7, ey = (ly & 7) == 7, ez = (lz & 7) == 7;
-  int a[2][4], b[2][2][2];
-#pragma unroll
-  for (int px = 0; px < 2; ++px) {
-    const bool up = ex && ((px ^ lx) & 1);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a[px][j] = up ? nb[4 + j] : nb[j];
-  }
-#pragma unroll
-  for (int px = 0; px < 2; ++px)
-#pragma unroll
-    for (int py = 0; py < 2; ++py) {
-      const bool up = ey && ((py ^ ly) & 1);
-      b[px][py][0] = up ? a[px][2] : a[px][0];
-      b[px][py][1] = up ? a[px][3] : a[px][1];
-    }
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const bool up = ez && (((c & 1) ^ lz) & 1);
-    rows[c] = up ? b[c >> 2][(c >> 1) & 1][1] : b[c >> 2][(c >> 1) & 1][0];
-  }
-}
-
-// The link rows of bricks (bx, by, bz) + {0, 1}^3, nb[4 dx + 2 dy + dz],
-// each index clamped to the last brick that holds a cell of the grid.
-// True if one of them is occupied: a sample whose lower corner lies in
-// the brick can read data.
-__device__ __forceinline__ bool neighbourhood(const Grid& g, int bx, int by, int bz, int nb[8]) {
-  const int mx = (g.X - 1) >> 3, my = (g.Y - 1) >> 3, mz = (g.Z - 1) >> 3;
-  bool any = false;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int x = min(bx + (c >> 2), mx), y = min(by + ((c >> 1) & 1), my), z = min(bz + (c & 1), mz);
-    nb[c] = __ldg(g.links + (x * g.BY + y) * g.BZ + z);
-    any |= nb[c] >= 0;
-  }
-  return any;
-}
-
-// The t at which the ray (origin o, direction d, inv = 1 / d) leaves
-// [8 b + SKIP_EPS, 8 b + 8 - SKIP_EPS] along one axis (INFINITY if it does
-// not move along it); clears inside if the position p is not in that span.
-__device__ __forceinline__ float axis_exit(float o, float d, float inv, float p, int b, bool& inside) {
-  const float lo = static_cast<float>(8 * b) + SKIP_EPS, hi = static_cast<float>(8 * b + 8) - SKIP_EPS;
-  inside = inside && p >= lo && p <= hi;
-  if (d > 0.f) return __fmul_rn(__fsub_rn(hi, o), inv);
-  if (d < 0.f) return __fmul_rn(__fsub_rn(lo, o), inv);
-  return INFINITY;
-}
-
-// The ray a thread marches: with tile_w, warp w of a tile takes a patch of
-// PATCH_H rows of PATCH_W rays, the tile read as rows of tile_w rays.
-__device__ __forceinline__ long long thread_ray(const Params& p) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (!p.tile_w) return t;
-  const long long gw = t >> 5, wpt = p.r >> 5, tile = gw / wpt;
-  const int wi = static_cast<int>(gw - tile * wpt), lane = threadIdx.x & 31, cols = p.tile_w / PATCH_W;
-  return tile * p.r + ((wi / cols) * PATCH_H + lane / PATCH_W) * p.tile_w + (wi % cols) * PATCH_W + lane % PATCH_W;
-}
-
-// The tile width thread_ray takes: the largest power of two w with w^2 <=
-// 2r (32 for the frame path's 16x32 tiles, 16 for 8x16 and 16x16), if the
-// tile then splits into whole patches; else 0.
-int patch_tile_width(int r) {
-  int w = 1;
-  while (4 * w * w <= 2 * r) w *= 2;
-  return r % w == 0 && (r / w) % PATCH_H == 0 && w % PATCH_W == 0 ? w : 0;
-}
-
 template <int B>
 __global__ void __launch_bounds__(128) march_kernel(const Params p) {
   constexpr int CP = Layout<B>::CP;
-  const long long ray = thread_ray(p);
+  const long long ray = patch_ray<PATCH_H, PATCH_W>(static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x,
+                                                   p.r, p.tile_w);
   if (ray >= p.n_rays) return;
   const long long tile = ray / p.r;
   const int lane = static_cast<int>(ray - tile * p.r);
@@ -192,10 +117,7 @@ __global__ void __launch_bounds__(128) march_kernel(const Params p) {
 
   float rgb0 = 0.f, rgb1 = 0.f, rgb2 = 0.f, acc = 0.f, depth = 0.f, cum = 0.f, spars = 0.f;
   if (r.t1 > r.t0) {
-    const float ix = 1.f / r.dx, iy = 1.f / r.dy, iz = 1.f / r.dz, idt = 1.f / r.dt;
-    int bx = -1, by = -1, bz = -1;  // the brick of the last lower corner
-    int nb[8];                      // its neighbourhood's link rows
-    bool reach = false;
+    Skip sk = skip_start(r);
     float T = 1.f;  // exp(-cum)
     for (int k = first_step(r, p.max_steps); k < p.max_steps; ++k) {
       const float tt = sample_t(r, k);
@@ -207,21 +129,8 @@ __global__ void __launch_bounds__(128) march_kernel(const Params p) {
       int lx, ly, lz;
       position(r, tt, px, py, pz);
       lower_corner(p.g, px, py, pz, lx, ly, lz, wx, wy, wz);
-      if ((lx >> 3) != bx || (ly >> 3) != by || (lz >> 3) != bz) {
-        bx = lx >> 3;
-        by = ly >> 3;
-        bz = lz >> 3;
-        reach = neighbourhood(p.g, bx, by, bz, nb);
-      }
-      if (!reach) {  // sigma 0 here and on to the brick's exit: jump past it
-        bool inside = true;
-        const float tx = axis_exit(r.ox, r.dx, ix, px, bx, inside);
-        const float ty = axis_exit(r.oy, r.dy, iy, py, by, inside);
-        const float tz = axis_exit(r.oz, r.dz, iz, pz, bz, inside);
-        if (inside) {
-          const float kf = floorf(__fmul_rn(__fsub_rn(fminf(tx, fminf(ty, tz)), r.T0), idt));
-          if (kf > static_cast<float>(k)) k = static_cast<int>(fminf(kf, static_cast<float>(p.max_steps - 1)));
-        }
+      if (!reach(p.g, lx, ly, lz, sk)) {  // sigma 0 here and on to the brick's exit: jump past it
+        k = skip_to(r, sk, px, py, pz, k, p.max_steps);
         continue;
       }
 
@@ -230,7 +139,7 @@ __global__ void __launch_bounds__(128) march_kernel(const Params p) {
       float cw[8], dens[8];
       int rows[8];
       corner_weights(lx, ly, lz, wx, wy, wz, cw);
-      corner_rows(nb, lx, ly, lz, rows);
+      corner_rows(sk.nb, lx, ly, lz, rows);
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const int cx = slot_coord(lx, c >> 2), cy = slot_coord(ly, (c >> 1) & 1), cz = slot_coord(lz, c & 1);
@@ -269,6 +178,33 @@ __global__ void __launch_bounds__(128) march_kernel(const Params p) {
   o[5 * p.r] = cum;
   o[6 * p.r] = spars;
   o[7 * p.r] = 0.f;
+}
+
+// The first port's corners of the sample at tt: the element offset of each
+// corner cell in `cells` (-1 when its brick is empty) and its trilinear
+// weight. Returns the interpolated density, 0 at or below sigma_thresh.
+template <int CP>
+__device__ __forceinline__ float corners(const Grid& g, const Ray& r, float tt, float sigma_thresh,
+                                         long long off[8], float cw[8]) {
+  float px, py, pz, wx, wy, wz;
+  int lx, ly, lz;
+  position(r, tt, px, py, pz);
+  lower_corner(g, px, py, pz, lx, ly, lz, wx, wy, wz);
+  corner_weights(lx, ly, lz, wx, wy, wz, cw);
+  float dens[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int cx = slot_coord(lx, c >> 2), cy = slot_coord(ly, (c >> 1) & 1), cz = slot_coord(lz, c & 1);
+    const int row = __ldg(g.links + ((cx >> 3) * g.BY + (cy >> 3)) * g.BZ + (cz >> 3));
+    off[c] = -1;
+    dens[c] = 0.f;
+    if (row >= 0) {
+      off[c] = (static_cast<long long>(row) * CELLS + cell_in_brick(cx, cy, cz)) * CP;
+      dens[c] = __bfloat162float(g.cells[off[c]]);
+    }
+  }
+  const float sigma = corner_sum(cw, dens);
+  return sigma > sigma_thresh ? sigma : 0.f;
 }
 
 // The first port's per-sample march, cut after its link reads (MODE 0:
@@ -396,7 +332,7 @@ int tile_march_fwd(const void* cells, const void* links, const void* pack, const
   Params p;
   p.out = static_cast<float*>(out);
   p.sink = nullptr;
-  p.tile_w = patch_tile_width(r);
+  p.tile_w = patch_tile_width<PATCH_H, PATCH_W>(r);
   return run(p, -1, cells, links, pack, basis, n_rays, r, X, Y, Z, BY, BZ, basis_dim, max_steps,
              sigma_thresh, stop_thresh, sigmoid, early_stop, stream);
 }

@@ -7,10 +7,12 @@ sm_90a, built with nvcc and loaded with ctypes) marches tiles of r rays
 version. ``march`` takes the plain version for host tensors and launches
 the kernel, or raises, for CUDA tensors. The backward ``tile_march_bwd``
 (``csrc/tile_march_bwd.cu``) re-marches each ray through the same
-stepping (``csrc/tile_march.cuh``) and adds the density and SH gradients
-of the MSE, beta and Cauchy sparsity losses straight into brick-layout
-arrays; ``march_backward_reference`` is its plain version and
-``march_backward`` dispatches as ``march`` does.
+stepping and skip (``csrc/tile_march.cuh``) and adds the density and SH
+gradients of the MSE, beta and Cauchy sparsity losses, summed over each
+corner's run of samples first, straight into brick-layout arrays;
+``march_backward_reference`` is its plain version,
+``backward_flushes`` the host twin of its runs, and ``march_backward``
+dispatches as ``march`` does.
 ``render_fused_tiles_pallas`` runs both: the fused render + gradient of
 a Plenoxels training step.
 
@@ -410,24 +412,17 @@ def march_reference(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: 
                      brick_steps=n_steps.reshape(T, r), touched=touched[:nb])
 
 
-def march_backward_reference(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: torch.Tensor,
-                             basis: torch.Tensor, grad_rgb: torch.Tensor, s_total: torch.Tensor, *,
-                             max_steps: int, color_mode: str = "bias", sigma_thresh: float = 1e-8,
-                             stop_thresh: float = 1e-7, sparsity_scale: float = 0.0, slice_steps: int = 32):
-    """Plain version of ``tile_march_bwd`` on any device, ``slice_steps``
-    steps of every ray at a time: the gradients of the march's loss with
-    respect to the cells' density and SH, (grad_density [nb, 512],
-    grad_sh [nb, 512, 3B]) float32, given grad_rgb [T, r, 3] (dL/d rgb_out)
-    and s_total [T, r] (g . rgb_out plus the beta term). The formulas of
-    ``_make_bwd_kernel``: on a sample with sigma above the threshold,
-    dL/dtau = T e^-tau (c . g) - suffix while the ray is active, suffix =
-    s_total minus the inclusive prefix of w (c . g); g_sigma = dL/dtau *
-    step_world, plus sparsity_scale * 4 sigma / (1 + 2 sigma^2) on every
-    valid sample; g_rgb = w g decode'. Each corner receives its trilinear
-    weight's share through ``index_add_``."""
+def _backward_terms(cells, brick_links, reso, pack, basis, grad_rgb, s_total, *, max_steps, color_mode,
+                    sigma_thresh, stop_thresh, sparsity_scale, slice_steps, skip_empty, reach):
+    """The plain backward's terms, ``slice_steps`` steps of every ray at a
+    time: per slice and corner, dict(k [S] float32 step indices, cell [N,
+    S] the corner's row * 512 + cell in the brick (row clamped to 0 where
+    empty), ok [N, S] (valid, the corner occupied), enter [N, S] (ok and
+    the kernel accumulates the sample: sigma above the threshold and the
+    ray active or sparsity on), gd [N, S] (cw g_sigma), gc [N, S, 3] (cw
+    g_rgb, before the basis))."""
     T, r, _ = pack.shape
     B = basis.shape[-1]
-    nb = cells.shape[0]
     p = pack.reshape(T * r, PACK)
     og, dg = p[:, 0:3], p[:, 3:6]
     dt, t0, t1, T0, sw = p[:, 6], p[:, 7], p[:, 8], p[:, 9], p[:, 10]
@@ -437,17 +432,18 @@ def march_backward_reference(cells: torch.Tensor, brick_links: torch.Tensor, res
     N, dev = T * r, pack.device
     span = _step_range(p, max_steps)
     k_start, k_end = int(span[:, 0].amin()), int(span[:, 1].amax())
+    if skip_empty and reach is None:
+        reach = reachable_bricks(brick_links, reso)
+    visits = kernel_visits(reach, reso, p, max_steps, k_start, k_end) if skip_empty else None
 
-    grad_d = torch.zeros(nb * BRICK**3, device=dev)
-    grad_sh = torch.zeros(nb * BRICK**3, 3 * B, device=dev)
     cum = torch.zeros(N, device=dev)  # -log T over the active samples
     P = torch.zeros(N, device=dev)    # inclusive prefix of w (c . g)
-    if nb == 0:
-        return grad_d.reshape(0, BRICK**3), grad_sh.reshape(0, BRICK**3, 3 * B)
     for k0 in range(k_start, k_end, slice_steps):
         ks = torch.arange(k0, min(k0 + slice_steps, k_end), dtype=torch.float32, device=dev)
         tt = T0[:, None] + ks[None, :] * dt[:, None]  # [N, S]
         valid = (tt >= t0[:, None]) & (tt < t1[:, None])
+        if skip_empty:
+            valid &= visits[:, k0 - k_start:k0 - k_start + ks.shape[0]]
         pos = og[:, None, :] + tt[..., None] * dg[:, None, :]
         vals = trilerp_cells(cells, brick_links, reso, pos)  # [N, S, CP]
         sig_pos = valid & (vals[..., 0] > sigma_thresh)
@@ -476,14 +472,112 @@ def march_backward_reference(cells: torch.Tensor, brick_links: torch.Tensor, res
         g_rgb = w[..., None] * g[:, None, :] * gate  # [N, S, 3]
         cum += torch.where(active, tau, 0.0).sum(-1)
         P = P_in[:, -1]
-
+        enter = sig_pos & (active | (sparsity_scale != 0))
+        corners = []
         for row, cell, wt in _corners(brick_links, reso, pos):
             ok = valid & (row >= 0)
-            idx = (row.clamp(min=0) * BRICK**3 + cell).reshape(-1)
-            grad_d.index_add_(0, idx, torch.where(ok, wt * gsig, 0.0).reshape(-1))
-            gsh = (wt[..., None] * g_rgb)[..., None] * bas[:, None, None, :]  # [N, S, 3, B]
+            corners.append(dict(k=ks, cell=row.clamp(min=0) * BRICK**3 + cell, ok=ok, enter=ok & enter,
+                                gd=wt * gsig, gc=wt[..., None] * g_rgb))
+        yield corners
+
+
+def march_backward_reference(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: torch.Tensor,
+                             basis: torch.Tensor, grad_rgb: torch.Tensor, s_total: torch.Tensor, *,
+                             max_steps: int, color_mode: str = "bias", sigma_thresh: float = 1e-8,
+                             stop_thresh: float = 1e-7, sparsity_scale: float = 0.0, slice_steps: int = 32,
+                             skip_empty: bool = False, reach: Optional[torch.Tensor] = None):
+    """Plain version of ``tile_march_bwd`` on any device, ``slice_steps``
+    steps of every ray at a time: the gradients of the march's loss with
+    respect to the cells' density and SH, (grad_density [nb, 512],
+    grad_sh [nb, 512, 3B]) float32, given grad_rgb [T, r, 3] (dL/d rgb_out)
+    and s_total [T, r] (g . rgb_out plus the beta term). The formulas of
+    ``_make_bwd_kernel``: on a sample with sigma above the threshold,
+    dL/dtau = T e^-tau (c . g) - suffix while the ray is active, suffix =
+    s_total minus the inclusive prefix of w (c . g); g_sigma = dL/dtau *
+    step_world, plus sparsity_scale * 4 sigma / (1 + 2 sigma^2) on every
+    valid sample; g_rgb = w g decode'. Each corner receives its trilinear
+    weight's share through ``index_add_``.
+
+    With ``skip_empty`` the backward evaluates only the steps that the
+    kernel visits (``kernel_visits`` under the reachable-brick mask
+    ``reach``, default ``reachable_bricks``), as the kernel's skip does:
+    with a right mask the gradients are the same bits as without it."""
+    B = basis.shape[-1]
+    nb = cells.shape[0]
+    r = pack.shape[1]
+    bas = basis.float().repeat_interleave(r, dim=0)  # [N, B]
+    grad_d = torch.zeros(nb * BRICK**3, device=pack.device)
+    grad_sh = torch.zeros(nb * BRICK**3, 3 * B, device=pack.device)
+    if nb == 0:
+        return grad_d.reshape(0, BRICK**3), grad_sh.reshape(0, BRICK**3, 3 * B)
+    for corners in _backward_terms(cells, brick_links, reso, pack, basis, grad_rgb, s_total, max_steps=max_steps,
+                                   color_mode=color_mode, sigma_thresh=sigma_thresh, stop_thresh=stop_thresh,
+                                   sparsity_scale=sparsity_scale, slice_steps=slice_steps, skip_empty=skip_empty,
+                                   reach=reach):
+        for c in corners:
+            idx, ok = c["cell"].reshape(-1), c["ok"]
+            grad_d.index_add_(0, idx, torch.where(ok, c["gd"], 0.0).reshape(-1))
+            gsh = c["gc"][..., None] * bas[:, None, None, :]  # [N, S, 3, B]
             grad_sh.index_add_(0, idx, torch.where(ok[..., None, None], gsh, 0.0).reshape(-1, 3 * B))
     return grad_d.reshape(nb, BRICK**3), grad_sh.reshape(nb, BRICK**3, 3 * B)
+
+
+def backward_flushes(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: torch.Tensor,
+                     basis: torch.Tensor, grad_rgb: torch.Tensor, s_total: torch.Tensor, *, max_steps: int,
+                     color_mode: str = "bias", sigma_thresh: float = 1e-8, stop_thresh: float = 1e-7,
+                     sparsity_scale: float = 0.0, slice_steps: int = 32, reach: Optional[torch.Tensor] = None):
+    """Host twin of the kernel's pre-summed adds (``tile_march_bwd``): a
+    ray's corner slot (the parities of its cell's coordinates) keeps a run
+    while its cell stays the same over the samples the kernel accumulates
+    (the skipping march's samples with sigma above the threshold, while
+    the ray is active or with sparsity on), and adds the run's sums when
+    the cell changes and at the ray's end: its density unless all its
+    contributions are 0, and its 3B SH gradients unless all its colour
+    contributions are 0, as float4 adds where grad_sh's row is 16-byte
+    aligned and scalar ones around them. Returns dict(ray [F], cell [F]
+    (row * 512 + cell in the brick), density [F], colour [F, 3] (before
+    the tile basis), adds: the floats the kernel adds into the arrays,
+    add_ops: the add instructions it issues for them)."""
+    B = basis.shape[-1]
+    r = pack.shape[1]
+    rays, ks, cells_, gd, gc = [], [], [], [], []
+    N = pack.shape[0] * r
+    ray_ids = torch.arange(N, device=pack.device)
+    for corners in _backward_terms(cells, brick_links, reso, pack, basis, grad_rgb, s_total, max_steps=max_steps,
+                                   color_mode=color_mode, sigma_thresh=sigma_thresh, stop_thresh=stop_thresh,
+                                   sparsity_scale=sparsity_scale, slice_steps=slice_steps, skip_empty=True,
+                                   reach=reach):
+        for c in corners:
+            m = c["enter"]
+            rays.append(ray_ids[:, None].expand(m.shape)[m])
+            ks.append(c["k"][None, :].expand(m.shape)[m])
+            cells_.append(c["cell"][m])
+            gd.append(c["gd"][m])
+            gc.append(c["gc"][m])
+    ray, k, cell = torch.cat(rays), torch.cat(ks), torch.cat(cells_)
+    gd, gc = torch.cat(gd), torch.cat(gc)
+    # slot: the parities of the cell's coordinates (those of its place in the brick)
+    cib = cell % BRICK**3
+    slot = ((cib >> 6) & 1) * 4 + ((cib >> 3) & 1) * 2 + (cib & 1)
+    order = torch.argsort(k, stable=True)
+    order = order[torch.argsort((ray * 8 + slot)[order], stable=True)]  # by ray and slot, each in step order
+    key, cell, gd, gc = (ray * 8 + slot)[order], cell[order], gd[order], gc[order]
+    new = torch.ones_like(key, dtype=torch.bool)
+    new[1:] = (key[1:] != key[:-1]) | (cell[1:] != cell[:-1])
+    run = torch.cumsum(new.long(), 0) - 1
+    F = int(new.sum())
+    density = torch.zeros(F, device=gd.device).index_add_(0, run, gd)
+    colour = torch.zeros(F, 3, device=gd.device).index_add_(0, run, gc)
+    live_d = torch.zeros(F, dtype=torch.bool, device=gd.device).index_fill_(0, run[gd != 0], True)
+    live_c = torch.zeros(F, dtype=torch.bool, device=gd.device).index_fill_(0, run[(gc != 0).any(-1)], True)
+    # a row of N = 3B floats starting A floats past a 16-byte boundary:
+    # head scalars to the boundary, float4s, tail scalars
+    N = 3 * B
+    head = torch.clamp((4 - (cell[new][live_c] * N) % 4) % 4, max=N)
+    body = (N - head) // 4
+    ops = head + body + (N - head - 4 * body)
+    return dict(ray=key[new] // 8, cell=cell[new], density=density, colour=colour,
+                adds=int(live_d.sum()) + N * int(live_c.sum()), add_ops=int(live_d.sum()) + int(ops.sum()))
 
 
 # ---------------------------------------------------------------------------
@@ -613,6 +707,8 @@ def _bwd_launch(cells, brick_links, reso, pack, basis, grad_rgb, s_total, outs, 
     X, Y, Z = (int(v) for v in reso)
     if not (2 <= X <= BX * BRICK and 2 <= Y <= BY * BRICK and 2 <= Z <= BZ * BRICK):
         raise ValueError(f"reso {tuple(reso)} does not fit brick_links of shape {(BX, BY, BZ)}")
+    if not probe and outs[1].data_ptr() % 16:
+        raise ValueError("tile_march_bwd adds grad_sh's rows as float4s: grad_sh must be 16-byte aligned")
     if T * r == 0:
         return
     fn = lib.tile_march_bwd_probe if probe else lib.tile_march_bwd
@@ -634,8 +730,11 @@ def tile_march_bwd(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: t
     """Launch the CUDA backward: the inputs of ``tile_march_fwd`` plus
     grad_rgb float32 [T, r, 3] and s_total float32 [T, r] on one card ->
     (grad_density [nb, 512], grad_sh [nb, 512, 3B]) float32 as
-    ``march_backward_reference``. The gradients are summed with float32
-    atomics, so their last bits change from run to run."""
+    ``march_backward_reference``. A ray's corner slot sums its gradient
+    while its cell stays a corner and adds the run into the arrays with
+    float32 atomics (``backward_flushes`` counts them): the order of the
+    sums differs from the plain version's, and their last bits change
+    from run to run."""
     nb, B = cells.shape[0], basis.shape[-1]
     grad_d = torch.zeros((nb, BRICK**3), dtype=torch.float32, device=pack.device)
     grad_sh = torch.zeros((nb, BRICK**3, 3 * B), dtype=torch.float32, device=pack.device)
@@ -651,10 +750,12 @@ tile_march_bwd.launches = 0
 
 
 def tile_march_bwd_probe(cells, brick_links, reso, pack, basis, grad_rgb, s_total, **kw) -> torch.Tensor:
-    """The backward kernel with each atomic add summed into one float a
-    ray instead -> [T, r]: the same march and arithmetic without the
-    scatter, to time what the atomics cost. Counts no launch."""
-    sink = torch.empty(pack.shape[:2], dtype=torch.float32, device=pack.device)
+    """The backward kernel with each global add summed into one float a
+    ray instead -> [2, T, r]: those sums and the samples each ray visited
+    (as ``kernel_visits`` counts them, up to the ray's first inactive
+    sample without the sparsity loss): the same march, runs and arithmetic
+    without the adds, to time what they cost. Counts no launch."""
+    sink = torch.empty((2,) + tuple(pack.shape[:2]), dtype=torch.float32, device=pack.device)
     _bwd_launch(cells, brick_links, reso, pack, basis, grad_rgb, s_total, (sink,), probe=True, **kw)
     return sink
 

@@ -533,3 +533,85 @@ def test_skipping_march_matches_jax_k3_on_rays_without_misses(skip_case):
     assert keep.mean() >= 0.95, keep.mean()
     assert float(np_(got["acc"])[keep].max()) > 0.1
     assert_close_on(got, skip_case["k3"], keep, K3_TOL, "skipping plain K3 vs JAX K3")
+
+
+# ---------------------------------------------------------------------------
+# The backward's skip and its pre-summed adds, through their host twins
+# ---------------------------------------------------------------------------
+
+TWIN_TOL = 1e-5  # of scale: the runs' float32 sums against the plain version's, in another order
+
+
+def backward_seeds(bg, pack, basis, max_steps, opts, seed):
+    """The backward's g and S_total (beta on) from the plain march against
+    a random target."""
+    cells = ttm.build_kernel_arrays(bg)
+    out = ttm.march_reference(cells, bg.brick_links, bg.reso, pack, basis, max_steps=max_steps)
+    gt = torch.from_numpy(np.random.default_rng(seed).uniform(0.0, 1.0, tuple(pack.shape[:2]) + (3,)).astype(np.float32))
+    _, g, s_total = ttm.loss_seeds(out, gt, opts, beta_loss=1e-3)
+    return cells, g, s_total
+
+
+def skip_backward(case, sparsity, **kw):
+    bg = case["bg"]
+    _, g, s_total = backward_seeds(bg, case["pack"], case["basis"], case["max_steps"], case["opts"], seed=5)
+    return ttm.march_backward_reference(case["cells"], bg.brick_links, bg.reso, case["pack"], case["basis"], g,
+                                        s_total, max_steps=case["max_steps"], sparsity_scale=sparsity, **kw)
+
+
+@pytest.mark.parametrize("sparsity", [0.0, 1e-3], ids=["mse", "sparsity"])
+def test_skipping_backward_gives_the_same_bits(skip_case, sparsity):
+    """The plain backward visiting only the kernel's steps equals the one
+    that reads every sample, bit for bit, with the sparsity loss off and
+    on (a skipped sample has sigma 0: no g_sigma, no sparsity term, cum
+    and P unchanged), on rays that graze brick faces and enter through the
+    upper face."""
+    full = skip_backward(skip_case, sparsity)
+    skip = skip_backward(skip_case, sparsity, skip_empty=True)
+    assert float(full[0].abs().max()) > 0 and float(full[1].abs().max()) > 0
+    for got, want in zip(skip, full):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_a_backward_mask_without_the_upper_neighbours_loses_gradient(skip_case):
+    """With the occupancy alone as the mask, the skip drops the samples
+    whose upper corners cross into an occupied brick: their corners lose
+    gradient."""
+    full = skip_backward(skip_case, 0.0)
+    occ = skip_case["bg"].brick_links >= 0
+    bad = skip_backward(skip_case, 0.0, skip_empty=True, reach=occ)
+    for got, want in zip(bad, full):
+        assert float((got - want).abs().max() / want.abs().max()) > 1e-2
+
+
+def flush_case(coherent):
+    bg = coherent["bg"]
+    opts = tgrid.GridRenderOptions(step_size=0.5)
+    _, pack, basis, max_steps = ttm.march_inputs(bg, coherent["rays"], opts)
+    cells, g, s_total = backward_seeds(bg, pack, basis, max_steps, opts, seed=6)
+    return bg, cells, pack, basis, g, s_total, max_steps
+
+
+@pytest.mark.parametrize("sparsity", [0.0, 1e-3], ids=["mse", "sparsity"])
+def test_flush_twin_sums_to_the_plain_backward_with_fewer_adds(coherent, sparsity):
+    """The kernel's runs (a slot's sums while its cell stays a corner),
+    summed run by run with the tile basis, give the plain backward's
+    gradients to float32 rounding, and add fewer floats than the first
+    port's 8 (1 + 3B) a shaded sample on coherent tiles, in fewer than
+    half as many add instructions."""
+    bg, cells, pack, basis, g, s_total, max_steps = flush_case(coherent)
+    kw = dict(max_steps=max_steps, sparsity_scale=sparsity)
+    want = ttm.march_backward_reference(cells, bg.brick_links, bg.reso, pack, basis, g, s_total, **kw)
+    f = ttm.backward_flushes(cells, bg.brick_links, bg.reso, pack, basis, g, s_total, **kw)
+    B, r = basis.shape[-1], pack.shape[1]
+    grad_d = torch.zeros(bg.n_bricks * 512).index_add_(0, f["cell"], f["density"])
+    tile_basis = basis[f["ray"] // r]
+    grad_sh = torch.zeros(bg.n_bricks * 512, 3 * B).index_add_(
+        0, f["cell"], (f["colour"][:, :, None] * tile_basis[:, None, :]).reshape(-1, 3 * B))
+    for got, w in ((grad_d, want[0]), (grad_sh, want[1])):
+        w = w.reshape(got.shape)
+        assert float((got - w).abs().max()) <= TWIN_TOL * float(w.abs().max())
+    _, counts = ttm.march_reference(cells, bg.brick_links, bg.reso, pack, basis, max_steps=max_steps,
+                                    early_stop=True, counts=True)
+    assert 0 < f["adds"] < 8 * (1 + 3 * B) * int(counts["shaded"].sum())
+    assert f["add_ops"] < f["adds"] / 2  # the rows go out mostly as float4s
