@@ -12,18 +12,18 @@ the lower corner crosses into another brick along y or z), both shared
 with K4 and run by both phases; K4's include its suffix term, its stop with
 sparsity on, a ray's last run of a corner slot dropped, a run's colour
 sums not reset when the slot's cell changes and its SH row's scalar tail
-dropped; the wgmma
-core's (mlp_sm90.cuh: K1f, K1b, K1rf, K1rb, K2 and K5f) include the
-concat, the relu mask, the stage ring, the dW jobs, the view encoder, the
-encoding stash, K1rb's and K1b's forwards without their per-slab
-promotion, K1f handed the raw layout's buffer and K5f's two heads; K5b's
-(mma.sync tile) its dW table, encoding stash and split-K reduce. Run from
-the repository root:
+dropped; the wgmma core's (mlp_sm90.cuh: K1f, K1b, K1rf, K1rb, K2, K5f
+and K5b) include the concat, the relu mask, the stage ring, the dW jobs
+(K1's and K5b's), the view encoder, the encoding stash, K1rb's, K1b's and
+K5b's forwards without their per-slab promotion, K1f handed the raw
+layout's buffer, K5f's two heads, K5b's dX heads' product without its
+sigma fragment and its coefficient head's dW cut to 4 columns; K5b's
+split-K reduce (fused_sh_bwd.cu). Run from the repository root:
 
     python3 chip_mutants.py
 
-Prints one line per (mutant, phase): CAUGHT or SURVIVED, with the
-check's message; exits 1 if a mutant survived a phase it should fail.
+Prints one line per (mutant, phase): CAUGHT or SURVIVED, with the check's
+message; exits 1 if a mutant survived a phase it should fail.
 """
 from __future__ import annotations
 
@@ -36,19 +36,13 @@ import tempfile
 # label: (file, original text, mutant text, phases that must fail); the
 # phases are those that run the mutated line
 MUTANTS = {
-    "w5's h rows read a3 instead of a4 in K5b's dW table": (
-        "nerf_projects_tpu_torch/csrc/fused_sh_bwd.cu",
-        "{A_TRUNK + 4 * 256, 256, G_TRUNK + 5 * 256",
-        "{A_TRUNK + 3 * 256, 256, G_TRUNK + 5 * 256",
-        ("kernel_sh",),
-    ),
-    "w5's h rows read a3 instead of a4 in the wgmma core's dW jobs": (
+    "w5's h rows read a3 instead of a4 in the wgmma core's dW jobs (K1's and K5b's)": (
         "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
         "const int feats[5] = {A_X, A_TRUNK + 4 * 256, A_TRUNK + 4 * 256 + 64, A_TRUNK + 4 * 256 + 128, "
         "A_TRUNK + 4 * 256 + 192};",
         "const int feats[5] = {A_X, A_TRUNK + 3 * 256, A_TRUNK + 3 * 256 + 64, A_TRUNK + 3 * 256 + 128, "
         "A_TRUNK + 3 * 256 + 192};",
-        ("kernel_raw", "fused_train_level", "fused_mlp_bwd"),
+        ("kernel_raw", "fused_train_level", "fused_mlp_bwd", "kernel_sh"),
     ),
     "trunk_5's x columns dropped from the [x | h4] concat in the wgmma core": (
         "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
@@ -60,7 +54,25 @@ MUTANTS = {
         "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
         "grad(mlp::A_TRUNK + l * 256), ring, j);",
         "grad(mlp::A_TRUNK + (l + 1) * 256), ring, j);",
-        ("kernel_raw", "fused_train_level", "fused_mlp_bwd"),
+        ("kernel_raw", "fused_train_level", "fused_mlp_bwd", "kernel_sh"),
+    ),
+    "the NeRF-SH dX heads' product without its sigma fragment in the wgmma core": (
+        "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
+        "a[34] = a[35] = 0u;",
+        "a[32] = a[33] = a[34] = a[35] = 0u;",
+        ("kernel_sh",),
+    ),
+    "K5b's coefficient-head dW job cut to its first 4 live columns in the wgmma core": (
+        "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
+        "sh::GWRGB, sh::G_RGB, 256, 128, 0, (num_rgb + 1) / 2 * 2, 128);",
+        "sh::GWRGB, sh::G_RGB, 256, 128, 0, 4, 128);",
+        ("kernel_sh",),
+    ),
+    "K5b's recomputed forward without its per-slab promotion": (
+        "nerf_projects_tpu_torch/csrc/fused_sh_bwd.cu",
+        "sm90::launch_forward<sm90::IN_SH, true>(",
+        "sm90::launch_forward<sm90::IN_SH, false>(",
+        ("kernel_sh",),
     ),
     "K1rb's recomputed forward without its per-slab promotion": (
         "nerf_projects_tpu_torch/csrc/fused_mlp_raw_bwd.cu",
@@ -84,7 +96,7 @@ MUTANTS = {
         "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
         "if (s * KD + kk * 16 < K) fr[kk] = af(s * KB + kk);",
         "if (s * KD + kk * 16 < K) fr[kk] = s == 1 ? Frag{{0u, 0u, 0u, 0u}} : af(s * KB + kk);",
-        ("kernel_raw", "fused_train_level", "fused_mlp_bwd"),
+        ("kernel_raw", "fused_train_level", "fused_mlp_bwd", "kernel_sh"),
     ),
     "inclusive instead of exclusive transmittance in the composite": (
         "nerf_projects_tpu_torch/csrc/fused_train.cu",
@@ -184,18 +196,11 @@ MUTANTS = {
         "          v1 = c + 1 < 27 ? mlp::encode_col(vrow[h], c + 1, 3) : 0.f;",
         ("kernel_raw", "fused_train_level"),
     ),
-    "K5b's encoding stash (A_X) written as zeros": (
-        "nerf_projects_tpu_torch/csrc/fused_sh_tile.cuh",
-        "stash_cols(act, AS, COL_X, 64, stash, mlp::A_X, ld, row_base);",
-        "for (int i = threadIdx.x; i < 64 * BM; i += THREADS) "
-        "stash[(mlp::A_X + i / BM) * ld + row_base + i % BM] = __float2bfloat16_rn(0.f);",
-        ("kernel_sh",),
-    ),
     "the wgmma core's encoding stash (A_X) written as zeros": (
         "nerf_projects_tpu_torch/csrc/mlp_sm90.cuh",
-        "stash[slot(tile64, A_F8, fg, L.ra + 8 * h, L.t)] = r4[i];",
-        "stash[slot(tile64, A_F8, fg, L.ra + 8 * h, L.t)] = kb < 4 ? 0u : r4[i];",
-        ("kernel_raw", "fused_train_level", "fused_mlp_bwd"),
+        "stash[slot(tile64, a_f8(MODE), fg, L.ra + 8 * h, L.t)] = r4[i];",
+        "stash[slot(tile64, a_f8(MODE), fg, L.ra + 8 * h, L.t)] = kb < 4 ? 0u : r4[i];",
+        ("kernel_raw", "fused_train_level", "fused_mlp_bwd", "kernel_sh"),
     ),
     "the transmittance's backward without its division by the factor": (
         "nerf_projects_tpu_torch/ops/render.py",

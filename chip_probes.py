@@ -6,6 +6,7 @@ tree than this file's: its chip_smoke.py and package are the ones used):
     python3 /path/to/chip_probes.py f64   # K1rb's float64-sums rule, per draw
     python3 /path/to/chip_probes.py route [tag [rays [draws]]]  # K1b's and K1rb's rule under the route's own g
     python3 /path/to/chip_probes.py k2    # K2's fine level timed around other work
+    python3 /path/to/chip_probes.py sh [draws]  # K5b's float64-sums rule per draw and row count
 
 f64: K1rb's gradients against the plain version with float64 sums, as
 chip_smoke.check_grads reads the rule (the kernel's relative Frobenius
@@ -26,6 +27,14 @@ float64 sums for the worst.
 k2: K2's fine level (S 288, R 4, 1,024 rays) timed 3 x 10 launches with
 CUDA events, fresh, after chip_smoke.phase_kernel and after 5 s idle,
 each beside the card's SM clock, temperature and power.
+
+sh: K5b's float64-sums rule (as chip_smoke.check_grads reads it) at
+each head width (27, 48, 75, 128 columns) and at 100, 128, 1,000, 8,193
+and 8,229 rows, `draws` (3) draws of weights and inputs each: the
+kernel's reading and its worst tensor, the kernel's and the float32
+plain version's relative distances from the float64 sums for that
+tensor, and the reading of the plain version with another float32 order
+(partial_sums) on the same inputs.
 """
 from __future__ import annotations
 
@@ -123,6 +132,60 @@ def probe_k2(dev) -> None:
     k2("after 5 s idle")
 
 
+class partial_sums:
+    """Within the block, fused_mlp's products (_mm, _mmBT) sum their
+    float32 products in 64-deep partials added in turn, as the kernels'
+    promoted products do: a plain version with another float32 order."""
+
+    def __enter__(self):
+        from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
+
+        self.saved = fm._mm, fm._mmBT
+
+        def mm(a, w):
+            a = a.to(torch.bfloat16).float()
+            return sum(a[:, k: k + 64] @ w[k: k + 64].float() for k in range(0, a.shape[1], 64))
+
+        fm._mm, fm._mmBT = mm, lambda g, w: mm(g, w.T)
+        return self
+
+    def __exit__(self, *exc):
+        from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
+
+        fm._mm, fm._mmBT = self.saved
+
+
+def probe_sh(dev, draws: int) -> None:
+    from nerf_projects_tpu_torch.models.nerf_sh import CondMLP
+    from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerf_projects_tpu_torch.ops.kernels import fused_sh_mlp as fsm
+
+    gen = torch.Generator().manual_seed(c.SEED + 31)
+    names = fsm.FusedSHWeights._fields
+    for num_rgb in (27, 48, 75, 128):
+        for draw in range(draws):
+            mlp = c.random_biases(CondMLP(num_rgb_channels=num_rgb).reset_parameters(gen), gen).to(dev)
+            W = fsm.pack_sh_params(mlp)
+            wk, wkt = fsm.backward_weights(mlp, fsm.forward_weights(mlp))
+            for n in (100, 128, 1000, 8192 + 1, 8192 + 37):
+                x = c.sh_points(n, gen, dev)
+                g_rgb = (torch.randn(n, num_rgb, generator=gen) * 1e-3).to(dev)
+                g_sig = (torch.randn(n, 1, generator=gen) * 1e-3).to(dev)
+                got = fsm.fused_sh_bwd(wk, wkt, x, g_rgb, g_sig)
+                want = fsm.fused_sh_bwd_reference(W, x, g_rgb, g_sig)
+                with fm.float64_sums():
+                    exact = fsm.fused_sh_bwd_reference(W, x, g_rgb, g_sig)
+                with partial_sums():
+                    other = fsm.fused_sh_bwd_reference(W, x, g_rgb, g_sig)
+                ratio, i = c.noise_ratio(got, want, exact)
+                ctl, k = c.noise_ratio(other, want, exact)
+                e = exact[i].double()
+                dist = [float((t[i].double() - e).norm() / (e.norm() + 1e-30)) for t in (got, want)]
+                print(f"sh num_rgb={num_rgb} draw {draw} n={n}: kernel {ratio:.3f}x ({names[i]}: kernel "
+                      f"{dist[0]:.3e}, float32 plain {dist[1]:.3e} from float64), plain with 64-deep partial "
+                      f"sums {ctl:.3f}x ({names[k]})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_probes: no CUDA device; this script runs only on a card", file=sys.stderr)
@@ -138,8 +201,10 @@ def main() -> int:
                     int(sys.argv[3]) if len(sys.argv) > 3 else 128, int(sys.argv[4]) if len(sys.argv) > 4 else 6)
     elif what == "k2":
         probe_k2(dev)
+    elif what == "sh":
+        probe_sh(dev, int(sys.argv[2]) if len(sys.argv) > 2 else 3)
     else:
-        print("usage: chip_probes.py f64 [tag] | route [tag [rays [draws]]] | k2", file=sys.stderr)
+        print("usage: chip_probes.py f64 [tag] | route [tag [rays [draws]]] | k2 | sh [draws]", file=sys.stderr)
         return 2
     return 0
 

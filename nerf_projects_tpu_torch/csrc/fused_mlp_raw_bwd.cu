@@ -41,7 +41,7 @@ extern "C" {
 long long fused_mlp_raw_bwd_weight_elems() { return sm90::SW_WEIGHTS; }
 long long fused_mlp_raw_bwd_weight_t_elems() { return sm90::SWT_WEIGHTS; }
 long long fused_mlp_raw_bwd_grad_elems() { return mlp::GRAD_ELEMS; }
-long long fused_mlp_raw_bwd_workspace_bytes(long long n) { return sm90::workspace_bytes(n, false); }
+long long fused_mlp_raw_bwd_workspace_bytes(long long n) { return sm90::workspace_bytes(n, sm90::K1_FEATS, false); }
 
 const char* fused_mlp_raw_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -56,13 +56,14 @@ int fused_mlp_raw_bwd(const void* p, const void* v, const void* g, const void* w
                       void* grads, long long n, void* workspace, void* stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const sm90::Workspace ws = sm90::carve(workspace, n, false);
+  const sm90::Workspace ws = sm90::carve(workspace, n, sm90::K1_FEATS, false);
   cudaError_t err = sm90::launch_forward<sm90::IN_TRAIN_RAW, true>(
       static_cast<const float*>(p), static_cast<const float*>(v), static_cast<const mlp::bf16*>(w), nullptr, n,
       ws.A, 1, 8, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   int dx_blocks = 0;
-  err = sm90::launch_dx(static_cast<const float*>(g), n, static_cast<const mlp::bf16*>(wt), ws, &dx_blocks, s);
+  err = sm90::launch_dx<false>({static_cast<const float*>(g), nullptr, 0}, n, static_cast<const mlp::bf16*>(wt),
+                               ws, &dx_blocks, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(sm90::launch_dw(n, ws, dx_blocks, static_cast<float*>(grads), s));
 }

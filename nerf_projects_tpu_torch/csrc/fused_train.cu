@@ -163,7 +163,7 @@ cudaError_t train_level(const float* x, const float* vt, const mlp::bf16* w,
                         long long n_rays_total, float bkgd, float* rgb_out, float* acc_out,
                         float* w_out, float* grads, void* workspace, cudaStream_t stream) {
   const long long n = n_rays * S;
-  const sm90::Workspace ws = sm90::carve(workspace, n, true);
+  const sm90::Workspace ws = sm90::carve(workspace, n, sm90::K1_FEATS, true);
   cudaError_t err = sm90::launch_forward<RAW ? sm90::IN_TRAIN_RAW : sm90::IN_TRAIN_ENC, true>(
       x, vt, w, ws.raw, n, ws.A, S, R, stream);
   if (err != cudaSuccess) return err;
@@ -178,7 +178,7 @@ cudaError_t train_level(const float* x, const float* vt, const mlp::bf16* w,
       rgb_out, acc_out, w_out);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   int dx_blocks = 0;
-  if ((err = sm90::launch_dx(ws.g8, n, wt, ws, &dx_blocks, stream)) != cudaSuccess) return err;
+  if ((err = sm90::launch_dx<false>({ws.g8, nullptr, 0}, n, wt, ws, &dx_blocks, stream)) != cudaSuccess) return err;
   return sm90::launch_dw(n, ws, dx_blocks, grads, stream);
 }
 
@@ -189,7 +189,7 @@ extern "C" {
 long long fused_train_weight_elems() { return sm90::SW_WEIGHTS; }
 long long fused_train_weight_t_elems() { return sm90::SWT_WEIGHTS; }
 long long fused_train_grad_elems() { return mlp::GRAD_ELEMS; }
-long long fused_train_workspace_bytes(long long n_rows) { return sm90::workspace_bytes(n_rows, true); }
+long long fused_train_workspace_bytes(long long n_rows) { return sm90::workspace_bytes(n_rows, sm90::K1_FEATS, true); }
 
 const char* fused_train_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,21 +1,21 @@
-// Hopper (sm_90a) core of the fused NeRF MLPs: warpgroup matrix products
-// (wgmma) fed by bulk copies into a ring of shared-memory stages. Every
-// NeRF MLP kernel runs on it: the fused train level (fused_train.cu, K2),
-// the encoded forward and weight-gradient backward (fused_mlp_fwd.cu,
-// fused_mlp_bwd.cu: K1f, K1b), the raw-points forward and backward
-// (fused_mlp_raw_fwd.cu, fused_mlp_raw_bwd.cu: K1rf, K1rb), and the NeRF-SH
-// trunk's forward (fused_sh_fwd.cu, K5f), whose trunk is the same eight
-// layers under another head. The NeRF-SH backward (K5b) stays on
-// mlp_tile.cuh's mma.sync GEMM core; this header shares that file's stash
-// feature map, gradient layout, encoder (encode_col) and fixed-order reduce.
+// Hopper (sm_90a) core of the fused NeRF and NeRF-SH MLPs: warpgroup
+// matrix products (wgmma) fed by bulk copies into a ring of shared-memory
+// stages. Every MLP kernel runs on it: the fused train level
+// (fused_train.cu, K2), the encoded forward and weight-gradient backward
+// (fused_mlp_fwd.cu, fused_mlp_bwd.cu: K1f, K1b), the raw-points forward
+// and backward (fused_mlp_raw_fwd.cu, fused_mlp_raw_bwd.cu: K1rf, K1rb),
+// and the NeRF-SH trunk's forward and backward (fused_sh_fwd.cu,
+// fused_sh_bwd.cu: K5f, K5b), whose trunk is the same eight layers under
+// another head. mlp_tile.cuh holds the stash feature maps, gradient
+// layouts, encoder (encode_col) and fixed-order reduce it shares.
 //
 // What bounds the MLP on this card is tensor-core throughput: 593,408
 // multiply-adds a row against 24-416 bytes of input; for the backward
-// (K2, K1rb), also its stash bytes (~9.5 GB a training step). The mma.sync tile
-// reached 0.13-0.21 of the operations bound: each 64-row block streamed all
-// 1.2 MB of weights from L2 through a 32-deep slice behind two block
-// barriers, loaded every fragment one 32-bit word at a time, and wrote its
-// stashes with scattered stores. Here:
+// (K2, K1rb), also its stash bytes (~9.5 GB a training step). The first
+// port's tile of warp-level products reached 0.13-0.21 of the operations
+// bound: each 64-row block streamed all 1.2 MB of weights from L2 through a 32-deep
+// slice behind two block barriers, loaded every fragment one 32-bit word
+// at a time, and wrote its stashes with scattered stores. Here:
 //   - a block holds two warpgroups of 64 rows (128 rows); each weight slab,
 //     copied once into shared memory, feeds both: half the L2 weight
 //     traffic a row. A persistent grid walks the 128-row tiles;
@@ -39,13 +39,13 @@
 //     slab of 8 features as one 1 KB block in wgmma's MN-major layout and
 //     runs dW = A^T G with both operands from shared memory.
 // Every product takes bf16 operands and accumulates in float32, with the
-// rounding points of mlp_tile.cuh; only the order of the sums over K
-// differs. The backward's forward (K2, K1rb) and dW add each 64-deep
+// reference's rounding points; only the order of the sums over K differs.
+// The backward's forward (K2, K1b, K1rb, K5b) and dW add each 64-deep
 // slab's products into float32 registers (PROMOTE, mma_layer): the
 // float64-sums rule needs it.
 // The bias gradients are float32 sums in a fixed order, and dW goes
-// through split-K partials and mlp_tile.cuh's fixed-order reduce: the same
-// bits on every run.
+// through split-K partials and a fixed-order reduce: the same bits on
+// every run.
 
 #pragma once
 
@@ -354,11 +354,27 @@ constexpr long long SWT_W7 = SWT_WB + 256 * 272;       // w7, w6, w5 (h rows), w
 constexpr long long SWT_WEIGHTS = SWT_W7 + 7 * 256 * 256;
 __host__ __device__ constexpr long long swt_trunk(int l) { return SWT_W7 + (7 - l) * 256 * 256; }
 
+// NeRF-SH dX weight buffer (ops/kernels/fused_sh_mlp.py::SM90_LAYOUT_BWD):
+// the heads' [N = 256][K = 144] matrix [coefficient head^T (128 columns,
+// those past num_rgb zero) | sigma head^T (16, the first live)], then w7,
+// w6, w5 (h rows), w4, w3, w2, w1 ^T, slabbed the same way.
+constexpr long long SWT_SH_HEADS = 0;
+constexpr long long SWT_SH_W7 = SWT_SH_HEADS + 256 * 144;
+constexpr long long SWT_SH_WEIGHTS = SWT_SH_W7 + 7 * 256 * 256;
+static_assert(sh::MAX_RGB + 16 == 144, "the heads' product is 144 deep");
+
 // Stashes: [npad / 64 tiles][features / 8][64 rows][8] bf16, features as
-// mlp_tile.cuh's A_* and G_* maps.
-constexpr int A_F8 = mlp::A_FEATS / 8;
-constexpr int G_F8 = mlp::G_FEATS / 8;
-static_assert(mlp::A_FEATS % 8 == 0 && mlp::G_FEATS % 8 == 0, "stash features come in groups of 8");
+// mlp_tile.cuh's maps: mlp's A_* and G_*, or, for the NeRF-SH trunk (K5b),
+// sh's (x and a0..a7; the heads' and dense 0..7's output gradients).
+__host__ __device__ constexpr int a_feats(bool k5) { return k5 ? sh::A_FEATS : mlp::A_FEATS; }
+__host__ __device__ constexpr int g_feats(bool k5) { return k5 ? sh::G_FEATS : mlp::G_FEATS; }
+struct Feats {
+  int a, g;  // activation and gradient features a row
+};
+constexpr Feats K1_FEATS{a_feats(false), g_feats(false)};
+constexpr Feats K5_FEATS{a_feats(true), g_feats(true)};
+static_assert(mlp::A_FEATS % 8 == 0 && mlp::G_FEATS % 8 == 0 && sh::A_FEATS % 8 == 0 && sh::G_FEATS % 8 == 0,
+              "stash features come in groups of 8");
 
 struct Layer {
   long long off;
@@ -391,6 +407,13 @@ constexpr Layer DX_LAYERS[] = {
     {swt_trunk(4), 256, 256, 64}, {swt_trunk(3), 256, 256, 64}, {swt_trunk(2), 256, 256, 64},
     {swt_trunk(1), 256, 256, 64},
 };
+constexpr Layer SH_DX_LAYERS[] = {
+    {SWT_SH_HEADS, 256, 144, 64},
+    {SWT_SH_W7 + 0 * 65536, 256, 256, 64}, {SWT_SH_W7 + 1 * 65536, 256, 256, 64},
+    {SWT_SH_W7 + 2 * 65536, 256, 256, 64}, {SWT_SH_W7 + 3 * 65536, 256, 256, 64},
+    {SWT_SH_W7 + 4 * 65536, 256, 256, 64}, {SWT_SH_W7 + 5 * 65536, 256, 256, 64},
+    {SWT_SH_W7 + 6 * 65536, 256, 256, 64},
+};
 
 constexpr int count_slabs(const Layer* l, int nl) {
   int s = 0;
@@ -399,9 +422,17 @@ constexpr int count_slabs(const Layer* l, int nl) {
 }
 constexpr int FWD_SLABS = count_slabs(FWD_LAYERS, sizeof(FWD_LAYERS) / sizeof(Layer));
 constexpr int DX_SLABS = count_slabs(DX_LAYERS, sizeof(DX_LAYERS) / sizeof(Layer));
-constexpr int SH_SLABS = count_slabs(FWD_LAYERS, TRUNK_LAYERS) + count_slabs(SH_HEAD_LAYERS, 2);
-static_assert(FWD_SLABS != DX_SLABS && SH_SLABS != FWD_SLABS && SH_SLABS != DX_SLABS,
-              "the rings tell their tables apart by length");
+constexpr int TRUNK_SLABS = count_slabs(FWD_LAYERS, TRUNK_LAYERS);  // K5b's forward: the trunk alone
+constexpr int SH_SLABS = TRUNK_SLABS + count_slabs(SH_HEAD_LAYERS, 2);
+constexpr int SH_DX_SLABS = count_slabs(SH_DX_LAYERS, sizeof(SH_DX_LAYERS) / sizeof(Layer));
+constexpr int SLAB_TABLES[] = {FWD_SLABS, DX_SLABS, TRUNK_SLABS, SH_SLABS, SH_DX_SLABS};
+constexpr bool distinct(const int* v, int n) {
+  for (int i = 0; i < n; ++i)
+    for (int k = i + 1; k < n; ++k)
+      if (v[i] == v[k]) return false;
+  return true;
+}
+static_assert(distinct(SLAB_TABLES, 5), "the rings tell their tables apart by length");
 
 template <int NS>
 struct SlabTable {
@@ -431,7 +462,10 @@ constexpr SlabTable<NS> make_slabs(const Layer* a, int na, const Layer* b = null
 
 static __constant__ SlabTable<FWD_SLABS> kFwdSlabs = make_slabs<FWD_SLABS>(FWD_LAYERS, sizeof(FWD_LAYERS) / sizeof(Layer));
 static __constant__ SlabTable<DX_SLABS> kDxSlabs = make_slabs<DX_SLABS>(DX_LAYERS, sizeof(DX_LAYERS) / sizeof(Layer));
+static __constant__ SlabTable<TRUNK_SLABS> kTrunkSlabs = make_slabs<TRUNK_SLABS>(FWD_LAYERS, TRUNK_LAYERS);
 static __constant__ SlabTable<SH_SLABS> kShSlabs = make_slabs<SH_SLABS>(FWD_LAYERS, TRUNK_LAYERS, SH_HEAD_LAYERS, 2);
+static __constant__ SlabTable<SH_DX_SLABS> kShDxSlabs =
+    make_slabs<SH_DX_SLABS>(SH_DX_LAYERS, sizeof(SH_DX_LAYERS) / sizeof(Layer));
 
 // ---------------------------------------------------------------------------
 // The weight ring: slab j of a block's stream sits in stage j % STAGES; its
@@ -457,10 +491,15 @@ struct WeightRing {
   static __device__ __forceinline__ const SlabTable<NS>& table() {
     if constexpr (NS == FWD_SLABS) {
       return kFwdSlabs;
+    } else if constexpr (NS == DX_SLABS) {
+      return kDxSlabs;
+    } else if constexpr (NS == TRUNK_SLABS) {
+      return kTrunkSlabs;
     } else if constexpr (NS == SH_SLABS) {
       return kShSlabs;
     } else {
-      return kDxSlabs;
+      static_assert(NS == SH_DX_SLABS, "a ring over a table of its own length");
+      return kShDxSlabs;
     }
   }
   // One thread, after the barriers are initialised and visible.
@@ -530,10 +569,11 @@ struct Mma<8> {
 // PROMOTE each slab's products go to a fresh accumulator, added into acc in
 // float32 once they land: the tensor cores' float32 sums of a 256-deep chain
 // stray further from exact sums than cuBLAS's float32 ones, a 64-deep
-// chain's hardly (wgmma and mma.sync alike). Taking the partials 64 columns
-// at a time (32 registers fewer) cut the forward's spill but ran slower on
-// the card (PERF.md). SR: the rows of N the staged slabs hold, of which the
-// product reads the first NP (the NeRF-SH coefficient head: RN of 128).
+// chain's hardly (warpgroup and warp-level products alike). Taking the
+// partials 64 columns at a time (32 registers fewer) cut the forward's
+// spill but ran slower on the card (PERF.md). SR: the rows of N the staged
+// slabs hold, of which the product reads the first NP (the NeRF-SH
+// coefficient head: RN of 128).
 template <int N, int K, int KD, bool PROMOTE, int SR = (N < NP_MAX ? N : NP_MAX), class Ring, class AF, class EPI>
 __device__ __forceinline__ void mma_layer(AF af, EPI epi, const Ring& ring, int& j) {
   constexpr int NP = N < NP_MAX ? N : NP_MAX;
@@ -728,6 +768,10 @@ __device__ __forceinline__ void coef_out(const float (&acc)[RN / 2], const bf16*
 // and the NeRF-SH head (K5f).
 enum InMode { IN_ENCODED = 0, IN_TRAIN_RAW = 1, IN_TRAIN_ENC = 2, IN_SH = 3 };
 
+// Feature groups a row of the activation stash the forward writes: the
+// NeRF-SH trunk's (K5b) holds sh's features, the others mlp's.
+__host__ __device__ constexpr int a_f8(int mode) { return a_feats(mode == IN_SH) / 8; }
+
 // The thread's input fragments, rounded to bf16, into xv[kb][thread]
 // (x k-blocks 0..3, v 4..5; IN_SH: x only) and, with stash, the A_X and
 // A_V stash. Rows past n are zeros, so every row of a stashed tile is
@@ -792,7 +836,7 @@ __device__ __forceinline__ void load_inputs(const float* x, const float* v, long
       r4[i] = pack_bf16(v0, v1);
       if (stash) {
         const int fg = (kb < 4 ? mlp::A_X / 8 + 2 * kb : mlp::A_V / 8 + 2 * (kb - 4)) + (i >> 1);
-        stash[slot(tile64, A_F8, fg, L.ra + 8 * h, L.t)] = r4[i];
+        stash[slot(tile64, a_f8(MODE), fg, L.ra + 8 * h, L.t)] = r4[i];
       }
     }
     xv[kb * 128 + wtid] = make_uint4(r4[0], r4[1], r4[2], r4[3]);
@@ -805,7 +849,8 @@ __device__ __forceinline__ void load_inputs(const float* x, const float* v, long
 // IN_SH, the NeRF-SH head over the same trunk: out = rgb [n, num_rgb] and
 // sig [n]. STAGED (a backward's forward): each layer's output goes through
 // the warpgroup's staging block, which a bulk copy stores to the activation
-// stash; otherwise it stays in registers.
+// stash; otherwise it stays in registers. IN_SH and STAGED (K5b) stops at
+// the trunk: its dW reads x and a0..a7 only.
 template <int MODE, bool PROMOTE, bool STAGED, class Ring>
 __device__ __forceinline__ void forward_tile(const float* x, const float* v, const bf16* w, float* out, float* sig,
                                              long long n, int num_rgb, uint32_t* stash, int S, int R,
@@ -841,7 +886,7 @@ __device__ __forceinline__ void forward_tile(const float* x, const float* v, con
   // into the next layer's A (count of them)
   auto next = [&](uint32_t (&dst)[64], int feat, int count) {
     if constexpr (STAGED) {
-      stg.store(stash + slot(tile64, A_F8, feat / 8, 0, 0), count * 512);
+      stg.store(stash + slot(tile64, a_f8(MODE), feat / 8, 0, 0), count * 512);
 #pragma unroll
       for (int q = 0; q < 64; ++q)
         if (q < count) dst[q] = stg.at(q);
@@ -870,7 +915,7 @@ __device__ __forceinline__ void forward_tile(const float* x, const float* v, con
     mma_layer<256, 256, 64, PROMOTE>(fa, act(B + l * 256, Relu{}), ring, j);
     next(a, mlp::A_TRUNK + l * 256, 64);
   }
-  if constexpr (SH) {
+  if constexpr (SH && !STAGED) {
     mma_layer<8, 256, 256, PROMOTE>(
         fa, [&](float (&acc)[4], int) { sigma_out(acc, w + SH_BSIG, sig, row_a, n, L); }, ring, j);
     // the coefficient head over RN = num_rgb rounded up to 32 columns of
@@ -887,7 +932,7 @@ __device__ __forceinline__ void forward_tile(const float* x, const float* v, con
       case 3: coef(std::integral_constant<int, 96>{}); break;
       default: coef(std::integral_constant<int, 128>{}); break;
     }
-  } else {
+  } else if constexpr (!SH) {
     mma_layer<8, 256, 256, PROMOTE>(
         fa, [&](float (&acc)[4], int) { if (out) head_out(acc, w + SW_BSIG, out, 4, row_a, n, L); }, ring, j);
     mma_layer<256, 256, 64, PROMOTE>(fa, act(SW_BB, Linear{}), ring, j);
@@ -907,7 +952,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                     float* __restrict__ out, float* __restrict__ sig, long long n, int num_rgb,
                     uint32_t* __restrict__ stash, int S, int R) {
   constexpr int STAGES = fwd_stages(STAGED);
-  constexpr int NSLABS = MODE == IN_SH ? SH_SLABS : FWD_SLABS;
+  constexpr int NSLABS = MODE == IN_SH ? (STAGED ? TRUNK_SLABS : SH_SLABS) : FWD_SLABS;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* p = smem + STAGES * SLAB_BYTES;
   uint4* xv = reinterpret_cast<uint4*>(p) + (threadIdx.x >> 7) * XV_KB * 128;
@@ -974,8 +1019,9 @@ inline cudaError_t launch_forward(const float* x, const float* v, const bf16* w,
 
 constexpr int DX_STAGES = 8;
 constexpr int DX_BLOCKS = 132;  // fixed, so the bias sums' order does not depend on the card
-constexpr int DX_SMEM = DX_STAGES * SLAB_BYTES + 2 * STAGING_BYTES + (2 * 4 * 256 + 2 * mlp::G_FEATS + ARRIVALS * 8) * 4 +
-                        DX_STAGES * 16;
+__host__ __device__ constexpr int dx_smem(int gf) {  // gf gradient features a row
+  return DX_STAGES * SLAB_BYTES + 2 * STAGING_BYTES + (2 * 4 * 256 + 2 * gf + ARRIVALS * 8) * 4 + DX_STAGES * 16;
+}
 
 // One step of the column sums' butterfly: lanes with bit B set keep the
 // upper HALF of cs and send the lower to the lane across the bit, which
@@ -1027,50 +1073,41 @@ __device__ __forceinline__ void epi_grad(const float (&acc)[4 * NB], const Stagi
   }
 }
 
-// g8 [n, 8]: columns 0..3 the gradient of the rgb head's output, 4..7 the
-// sigma head's. The products need no PROMOTE: the float64-sums rule holds
-// with the forward's sums promoted alone (the activations' bf16 roundings
-// and relu masks are what carry the forward's sum order into the
-// gradients). A warpgroup's 64-row tile: each layer's gradient goes
-// through the staging block to G by one bulk copy and back as the next
-// product's fragments; its float32 column sums go through the scratch rows
-// (scr: [4 warps][256]) into the warpgroup's db row, the warps added in a
-// fixed order; the heads' sums into this warp's dbh row.
-template <class Ring>
-__device__ __forceinline__ void dx_tile(const float* g8, long long n, const uint32_t* A, uint32_t* G,
+// The heads' output gradients: K1's g8 [n, 8] (g; columns 0..3 the rgb
+// head's, 4..7 the sigma head's), or K5's g_rgb [n, num_rgb] (g) and
+// g_sig [n] (sig).
+struct HeadGrad {
+  const float* g;
+  const float* sig;
+  int num_rgb;
+};
+
+// The products need no PROMOTE: the float64-sums rule holds with the
+// forward's sums promoted alone (the activations' bf16 roundings and relu
+// masks are what carry the forward's sum order into the gradients). A
+// warpgroup's 64-row tile: each layer's gradient goes through the staging
+// block to G by one bulk copy and back as the next product's fragments;
+// its float32 column sums go through the scratch rows (scr: [4 warps][256])
+// into the warpgroup's db row, the warps added in a fixed order. K1 (SH
+// false): the view layer, the bottleneck and trunk_7, the heads' sums into
+// this warp's dbh row. K5 (SH): the heads' gradients, rounded to bf16, are
+// G's G_RGB and G_SIG features and the fragments of one K = 144 product
+// over [coefficient head^T | sigma head^T] into dense 7; their float32
+// column sums go through the scratch rows like a layer's. Then both trunks
+// down to dense 0 alike.
+template <bool SH, class Ring>
+__device__ __forceinline__ void dx_tile(const HeadGrad& hd, long long n, const uint32_t* A, uint32_t* G,
                                         long long tile64, const Staging& stg, float* scr, float* db, float* dbh,
                                         const Ring& ring, int& j) {
+  constexpr int AF8 = a_feats(SH) / 8, GF8 = g_feats(SH) / 8;
+  constexpr int G_TRUNK = SH ? sh::G_TRUNK : mlp::G_TRUNK;
   const Lane L;
   const int wtid = threadIdx.x & 127;
-  auto ast = [&](int feat) { return A + slot(tile64, A_F8, feat / 8, 0, 0); };
-  auto gst = [&](int feat) { return G + slot(tile64, G_F8, feat / 8, 0, 0); };
+  auto ast = [&](int feat) { return A + slot(tile64, AF8, feat / 8, 0, 0); };
+  auto gst = [&](int feat) { return G + slot(tile64, GF8, feat / 8, 0, 0); };
   auto prefetch = [&](int feat, int feats) {
     if (wtid == 0) prefetch_l2(ast(feat), feats * 128);
   };
-  prefetch(mlp::A_HV, 128);
-  // the heads: columns 2t, 2t + 1 of g8 (rgb for t < 2, sigma for t >= 2)
-  float2 hg[2], sg[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const long long row = tile64 * 64 + L.ra + 8 * h;
-    hg[h] = row < n ? *reinterpret_cast<const float2*>(g8 + row * 8 + 2 * L.t) : make_float2(0.f, 0.f);
-    sg[h] = row < n && L.t < 2 ? *reinterpret_cast<const float2*>(g8 + row * 8 + 4 + 2 * L.t) : make_float2(0.f, 0.f);
-    gst(mlp::G_RGB)[stg.base + h * 32] = pack_bf16(hg[h].x, hg[h].y);
-  }
-  {
-    float cs[2] = {hg[0].x + hg[1].x, hg[0].y + hg[1].y};
-#pragma unroll
-    for (int b = 4; b < 32; b <<= 1) {
-      cs[0] += __shfl_xor_sync(mlp::FULL, cs[0], b);
-      cs[1] += __shfl_xor_sync(mlp::FULL, cs[1], b);
-    }
-    if (L.g == 0) {
-      dbh[2 * L.t] += cs[0];
-      dbh[2 * L.t + 1] += cs[1];
-    }
-  }
-  const Frag frgb{{L.t < 2 ? pack_bf16(hg[0].x, hg[0].y) : 0u, L.t < 2 ? pack_bf16(hg[1].x, hg[1].y) : 0u, 0u, 0u}};
-  const Frag fsig{{pack_bf16(sg[0].x, sg[0].y), pack_bf16(sg[1].x, sg[1].y), 0u, 0u}};
   float* my_scr = scr + L.warp * 256;
   // a layer's epilogue: masked by the activation block of feature mfeat
   // (mfeat < 0: no mask)
@@ -1085,7 +1122,7 @@ __device__ __forceinline__ void dx_tile(const float* g8, long long n, const uint
     };
   };
   // after it: the block to G at feature gfeat, the column sums into db,
-  // the fragments (count) into dst
+  // the fragments (count) into a
   uint32_t a[64];
   auto next = [&](int gfeat, int count) {
     stg.store(gst(gfeat), count * 512);
@@ -1095,33 +1132,96 @@ __device__ __forceinline__ void dx_tile(const float* g8, long long n, const uint
     for (int q = 0; q < 64; ++q)
       if (q < count) a[q] = stg.at(q);
   };
-  // the view layer: g_hv = (g_rgb @ wrgb^T) * (hv > 0)
-  mma_layer<128, 16, 16, false>([&](int) { return frgb; }, grad(mlp::A_HV), ring, j);
-  next(mlp::G_V, 32);
-  prefetch(mlp::A_TRUNK + 7 * 256, 256);
-  // the bottleneck: g_bneck = (g_hv @ wv^T)[:, :256]
-  mma_layer<256, 128, 64, false>([&](int kb) { return frag_of(a, kb); }, grad(-1), ring, j);
-  next(mlp::G_B, 64);
-  // trunk_7: (g_bneck @ wb^T + g_sig @ wsig^T) * (a7 > 0)
-  mma_layer<256, 272, 64, false>([&](int kb) { return kb < 16 ? frag_of(a, kb) : fsig; },
-                                grad(mlp::A_TRUNK + 7 * 256), ring, j);
-  next(mlp::G_TRUNK + 7 * 256, 64);
+  if constexpr (SH) {
+    prefetch(mlp::A_TRUNK + 7 * 256, 256);
+    // g_rgb as a 128-column layer's output (zero past num_rgb and n): its
+    // bf16 fragments 0..31 and column sums; g_sig as column 0 of the n8
+    // block after it (fragments 32, 33; scratch columns 128..135)
+    float hg[64], sg[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = tile64 * 64 + L.ra + 8 * h;
+      sg[h] = row < n && L.t == 0 ? hd.sig[row] : 0.f;
+#pragma unroll
+      for (int jb = 0; jb < 16; ++jb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * jb + 2 * L.t + e;
+          hg[4 * jb + 2 * h + e] = row < n && c < hd.num_rgb ? hd.g[row * hd.num_rgb + c] : 0.f;
+        }
+    }
+    stg.begin();
+    epi_grad<16, false>(hg, stg, 0, nullptr, my_scr, L);
+    float cs = sg[0] + sg[1];
+#pragma unroll
+    for (int b = 4; b < 32; b <<= 1) cs += __shfl_xor_sync(mlp::FULL, cs, b);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) stg.at(32 + h) = pack_bf16(sg[h], 0.f);
+    if (L.g == 0) {
+      my_scr[128 + 2 * L.t] = cs;
+      my_scr[129 + 2 * L.t] = 0.f;
+    }
+    next(sh::G_RGB, 34);
+    a[34] = a[35] = 0u;
+    // dense 7: (g_rgb @ wrgb^T + g_sig @ wsig^T) * (a7 > 0)
+    mma_layer<256, 144, 64, false>([&](int kb) { return frag_of(a, kb); }, grad(mlp::A_TRUNK + 7 * 256), ring, j);
+  } else {
+    prefetch(mlp::A_HV, 128);
+    // the heads: columns 2t, 2t + 1 of g8 (rgb for t < 2, sigma for t >= 2)
+    float2 hg[2], sg[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = tile64 * 64 + L.ra + 8 * h;
+      hg[h] = row < n ? *reinterpret_cast<const float2*>(hd.g + row * 8 + 2 * L.t) : make_float2(0.f, 0.f);
+      sg[h] = row < n && L.t < 2 ? *reinterpret_cast<const float2*>(hd.g + row * 8 + 4 + 2 * L.t)
+                                 : make_float2(0.f, 0.f);
+      gst(mlp::G_RGB)[stg.base + h * 32] = pack_bf16(hg[h].x, hg[h].y);
+    }
+    {
+      float cs[2] = {hg[0].x + hg[1].x, hg[0].y + hg[1].y};
+#pragma unroll
+      for (int b = 4; b < 32; b <<= 1) {
+        cs[0] += __shfl_xor_sync(mlp::FULL, cs[0], b);
+        cs[1] += __shfl_xor_sync(mlp::FULL, cs[1], b);
+      }
+      if (L.g == 0) {
+        dbh[2 * L.t] += cs[0];
+        dbh[2 * L.t + 1] += cs[1];
+      }
+    }
+    const Frag frgb{{L.t < 2 ? pack_bf16(hg[0].x, hg[0].y) : 0u, L.t < 2 ? pack_bf16(hg[1].x, hg[1].y) : 0u, 0u, 0u}};
+    const Frag fsig{{pack_bf16(sg[0].x, sg[0].y), pack_bf16(sg[1].x, sg[1].y), 0u, 0u}};
+    // the view layer: g_hv = (g_rgb @ wrgb^T) * (hv > 0)
+    mma_layer<128, 16, 16, false>([&](int) { return frgb; }, grad(mlp::A_HV), ring, j);
+    next(mlp::G_V, 32);
+    prefetch(mlp::A_TRUNK + 7 * 256, 256);
+    // the bottleneck: g_bneck = (g_hv @ wv^T)[:, :256]
+    mma_layer<256, 128, 64, false>([&](int kb) { return frag_of(a, kb); }, grad(-1), ring, j);
+    next(mlp::G_B, 64);
+    // trunk_7: (g_bneck @ wb^T + g_sig @ wsig^T) * (a7 > 0)
+    mma_layer<256, 272, 64, false>([&](int kb) { return kb < 16 ? frag_of(a, kb) : fsig; },
+                                  grad(mlp::A_TRUNK + 7 * 256), ring, j);
+  }
+  next(G_TRUNK + 7 * 256, 64);
   // trunk_l, l = 6..0: (g_{l+1} @ w_{l+1}^T) * (a_l > 0); for l = 4 the
   // product takes w5's h rows only (x carries no gradient)
 #pragma unroll 1
   for (int l = 6; l >= 0; --l) {
     prefetch(mlp::A_TRUNK + l * 256, 256);
     mma_layer<256, 256, 64, false>([&](int kb) { return frag_of(a, kb); }, grad(mlp::A_TRUNK + l * 256), ring, j);
-    next(mlp::G_TRUNK + l * 256, 64);
+    next(G_TRUNK + l * 256, 64);
   }
 }
 
 // Writes G and, per block, the float32 bias-gradient sums
-// db_part[blockIdx.x][G_FEATS] (warpgroups and warps summed in a fixed order).
+// db_part[blockIdx.x][G features] (warpgroups and warps summed in a fixed
+// order).
+template <bool SH>
 __global__ void __launch_bounds__(THREADS, 1)
-    sm90_dx_kernel(const float* __restrict__ g8, long long n, const bf16* __restrict__ wt,
-                   const uint32_t* __restrict__ A, uint32_t* __restrict__ G, long long tiles,
-                   float* __restrict__ db_part) {
+    sm90_dx_kernel(const HeadGrad hd, long long n, const bf16* __restrict__ wt, const uint32_t* __restrict__ A,
+                   uint32_t* __restrict__ G, long long tiles, float* __restrict__ db_part) {
+  constexpr int GF = g_feats(SH);
+  constexpr int NSLABS = SH ? SH_DX_SLABS : DX_SLABS;
   extern __shared__ __align__(128) unsigned char smem[];
   const int wg = threadIdx.x >> 7;
   unsigned char* p = smem + DX_STAGES * SLAB_BYTES;
@@ -1129,34 +1229,33 @@ __global__ void __launch_bounds__(THREADS, 1)
                     ((threadIdx.x >> 5) & 3) * 64 + ((threadIdx.x & 31) >> 2) * 4 + (threadIdx.x & 3)};
   p += 2 * STAGING_BYTES;
   float* scr = reinterpret_cast<float*>(p);   // [2][4][256]
-  float* db = scr + 2 * 4 * 256;              // [2][G_FEATS]
-  float* dbh = db + 2 * mlp::G_FEATS;         // [8 warps][8]
+  float* db = scr + 2 * 4 * 256;              // [2][GF]
+  float* dbh = db + 2 * GF;                   // [8 warps][8]
   uint64_t* full = reinterpret_cast<uint64_t*>(dbh + ARRIVALS * 8);
   int* released = reinterpret_cast<int*>(full + DX_STAGES);
-  for (int i = threadIdx.x; i < 2 * mlp::G_FEATS + ARRIVALS * 8; i += THREADS) db[i] = 0.f;
+  for (int i = threadIdx.x; i < 2 * GF + ARRIVALS * 8; i += THREADS) db[i] = 0.f;
   const int mine = static_cast<int>((tiles - 1 - blockIdx.x) / gridDim.x + 1);
-  const WeightRing<DX_STAGES, DX_SLABS> ring{smem, full, released, wt, mine * DX_SLABS};
+  const WeightRing<DX_STAGES, NSLABS> ring{smem, full, released, wt, mine * NSLABS};
   init_ring<DX_STAGES>(full, released);
   if (threadIdx.x == 0) ring.prologue();
   int j = 0;
   for (int it = 0; it < mine; ++it) {
     const long long tile64 = (blockIdx.x + static_cast<long long>(it) * gridDim.x) * 2 + wg;
-    dx_tile(g8, n, A, G, tile64, stg, scr + wg * 4 * 256, db + wg * mlp::G_FEATS, dbh + (threadIdx.x >> 5) * 8,
-            ring, j);
+    dx_tile<SH>(hd, n, A, G, tile64, stg, scr + wg * 4 * 256, db + wg * GF, dbh + (threadIdx.x >> 5) * 8, ring, j);
   }
   if ((threadIdx.x & 127) == 0) bulk_wait();
   __syncthreads();
-  for (int i = threadIdx.x; i < mlp::G_FEATS; i += THREADS) {
-    float s = db[i] + db[mlp::G_FEATS + i];
-    if (i < 8)
+  for (int i = threadIdx.x; i < GF; i += THREADS) {
+    float s = db[i] + db[GF + i];
+    if (!SH && i < 8)
       for (int wi = 0; wi < ARRIVALS; ++wi) s += dbh[wi * 8 + i];
-    db_part[static_cast<long long>(blockIdx.x) * mlp::G_FEATS + i] = s;
+    db_part[static_cast<long long>(blockIdx.x) * GF + i] = s;
   }
 }
 
 // ---------------------------------------------------------------------------
-// Backward, pass 3: dW = A^T G, split over rows, then mlp_tile.cuh's
-// fixed-order sums
+// Backward, pass 3: dW = A^T G, split over rows, then fixed-order sums
+// (mlp_tile.cuh's for K1, fused_sh_bwd.cu's for K5b)
 // ---------------------------------------------------------------------------
 
 // A block's share of one dW: each warpgroup 64 rows of dW (64 activation
@@ -1170,26 +1269,28 @@ struct DwJob {
   int out_ld;        // dW's row stride; with pad, columns n_live..out_ld are written as 0
   int pad;
 };
-constexpr int DW_JOBS = 42;
+constexpr int DW_MAX_JOBS = 42;  // K1's table; K5's holds 36
 struct DwJobs {
-  DwJob e[DW_JOBS];
+  DwJob e[DW_MAX_JOBS];
+  int n;  // jobs in the table
 };
-constexpr int DW_SPLITS = 3;  // row splits: 3 x the 42 jobs fill one wave of 132 SMs
+// row splits: 3 x K1's 42 jobs (126 blocks) or 3 x K5's 36 (108) fill one
+// wave of 132 SMs
+constexpr int DW_SPLITS = 3;
 constexpr int DW_STAGES = 6;
 constexpr int DW_STAGE_BYTES = 2 * 8192 + 16384;  // both warpgroups' activation slabs, the gradient slab
 constexpr int DW_SMEM = DW_STAGES * DW_STAGE_BYTES + DW_STAGES * 16;
 
-inline DwJobs dw_jobs() {
-  using namespace mlp;
+// A table of dW jobs, built layer by layer.
+struct DwTable {
   DwJobs t{};
-  int k = 0;
   // M tiles of 64 activation features -> dW rows; two to a job, the second
   // idle when the count is odd; a 256-wide dW as two jobs of 128 columns
-  auto add = [&](const int* feats, const long long* outs, const int* live, int tiles, int g_feat, int n,
-                 int col0, int n_live, int out_ld) {
+  void add(const int* feats, const long long* outs, const int* live, int tiles, int g_feat, int n, int col0,
+           int n_live, int out_ld) {
     for (int c0 = 0; c0 < n; c0 += 128) {
       for (int i = 0; i < tiles; i += 2) {
-        DwJob& e = t.e[k++];
+        DwJob& e = t.e[t.n++];
         for (int h = 0; h < 2; ++h) {
           const bool on = i + h < tiles;
           e.a_feat[h] = feats[on ? i + h : i];
@@ -1204,9 +1305,10 @@ inline DwJobs dw_jobs() {
         e.pad = n_live < out_ld ? out_ld - n_live : 0;
       }
     }
-  };
-  const int full4[4] = {64, 64, 64, 64};
-  auto trunk = [&](int a_feat, long long out, int g_feat, int rows, int n, int col0, int n_live, int ld) {
+  }
+  // a dW of `rows` rows (a multiple of 64) from activation features a_feat..
+  void layer(int a_feat, long long out, int g_feat, int rows, int n, int col0, int n_live, int ld) {
+    const int full4[4] = {64, 64, 64, 64};
     int feats[4];
     long long outs[4];
     for (int i = 0; i < rows / 64; ++i) {
@@ -1214,30 +1316,55 @@ inline DwJobs dw_jobs() {
       outs[i] = out + 64LL * i * ld;
     }
     add(feats, outs, full4, rows / 64, g_feat, n, col0, n_live, ld);
-  };
-  trunk(A_X, GW0, G_TRUNK, 64, 256, 0, 256, 256);
-  for (int l = 1; l <= 4; ++l) trunk(A_TRUNK + (l - 1) * 256, GW1 + (l - 1) * 65536LL, G_TRUNK + l * 256, 256, 256, 0, 256, 256);
-  {  // w5: [x | h4] rows
+  }
+  // dense 0..7 of either MLP (mlp's GW0..GW6, which are sh's too): w5's
+  // rows are [x | h4]; g_trunk is the gradient stash's dense 0 output
+  void trunk(int g_trunk) {
+    using mlp::A_TRUNK;
+    using mlp::A_X;
+    layer(A_X, mlp::GW0, g_trunk, 64, 256, 0, 256, 256);
+    for (int l = 1; l <= 4; ++l)
+      layer(A_TRUNK + (l - 1) * 256, mlp::GW1 + (l - 1) * 65536LL, g_trunk + l * 256, 256, 256, 0, 256, 256);
     const int feats[5] = {A_X, A_TRUNK + 4 * 256, A_TRUNK + 4 * 256 + 64, A_TRUNK + 4 * 256 + 128, A_TRUNK + 4 * 256 + 192};
     long long outs[5];
-    for (int i = 0; i < 5; ++i) outs[i] = GW5 + 64LL * i * 256;
+    for (int i = 0; i < 5; ++i) outs[i] = mlp::GW5 + 64LL * i * 256;
     const int live[5] = {64, 64, 64, 64, 64};
-    add(feats, outs, live, 5, G_TRUNK + 5 * 256, 256, 0, 256, 256);
+    add(feats, outs, live, 5, g_trunk + 5 * 256, 256, 0, 256, 256);
+    layer(A_TRUNK + 5 * 256, mlp::GW6, g_trunk + 6 * 256, 256, 256, 0, 256, 256);
+    layer(A_TRUNK + 6 * 256, mlp::GW6 + 65536, g_trunk + 7 * 256, 256, 256, 0, 256, 256);
   }
-  trunk(A_TRUNK + 5 * 256, GW6, G_TRUNK + 6 * 256, 256, 256, 0, 256, 256);
-  trunk(A_TRUNK + 6 * 256, GW6 + 65536, G_TRUNK + 7 * 256, 256, 256, 0, 256, 256);
+};
+
+// K1's jobs: the trunk, the sigma head, the bottleneck, view_0 and the rgb head.
+inline DwJobs dw_jobs() {
+  using namespace mlp;
+  DwTable b;
+  b.trunk(G_TRUNK);
   // the sigma head: gradient features 0..7 hold [g_rgb | g_sig]
-  trunk(A_TRUNK + 7 * 256, GWSIG, G_RGB, 256, 8, G_SIG - G_RGB, 4, 128);
-  trunk(A_TRUNK + 7 * 256, GWB, G_B, 256, 256, 0, 256, 256);
+  b.layer(A_TRUNK + 7 * 256, GWSIG, G_RGB, 256, 8, G_SIG - G_RGB, 4, 128);
+  b.layer(A_TRUNK + 7 * 256, GWB, G_B, 256, 256, 0, 256, 256);
   {  // view_0: [bottleneck | v], 288 rows
     const int feats[5] = {A_BNECK, A_BNECK + 64, A_BNECK + 128, A_BNECK + 192, A_BNECK + 256};
     long long outs[5];
     for (int i = 0; i < 5; ++i) outs[i] = GWV + 64LL * i * 128;
     const int live[5] = {64, 64, 64, 64, 32};
-    add(feats, outs, live, 5, G_V, 128, 0, 128, 128);
+    b.add(feats, outs, live, 5, G_V, 128, 0, 128, 128);
   }
-  trunk(A_HV, GWRGB, G_RGB, 128, 8, 0, 4, 128);
-  return t;
+  b.layer(A_HV, GWRGB, G_RGB, 128, 8, 0, 4, 128);
+  return b.t;
+}
+
+// K5's jobs: the trunk, then the sigma head (N = 8 from G_SIG) and the
+// coefficient head (N = 128 from G_RGB), each dW row 128 wide with the
+// columns past the live ones written 0. A live count is rounded up to
+// even (the stores take column pairs): the extra column's gradient
+// features are zero in the stash, so it too is written 0.
+inline DwJobs sh_dw_jobs(int num_rgb) {
+  DwTable b;
+  b.trunk(sh::G_TRUNK);
+  b.layer(mlp::A_TRUNK + 7 * 256, sh::GWSIG, sh::G_SIG, 256, 8, 0, 2, 128);
+  b.layer(mlp::A_TRUNK + 7 * 256, sh::GWRGB, sh::G_RGB, 256, 128, 0, (num_rgb + 1) / 2 * 2, 128);
+  return b.t;
 }
 
 // Each 64-row stage's products go to a fresh accumulator (two, in turn, so
@@ -1245,8 +1372,9 @@ inline DwJobs dw_jobs() {
 // into the float32 total: the tensor cores' sums then never run over more
 // than 64 rows.
 template <int N>
-__device__ __forceinline__ void dw_run(const bf16* A, const bf16* G, long long k0, int nk, float* part,
-                                       const DwJob& e, unsigned char* buf, uint64_t* full, int* released) {
+__device__ __forceinline__ void dw_run(const bf16* A, const bf16* G, int a_f8, int g_f8, long long k0, int nk,
+                                       float* part, const DwJob& e, unsigned char* buf, uint64_t* full,
+                                       int* released) {
   const Lane L;
   const int wg = L.wg;
   auto issue = [&](int j) {
@@ -1255,9 +1383,9 @@ __device__ __forceinline__ void dw_run(const bf16* A, const bf16* G, long long k
     const long long tile = k0 + j;
     unsigned char* dst = buf + st * DW_STAGE_BYTES;
     mbar_expect_tx(&full[st], 2 * 8192 + N * 128);
-    bulk_g2s(dst, A + (tile * A_F8 + e.a_feat[0] / 8) * 512, 8192, &full[st]);
-    bulk_g2s(dst + 8192, A + (tile * A_F8 + e.a_feat[1] / 8) * 512, 8192, &full[st]);
-    bulk_g2s(dst + 16384, G + (tile * G_F8 + e.g_feat / 8) * 512, N * 128, &full[st]);
+    bulk_g2s(dst, A + (tile * a_f8 + e.a_feat[0] / 8) * 512, 8192, &full[st]);
+    bulk_g2s(dst + 8192, A + (tile * a_f8 + e.a_feat[1] / 8) * 512, 8192, &full[st]);
+    bulk_g2s(dst + 16384, G + (tile * g_f8 + e.g_feat / 8) * 512, N * 128, &full[st]);
   };
   if (threadIdx.x == 0)
     for (int j = 0; j < DW_STAGES; ++j) issue(j);
@@ -1326,8 +1454,10 @@ __device__ __forceinline__ void dw_run(const bf16* A, const bf16* G, long long k
     out[static_cast<long long>(i / e.pad) * e.out_ld + e.n_live + i % e.pad] = 0.f;
 }
 
+// Block (job x, split y): its job's dW over split y's rows of the stashes
+// (a_f8, g_f8 feature groups a row) into part[y][GB0 of mlp].
 __global__ void __launch_bounds__(THREADS, 1)
-    sm90_dw_kernel(const bf16* __restrict__ A, const bf16* __restrict__ G, long long tiles,
+    sm90_dw_kernel(const bf16* __restrict__ A, const bf16* __restrict__ G, int a_f8, int g_f8, long long tiles,
                    int tiles_per_split, float* __restrict__ part, const __grid_constant__ DwJobs jobs) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + DW_STAGES * DW_STAGE_BYTES);
@@ -1339,9 +1469,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   init_ring<DW_STAGES>(full, released);
   float* p = part + static_cast<long long>(blockIdx.y) * mlp::GB0;
   if (e.n == 128) {
-    dw_run<128>(A, G, k0, nk, p, e, smem, full, released);
+    dw_run<128>(A, G, a_f8, g_f8, k0, nk, p, e, smem, full, released);
   } else {
-    dw_run<8>(A, G, k0, nk, p, e, smem, full, released);
+    dw_run<8>(A, G, a_f8, g_f8, k0, nk, p, e, smem, full, released);
   }
 }
 
@@ -1352,36 +1482,35 @@ __global__ void __launch_bounds__(THREADS, 1)
 inline long long align256(long long bytes) { return (bytes + 255) / 256 * 256; }
 
 struct Workspace {
-  bf16* A;         // activation stash, npad x A_FEATS
-  bf16* G;         // gradient stash, npad x G_FEATS
-  float* part;     // [DW_SPLITS][GB0]
-  float* db_part;  // [DX_BLOCKS][G_FEATS]
+  bf16* A;         // activation stash, npad x f.a features
+  bf16* G;         // gradient stash, npad x f.g features
+  float* part;     // [DW_SPLITS][mlp::GB0]
+  float* db_part;  // [DX_BLOCKS][f.g]
   float* raw;      // [n, 8], with the composite (K2) only
   float* g8;       // [n, 8], with the composite (K2) only
 };
 
-// The backward's workspace for n rows; with `composite` (the fused train
-// level) also the head outputs and their gradient, which K1rb takes from
-// its caller.
-inline long long workspace_bytes(long long n, bool composite) {
+// The backward's workspace for n rows and stashes of f features a row;
+// with `composite` (the fused train level) also the head outputs and their
+// gradient, which K1rb takes from its caller.
+inline long long workspace_bytes(long long n, Feats f, bool composite) {
   const long long npad = padded_rows(n);
-  return align256(npad * mlp::A_FEATS * 2) + align256(npad * mlp::G_FEATS * 2) +
-         align256(DW_SPLITS * mlp::GB0 * 4) + align256(DX_BLOCKS * mlp::G_FEATS * 4LL) +
-         (composite ? 2 * align256(n * 8 * 4) : 0);
+  return align256(npad * f.a * 2) + align256(npad * f.g * 2) + align256(DW_SPLITS * mlp::GB0 * 4) +
+         align256(DX_BLOCKS * f.g * 4LL) + (composite ? 2 * align256(n * 8 * 4) : 0);
 }
 
-inline Workspace carve(void* base, long long n, bool composite) {
+inline Workspace carve(void* base, long long n, Feats f, bool composite) {
   const long long npad = padded_rows(n);
   char* p = static_cast<char*>(base);
   Workspace ws{};
   ws.A = reinterpret_cast<bf16*>(p);
-  p += align256(npad * mlp::A_FEATS * 2);
+  p += align256(npad * f.a * 2);
   ws.G = reinterpret_cast<bf16*>(p);
-  p += align256(npad * mlp::G_FEATS * 2);
+  p += align256(npad * f.g * 2);
   ws.part = reinterpret_cast<float*>(p);
   p += align256(DW_SPLITS * mlp::GB0 * 4);
   ws.db_part = reinterpret_cast<float*>(p);
-  p += align256(DX_BLOCKS * mlp::G_FEATS * 4LL);
+  p += align256(DX_BLOCKS * f.g * 4LL);
   if (composite) {
     ws.raw = reinterpret_cast<float*>(p);
     p += align256(n * 8 * 4);
@@ -1390,29 +1519,41 @@ inline Workspace carve(void* base, long long n, bool composite) {
   return ws;
 }
 
-// The dX pass over a filled activation stash (g8 [n, 8]).
-inline cudaError_t launch_dx(const float* g8, long long n, const bf16* wt, const Workspace& ws, int* dx_blocks,
+// The dX pass over a filled activation stash: K1's (SH false, hd.g the
+// heads' g8 [n, 8]) or K5's (SH, hd.g g_rgb [n, num_rgb], hd.sig g_sig [n]).
+template <bool SH>
+inline cudaError_t launch_dx(const HeadGrad& hd, long long n, const bf16* wt, const Workspace& ws, int* dx_blocks,
                              cudaStream_t stream) {
+  constexpr int smem = dx_smem(g_feats(SH));
   const long long tiles = padded_rows(n) / BLOCK_ROWS;
   *dx_blocks = static_cast<int>(tiles < DX_BLOCKS ? tiles : DX_BLOCKS);
-  cudaError_t err = cudaFuncSetAttribute(sm90_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DX_SMEM);
+  cudaError_t err = cudaFuncSetAttribute(sm90_dx_kernel<SH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  sm90_dx_kernel<<<*dx_blocks, THREADS, DX_SMEM, stream>>>(g8, n, wt, reinterpret_cast<const uint32_t*>(ws.A),
-                                                           reinterpret_cast<uint32_t*>(ws.G), tiles, ws.db_part);
+  sm90_dx_kernel<SH><<<*dx_blocks, THREADS, smem, stream>>>(hd, n, wt, reinterpret_cast<const uint32_t*>(ws.A),
+                                                            reinterpret_cast<uint32_t*>(ws.G), tiles, ws.db_part);
   return cudaGetLastError();
 }
 
-// The dW pass over both stashes, then the fixed-order sums into grads
-// [GRAD_ELEMS] float32.
-inline cudaError_t launch_dw(long long n, const Workspace& ws, int dx_blocks, float* grads, cudaStream_t stream) {
+// The dW pass over both stashes (f features a row) into the split-K
+// partials ws.part; *splits gets their number.
+inline cudaError_t launch_dw_parts(long long n, const Workspace& ws, Feats f, const DwJobs& jobs, int* splits,
+                                   cudaStream_t stream) {
   const long long tiles = padded_rows(n) / 64;
   const long long per = (tiles + DW_SPLITS - 1) / DW_SPLITS;
-  const int splits = static_cast<int>((tiles + per - 1) / per);
+  *splits = static_cast<int>((tiles + per - 1) / per);
   cudaError_t err = cudaFuncSetAttribute(sm90_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DW_SMEM);
   if (err != cudaSuccess) return err;
-  sm90_dw_kernel<<<dim3(DW_JOBS, splits), THREADS, DW_SMEM, stream>>>(ws.A, ws.G, tiles, static_cast<int>(per),
-                                                                      ws.part, dw_jobs());
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  sm90_dw_kernel<<<dim3(jobs.n, *splits), THREADS, DW_SMEM, stream>>>(ws.A, ws.G, f.a / 8, f.g / 8, tiles,
+                                                                      static_cast<int>(per), ws.part, jobs);
+  return cudaGetLastError();
+}
+
+// K1's dW pass, then mlp_tile.cuh's fixed-order sums into grads
+// [GRAD_ELEMS] float32.
+inline cudaError_t launch_dw(long long n, const Workspace& ws, int dx_blocks, float* grads, cudaStream_t stream) {
+  int splits = 0;
+  cudaError_t err = launch_dw_parts(n, ws, K1_FEATS, dw_jobs(), &splits, stream);
+  if (err != cudaSuccess) return err;
   mlp::mlp_grad_reduce_kernel<<<static_cast<unsigned>((mlp::GRAD_ELEMS + 255) / 256), 256, 0, stream>>>(
       ws.part, splits, ws.db_part, dx_blocks, grads);
   return cudaGetLastError();

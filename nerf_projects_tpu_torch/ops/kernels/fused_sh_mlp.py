@@ -9,22 +9,23 @@ column) and the coefficient head (dense 9, ``num_rgb`` <= 128 columns).
 63 -> 64, heads to 128 columns; bf16 weights and biases).
 
 Kernels (CUDA C++ for sm_90a under ``csrc/``, built with nvcc and loaded
-with ctypes), each with a launch counter and its plain PyTorch version:
+with ctypes), each with a launch counter and its plain PyTorch version,
+both on the NeRF MLP's wgmma core (``csrc/mlp_sm90.cuh``):
 
 - ``fused_sh_fwd`` (``csrc/fused_sh_fwd.cu``, K5f): x [n, 63] -> the
-  coefficient head [n, num_rgb] and the sigma head [n, 1], on the NeRF
-  MLP's wgmma core (``csrc/mlp_sm90.cuh``) over ``kernel_weights_sm90(mlp)``;
-  plain: ``fused_sh_mlp_reference`` over ``pack_sh_params``.
+  coefficient head [n, num_rgb] and the sigma head [n, 1], over
+  ``kernel_weights_sm90(mlp)``; plain: ``fused_sh_mlp_reference`` over
+  ``pack_sh_params``.
 - ``fused_sh_bwd`` (``csrc/fused_sh_bwd.cu``, K5b): the padded weight
   gradients from x and the heads' output gradients, recomputing the
-  forward, on the mma.sync tile (``csrc/fused_sh_tile.cuh`` over
-  ``mlp_tile.cuh``) over ``kernel_weights(mlp)`` and
-  ``kernel_weights_bwd(mlp)``; plain: ``fused_sh_bwd_reference``, with the
-  same bf16 rounding points.
+  trunk, over the same buffer and the dX buffer
+  ``kernel_weights_sm90_bwd(mlp)``; plain: ``fused_sh_bwd_reference``,
+  with the same bf16 rounding points.
 
 ``forward_weights`` / ``backward_weights`` say which buffers the route
-hands each kernel. Both kernels keep the activation columns as [x | h], so
-their weight buffers hold dense 5's input columns permuted to [x | h]
+hands each kernel: K5b reuses the forward's gather and gathers only the
+dX buffer. Both kernels keep the activation columns as [x | h], so the
+forward buffer holds dense 5's input columns permuted to [x | h]
 (``_build_kernel_weights``) and K5b's gradient buffer holds w5's rows in
 that order, which ``split_kernel_grads`` un-permutes to the reference's
 [h | x].
@@ -63,8 +64,9 @@ def bwd_macs(num_rgb: int) -> dict:
     return {"trunk": TRUNK_MACS, "dx": DX_MACS + 256 * (num_rgb + 1), "dw": fwd_macs(num_rgb)}
 
 
-# K5b's bf16 stashes a row (A_FEATS + G_FEATS of csrc/fused_sh_tile.cuh):
-# x and a0..a7, then the heads' and dense 0..7's output gradients
+# K5b's bf16 stashes a row (sh::A_FEATS + sh::G_FEATS of csrc/mlp_tile.cuh),
+# rows padded to 128: x and a0..a7, then the heads' and dense 0..7's output
+# gradients
 STASH_BYTES_PER_ROW = 2 * ((64 + 8 * 256) + (MAX_RGB + 8 + 8 * 256))
 
 
@@ -242,9 +244,10 @@ def fused_sh_bwd_reference(W: FusedSHWeights, x: torch.Tensor, g_rgb: torch.Tens
 # The kernels
 # ---------------------------------------------------------------------------
 
-# K5b's forward weight buffer, in order: (field, rows, cols) of each piece,
-# [out][in] as nn.Linear holds it. Offsets must match OFF_* in
-# csrc/fused_sh_tile.cuh. K5f's buffer (SM90_LAYOUT) is built from it.
+# The staging layout K5's buffers are built from (in float64, over the
+# CondMLP's parameters): (field, rows, cols) of each piece, [out][in] as
+# nn.Linear holds it, dense 5's inputs as the kernels read them ([x 64 |
+# h 256]); the coefficient head keeps MAX_RGB rows, those past num_rgb zero.
 KERNEL_LAYOUT = (
     ("w0", 256, 64), ("w1", 256, 256), ("w2", 256, 256), ("w3", 256, 256),
     ("w4", 256, 256), ("w5", 256, 320), ("w6", 256, 256), ("w7", 256, 256),
@@ -254,16 +257,8 @@ KERNEL_LAYOUT = (
     ("bsig", 1, 8), ("brgb", 1, MAX_RGB),
 )
 
-
-def kernel_layout_bwd(num_rgb: int) -> tuple:
-    """The backward weight buffer (OFFT_* in csrc/fused_sh_tile.cuh): the
-    matrices of the dX products as [in][out] (dense 5's h rows), the
-    coefficient head last with its columns rounded up to 32."""
-    rn = (num_rgb + 31) // 32 * 32
-    return (("wsig", 1, 256),) + tuple((f"w{i}", 256, 256) for i in range(7, 0, -1)) + (("wrgb", 256, rn),)
-
-
 # FusedSHWeights' padded shapes: the layout of the kernel's gradient buffer
+# (sh::GW* in csrc/mlp_tile.cuh)
 GRAD_SHAPES = (
     (64, 256), (256, 256), (256, 256), (256, 256), (256, 256), (320, 256),
     (256, 256), (256, 256), (256, 128), (256, 128),
@@ -272,8 +267,8 @@ GRAD_ELEMS = sum(r * c for r, c in GRAD_SHAPES)
 
 
 def _build_kernel_weights(mlp) -> torch.Tensor:
-    """K5b's forward buffer in float64 from a CondMLP on the host. Dense 5's
-    input columns go to the kernels' [x 0..63 | h 64..319]."""
+    """The KERNEL_LAYOUT staging buffer in float64 from a CondMLP on the
+    host. Dense 5's input columns go to the kernels' [x 0..63 | h 64..319]."""
     d = mlp.dense
     sources = {f"w{i}": ((d[i].weight, 0),) for i in range(8) if i != 5}
     sources.update({f"b{i}": ((d[i].bias[None], 0),) for i in range(8)})
@@ -285,54 +280,54 @@ def _build_kernel_weights(mlp) -> torch.Tensor:
     return fm._fill(KERNEL_LAYOUT, sources)
 
 
-def _build_kernel_weights_bwd(mlp) -> torch.Tensor:
-    """The backward buffer in float64 from a CondMLP on the host."""
-    d = mlp.dense
-    sources = {f"w{i}": ((d[i].weight.T, 0),) for i in (1, 2, 3, 4, 6, 7)}
-    sources.update(
-        w5=((d[5].weight[:, :256].T, 0),), wsig=((d[8].weight, 0),), wrgb=((d[9].weight.T, 0),),
-    )
-    return fm._fill(kernel_layout_bwd(d[9].out_features), sources)
-
-
-# K5f's buffer on the wgmma core (csrc/mlp_sm90.cuh: the trunk at SW_W0..,
-# then SH_*): (field, N, K, KD) of each layer's [N][K] matrix as
-# fused_mlp.sm90_slabs stores it, KERNEL_LAYOUT's pieces with the sigma head
-# padded to 8 rows; then the biases, the sigma head's padded to 8.
+# K5's buffers on the wgmma core (csrc/mlp_sm90.cuh): (field, N, K, KD) of
+# each layer's [N][K] matrix as fused_mlp.sm90_slabs stores it. The forward
+# (the trunk at SW_W0.., then SH_*): KERNEL_LAYOUT's pieces with the sigma
+# head padded to 8 rows; then the biases, the sigma head's padded to 8.
 SM90_LAYOUT = (
     ("w0", 256, 64, 64), ("w1", 256, 256, 64), ("w2", 256, 256, 64), ("w3", 256, 256, 64),
     ("w4", 256, 256, 64), ("w5", 256, 320, 64), ("w6", 256, 256, 64), ("w7", 256, 256, 64),
     ("wsig", 8, 256, 256), ("wrgb", MAX_RGB, 256, 64),
 )
 SM90_BIASES = tuple((f"b{i}", 256) for i in range(8)) + (("bsig", 8), ("brgb", MAX_RGB))
+# The dX products' matrices [N = in][K = out] (SWT_SH_*): the heads' as one
+# [256][MAX_RGB + 16] matrix, the coefficient head's transpose (columns past
+# num_rgb zero) then the sigma head's (K padded to 16), into dense 7; then
+# w7, w6, w5's h rows, w4..w1 transposed.
+SM90_LAYOUT_BWD = (("wh", 256, MAX_RGB + 16, 64),) + tuple((f"w{i}", 256, 256, 64) for i in range(7, 0, -1))
 
 
 def _build_kernel_weights_sm90(mlp) -> torch.Tensor:
-    """K5f's buffer in float64 from a CondMLP on the host."""
+    """K5f's (and K5b's) forward buffer in float64 from a CondMLP on the host."""
     return fm.sm90_buffer(_build_kernel_weights(mlp), KERNEL_LAYOUT, SM90_LAYOUT, SM90_BIASES)
 
 
-def kernel_weights(mlp) -> torch.Tensor:
-    """K5b's flat bf16 forward weight buffer (KERNEL_LAYOUT), gathered
-    afresh from the CondMLP's parameters on every call: no cache can miss a
-    write through ``p.data``."""
-    check_arch(mlp)
-    return fm.gather_weights(mlp, ("fused_sh",), _build_kernel_weights)
+def _build_kernel_weights_sm90_bwd(mlp) -> torch.Tensor:
+    """K5b's dX buffer in float64 from a CondMLP on the host."""
+    d = mlp.dense
+    wh = d[9].weight.new_zeros(256, MAX_RGB + 16)
+    wh[:, : d[9].out_features] = d[9].weight.detach().T
+    wh[:, MAX_RGB] = d[8].weight.detach()[0]
+    src = {"wh": wh, "w5": d[5].weight.detach()[:, :256].T,
+           **{f"w{i}": d[i].weight.detach().T for i in (1, 2, 3, 4, 6, 7)}}
+    return torch.cat([fm.sm90_slabs(src[name], n, k, kd) for name, n, k, kd in SM90_LAYOUT_BWD])
 
 
 def kernel_weights_sm90(mlp) -> torch.Tensor:
-    """K5f's flat bf16 weight buffer on the wgmma core (``SM90_LAYOUT``
-    slabs, then ``SM90_BIASES``): each entry of ``kernel_weights``' buffer
-    once, gathered afresh on every call like it."""
+    """The flat bf16 forward buffer on the wgmma core (``SM90_LAYOUT``
+    slabs, then ``SM90_BIASES``), which K5f and K5b read: each entry of the
+    ``KERNEL_LAYOUT`` staging buffer once, gathered afresh from the
+    CondMLP's parameters on every call (no cache can miss a write through
+    ``p.data``)."""
     check_arch(mlp)
     return fm.gather_weights(mlp, ("fused_sh_sm90",), _build_kernel_weights_sm90)
 
 
-def kernel_weights_bwd(mlp) -> torch.Tensor:
-    """The backward kernel's flat bf16 buffer of transposed weights
-    (``kernel_layout_bwd``), gathered like ``kernel_weights``."""
+def kernel_weights_sm90_bwd(mlp) -> torch.Tensor:
+    """K5b's flat bf16 dX buffer (``SM90_LAYOUT_BWD``), gathered afresh on
+    every call."""
     check_arch(mlp)
-    return fm.gather_weights(mlp, ("fused_sh_bwd",), _build_kernel_weights_bwd)
+    return fm.gather_weights(mlp, ("fused_sh_sm90_bwd",), _build_kernel_weights_sm90_bwd)
 
 
 def split_kernel_grads(flat: torch.Tensor) -> FusedSHWeights:
@@ -365,7 +360,7 @@ def _bwd_library():
     return fm.load_library("fused_sh_bwd", {
         "fused_sh_bwd": ([_VP] * 6 + [_LL, _INT, _VP, _VP], _INT),
         "fused_sh_bwd_weight_elems": ([], _LL),
-        "fused_sh_bwd_weight_t_elems": ([_INT], _LL),
+        "fused_sh_bwd_weight_t_elems": ([], _LL),
         "fused_sh_bwd_grad_elems": ([], _LL),
         "fused_sh_bwd_workspace_bytes": ([_LL], _LL),
         "fused_sh_bwd_error_string": ([_INT], ctypes.c_char_p),
@@ -406,10 +401,11 @@ fused_sh_fwd.launches = 0
 
 def fused_sh_bwd(wk: torch.Tensor, wkt: torch.Tensor, x: torch.Tensor, g_rgb: torch.Tensor,
                  g_sig: torch.Tensor) -> FusedSHWeights:
-    """Launch the backward kernel (K5b): wk / wkt the ``kernel_weights`` /
-    ``kernel_weights_bwd`` buffers, x [N, 63], the heads' output gradients
-    g_rgb [N, num_rgb] and g_sig [N, 1] float32 on one card -> the padded
-    float32 weight gradients in the reference's layout. Any N >= 0."""
+    """Launch the backward kernel (K5b): wk / wkt the
+    ``kernel_weights_sm90`` / ``kernel_weights_sm90_bwd`` buffers, x [N,
+    63], the heads' output gradients g_rgb [N, num_rgb] and g_sig [N, 1]
+    float32 on one card -> the padded float32 weight gradients in the
+    reference's layout. Any N >= 0."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_sh_bwd runs on a CUDA device, got {x.device}")
     lib = _bwd_library()
@@ -420,7 +416,7 @@ def fused_sh_bwd(wk: torch.Tensor, wkt: torch.Tensor, x: torch.Tensor, g_rgb: to
     fm.check_tensor(g_rgb, "g_rgb", torch.float32, (n, num_rgb), dev)
     fm.check_tensor(g_sig, "g_sig", torch.float32, (n, 1), dev)
     fm.check_tensor(wk, "weights", torch.bfloat16, (lib.fused_sh_bwd_weight_elems(),), dev)
-    fm.check_tensor(wkt, "weights_bwd", torch.bfloat16, (lib.fused_sh_bwd_weight_t_elems(num_rgb),), dev)
+    fm.check_tensor(wkt, "weights_bwd", torch.bfloat16, (lib.fused_sh_bwd_weight_t_elems(),), dev)
     grads = torch.empty(lib.fused_sh_bwd_grad_elems(), dtype=torch.float32, device=dev)
     if n == 0:
         return split_kernel_grads(grads.zero_())
@@ -442,11 +438,11 @@ def forward_weights(mlp) -> torch.Tensor:
     return kernel_weights_sm90(mlp)
 
 
-def backward_weights(mlp) -> tuple:
-    """The (forward, dX) buffers the route hands K5b, which stays on the
-    mma.sync tile and recomputes the trunk from its own layout: a second
-    gather beside the forward's, until K5b moves onto the wgmma core."""
-    return kernel_weights(mlp), kernel_weights_bwd(mlp)
+def backward_weights(mlp, wk: torch.Tensor) -> tuple:
+    """The (forward, dX) buffers the route hands K5b, given ``wk`` from
+    ``forward_weights(mlp)``: K5b recomputes the trunk from the forward's
+    gather and gathers only the dX buffer."""
+    return wk, kernel_weights_sm90_bwd(mlp)
 
 
 class _FusedSH(torch.autograd.Function):
@@ -459,7 +455,8 @@ class _FusedSH(torch.autograd.Function):
         ctx.mlp = mlp
         ctx.save_for_backward(x)
         if x.device.type == "cuda":
-            return fused_sh_fwd(forward_weights(mlp), x, num_rgb)
+            ctx.wk = forward_weights(mlp)
+            return fused_sh_fwd(ctx.wk, x, num_rgb)
         return fused_sh_mlp_reference(pack_sh_params(mlp), x, num_rgb)
 
     @staticmethod
@@ -468,7 +465,7 @@ class _FusedSH(torch.autograd.Function):
         mlp = ctx.mlp
         g_rgb, g_sig = g_rgb.float().contiguous(), g_sig.float().contiguous()
         if x.device.type == "cuda":
-            grads = fused_sh_bwd(*backward_weights(mlp), x, g_rgb, g_sig)
+            grads = fused_sh_bwd(*backward_weights(mlp, ctx.wk), x, g_rgb, g_sig)
         else:
             grads = fused_sh_bwd_reference(pack_sh_params(mlp), x, g_rgb, g_sig)
         named = unpack_sh_grads(grads, mlp)

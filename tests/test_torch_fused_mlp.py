@@ -169,11 +169,13 @@ def test_fused_mlp_fwd_refuses_host_tensors(full_width, raw_layout):
         tfm.fused_mlp_fwd(wk, torch.zeros(8, 64), torch.zeros(8, 32))
 
 
-def _cuda_constants():
-    """The ``constexpr long long`` constants of csrc/mlp_tile.cuh."""
+def _cuda_constants(namespace="mlp"):
+    """The ``constexpr long long`` constants of csrc/mlp_tile.cuh's
+    ``namespace`` (mlp: the NeRF MLP's layouts; sh: the NeRF-SH trunk's)."""
     src = (Path(tfm.__file__).resolve().parents[2] / "csrc" / "mlp_tile.cuh").read_text()
+    body = re.search(rf"\nnamespace {namespace} {{\n(.*?)\n}}  // namespace {namespace}\n", src, re.S).group(1)
     env = {}
-    for name, expr in re.findall(r"constexpr long long (\w+) = ([^;]+);", src):
+    for name, expr in re.findall(r"constexpr long long (\w+) = ([^;]+);", body):
         env[name] = eval(expr, {}, dict(env))
     return env
 
@@ -435,22 +437,27 @@ def test_build_hash_tracks_included_headers(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["fused_mlp_fwd", "fused_train", "fused_mlp_raw_fwd", "fused_mlp_raw_bwd",
-                                  "fused_mlp_bwd", "fused_sh_fwd"])
+                                  "fused_mlp_bwd", "fused_sh_fwd", "fused_sh_bwd"])
 def test_wgmma_kernels_build_over_the_core(name):
-    """K1f, K2, K1rf, K1rb, K1b and K5f include the wgmma core over the
-    tile's layouts, so an edit to either rebuilds them."""
+    """K1f, K2, K1rf, K1rb, K1b, K5f and K5b include the wgmma core over
+    the shared layouts, so an edit to either rebuilds them."""
     from nerf_projects_tpu_torch.ops.kernels import _build
 
     assert [p.name for p in _build.sources(name)] == [f"{name}.cu", "mlp_sm90.cuh", "mlp_tile.cuh"]
 
 
-@pytest.mark.parametrize("name", ["fused_sh_bwd"])
-def test_tile_kernels_do_not_build_over_the_core(name):
-    """K5b stays on the mma.sync tile: the core is not in its sources."""
+def test_no_kernel_builds_on_the_warp_level_tile():
+    """Every MLP kernel runs on the wgmma core: no source under csrc/
+    issues the warp-level mma.sync product or includes the tile header it
+    lived in."""
     from nerf_projects_tpu_torch.ops.kernels import _build
 
-    names = [p.name for p in _build.sources(name)]
-    assert "mlp_tile.cuh" in names and "mlp_sm90.cuh" not in names
+    csrc = Path(tfm.__file__).resolve().parents[2] / "csrc"
+    assert not (csrc / "fused_sh_tile.cuh").exists()
+    for path in csrc.iterdir():
+        assert "mma.sync" not in path.read_text(), path.name
+    for name in ("fused_sh_fwd", "fused_sh_bwd"):
+        assert "fused_sh_tile.cuh" not in [p.name for p in _build.sources(name)]
 
 
 # ---------------------------------------------------------------------------
@@ -459,7 +466,7 @@ def test_tile_kernels_do_not_build_over_the_core(name):
 
 def _sm90_constants():
     """The ``constexpr long long`` constants of csrc/mlp_sm90.cuh, over
-    mlp_tile.cuh's."""
+    mlp_tile.cuh's namespace mlp."""
     src = (Path(tfm.__file__).resolve().parents[2] / "csrc" / "mlp_sm90.cuh").read_text()
     env = dict(_cuda_constants())
     for name, expr in re.findall(r"constexpr long long (\w+) = ([^;]+);", src):

@@ -84,18 +84,20 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
+def _mlp_pair(seed, num_rgb):
+    """The flax CondMLP's params (random biases), the port's CondMLP
+    holding them, and num_rgb."""
+    params = jax.jit(FlaxCondMLP(num_rgb_channels=num_rgb).init)(jax.random.PRNGKey(seed), jnp.zeros((1, 63)))
+    tree = random_biases(jax.tree_util.tree_map(np.asarray, params), seed)
+    port = CondMLP(num_rgb_channels=num_rgb)
+    port.load_state_dict(cond_mlp_flax_to_state_dict(tree), strict=True)
+    return tree, port, num_rgb
+
+
 @pytest.fixture(scope="module")
 def mlps():
-    """Per head: the flax CondMLP's params (random biases) and the port's
-    CondMLP holding them."""
-    out = {}
-    for seed, (name, num_rgb) in enumerate(HEADS.items()):
-        params = jax.jit(FlaxCondMLP(num_rgb_channels=num_rgb).init)(jax.random.PRNGKey(seed), jnp.zeros((1, 63)))
-        tree = random_biases(jax.tree_util.tree_map(np.asarray, params), seed)
-        port = CondMLP(num_rgb_channels=num_rgb)
-        port.load_state_dict(cond_mlp_flax_to_state_dict(tree), strict=True)
-        out[name] = (tree, port, num_rgb)
-    return out
+    """Per head: ``_mlp_pair``."""
+    return {name: _mlp_pair(seed, num_rgb) for seed, (name, num_rgb) in enumerate(HEADS.items())}
 
 
 def _inputs(seed, num_rgb):
@@ -182,37 +184,46 @@ def test_weight_grads_match_jax(mlps, head):
         assert_grads_near(layer.bias.grad.numpy(), want[f"Dense_{i}"]["bias"], f"Dense_{i} bias")
 
 
+def _jax_backward(tree, num_rgb):
+    """On the backward test's inputs: JAX's _fused_sh_bwd on the padded
+    weights and rows, and the activations of its recompute, which is
+    _fwd_tile run tile by tile (its outputs are the kernel's bit for bit)."""
+    tile = jax.jit(jfsm._fwd_tile)
+    x, cot_rgb, cot_sig = _inputs(3, num_rgb)
+    n_pad = 2 * jfsm.TILE
+    xp = np.zeros((n_pad, 64), np.float32)
+    xp[:N, :63] = x
+    g_rgb = np.zeros((n_pad, 128), np.float32)
+    g_rgb[:N, :num_rgb] = cot_rgb
+    g_sig = np.zeros((n_pad, 8), np.float32)
+    g_sig[:N, :1] = cot_sig
+    W = jfsm.pack_sh_params(tree["params"])
+    old = jfsm.INTERPRET
+    jfsm.INTERPRET = True
+    try:
+        rgb, sig = jfsm._fused_sh_impl(W, jnp.asarray(xp))
+        want, _ = jfsm._fused_sh_bwd((W, jnp.asarray(xp)), (jnp.asarray(g_rgb), jnp.asarray(g_sig)))
+    finally:
+        jfsm.INTERPRET = old
+    tiles = [tile(jnp.asarray(xp[i: i + jfsm.TILE]), W) for i in range(0, n_pad, jfsm.TILE)]
+    np.testing.assert_array_equal(np.concatenate([np.asarray(t[0]) for t in tiles]), np.asarray(rgb))
+    np.testing.assert_array_equal(np.concatenate([np.asarray(t[1])[:, :8] for t in tiles]), np.asarray(sig))
+    acts = {k: torch.from_numpy(np.concatenate([np.asarray(t[2][k]) for t in tiles])[:N]) for k in tiles[0][2]}
+    return {f: np.asarray(getattr(want, f)) for f in jfsm.FusedSHWeights._fields}, acts
+
+
 @pytest.fixture(scope="module")
 def jax_backward(mlps):
-    """Per head, on the backward test's inputs: JAX's _fused_sh_bwd on the
-    padded weights and rows, and the activations of its recompute, which
-    is _fwd_tile run tile by tile (its outputs are the kernel's bit for
-    bit)."""
-    tile = jax.jit(jfsm._fwd_tile)
-    out = {}
-    for head, (tree, _, num_rgb) in mlps.items():
-        x, cot_rgb, cot_sig = _inputs(3, num_rgb)
-        n_pad = 2 * jfsm.TILE
-        xp = np.zeros((n_pad, 64), np.float32)
-        xp[:N, :63] = x
-        g_rgb = np.zeros((n_pad, 128), np.float32)
-        g_rgb[:N, :num_rgb] = cot_rgb
-        g_sig = np.zeros((n_pad, 8), np.float32)
-        g_sig[:N, :1] = cot_sig
-        W = jfsm.pack_sh_params(tree["params"])
-        old = jfsm.INTERPRET
-        jfsm.INTERPRET = True
-        try:
-            rgb, sig = jfsm._fused_sh_impl(W, jnp.asarray(xp))
-            want, _ = jfsm._fused_sh_bwd((W, jnp.asarray(xp)), (jnp.asarray(g_rgb), jnp.asarray(g_sig)))
-        finally:
-            jfsm.INTERPRET = old
-        tiles = [tile(jnp.asarray(xp[i: i + jfsm.TILE]), W) for i in range(0, n_pad, jfsm.TILE)]
-        np.testing.assert_array_equal(np.concatenate([np.asarray(t[0]) for t in tiles]), np.asarray(rgb))
-        np.testing.assert_array_equal(np.concatenate([np.asarray(t[1])[:, :8] for t in tiles]), np.asarray(sig))
-        acts = {k: torch.from_numpy(np.concatenate([np.asarray(t[2][k]) for t in tiles])[:N]) for k in tiles[0][2]}
-        out[head] = ({f: np.asarray(getattr(want, f)) for f in jfsm.FusedSHWeights._fields}, acts)
-    return out
+    """Per head: ``_jax_backward``."""
+    return {head: _jax_backward(tree, num_rgb) for head, (tree, _, num_rgb) in mlps.items()}
+
+
+@pytest.fixture(scope="module")
+def wide():
+    """The widest coefficient head the kernels take (MAX_RGB columns):
+    ``_mlp_pair`` and ``_jax_backward``."""
+    pair = _mlp_pair(len(HEADS), tfsm.MAX_RGB)
+    return pair, _jax_backward(pair[0], tfsm.MAX_RGB)
 
 
 def _plain_backward(mlps, jax_backward, head):
@@ -297,13 +308,14 @@ def test_pack_sh_params_matches_jax(mlps):
 
 
 def test_w5_permutation_round_trip(mlps):
-    """The kernel buffer holds dense 5's input columns as [x | h]; the
-    kernel's gradient of w5, in that row order, un-permutes to the
-    reference's [h | x] rows (split_kernel_grads), and the padded
-    gradients map back onto the parameters (unpack_sh_grads)."""
+    """The staging buffer the kernels' weights are built from holds dense
+    5's input columns as [x | h]; the kernel's gradient of w5, in that row
+    order, un-permutes to the reference's [h | x] rows
+    (split_kernel_grads), and the padded gradients map back onto the
+    parameters (unpack_sh_grads)."""
     _, port, num_rgb = mlps["sh_deg 3"]
     w5 = port.dense[5].weight.detach()
-    wk = tfsm.kernel_weights(port)
+    wk = tfsm._build_kernel_weights(port)
     at = {}
     total = 0
     for name, rows, cols in tfsm.KERNEL_LAYOUT:
@@ -312,75 +324,174 @@ def test_w5_permutation_round_trip(mlps):
     assert wk.numel() == total
     o, r, c = at["w5"]
     block = wk[o: o + r * c].view(r, c)
-    torch.testing.assert_close(block[:, :63], w5[:, 256:].bfloat16(), rtol=0, atol=0)
+    torch.testing.assert_close(block[:, :63], w5[:, 256:].double(), rtol=0, atol=0)
     assert not block[:, 63].any()
-    torch.testing.assert_close(block[:, 64:], w5[:, :256].bfloat16(), rtol=0, atol=0)
+    torch.testing.assert_close(block[:, 64:], w5[:, :256].double(), rtol=0, atol=0)
 
     # the kernel's layout of the gradient buffer: FusedSHWeights' padded
-    # shapes with w5's rows in the tile's order; fill w5 with the kernel
+    # shapes with w5's rows in the kernels' order; fill w5 with the staging
     # buffer's own block ([in][out]) and every other field with its pack
     packed = tfsm.pack_sh_params(port, dtype=torch.float32)
     flat = torch.cat([block.float().T.reshape(-1) if name == "w5" else getattr(packed, name).reshape(-1)
                       for name in tfsm.FusedSHWeights._fields])
     assert flat.numel() == tfsm.GRAD_ELEMS
     split = tfsm.split_kernel_grads(flat)
-    torch.testing.assert_close(split.w5, packed.w5.bfloat16().float(), rtol=0, atol=0)
+    torch.testing.assert_close(split.w5, packed.w5, rtol=0, atol=0)
     named = tfsm.unpack_sh_grads(packed, port)
     for name, p in port.named_parameters():
         torch.testing.assert_close(named[name], p.detach(), rtol=0, atol=0)
 
 
-def _constants(src):
-    """The ``constexpr`` integer constants of a CUDA source under csrc/;
-    ``mlp::X`` reads mlp_tile.cuh's X."""
-    csrc = Path(tfsm.__file__).resolve().parents[2] / "csrc"
-    pattern = r"(?m)^constexpr (?:long long|int) (\w+) = ([^;]+);"
-    mlp = {}
-    for k, expr in re.findall(pattern, (csrc / "mlp_tile.cuh").read_text()):
-        mlp[k] = eval(expr, {}, dict(mlp))
-    env = {f"mlp_{k}": v for k, v in mlp.items()}
-    for k, expr in re.findall(pattern, (csrc / src).read_text().replace("mlp::", "mlp_")):
-        env[k] = eval(expr, {}, dict(env))
-    return env
+def _csrc(name):
+    return (Path(tfsm.__file__).resolve().parents[2] / "csrc" / name).read_text()
 
 
-def test_kernel_layouts_match_cuda_source(mlps):
-    """KERNEL_LAYOUT, kernel_layout_bwd and GRAD_SHAPES are the OFF_*,
-    OFFT_* and GW* constants of csrc/fused_sh_tile.cuh."""
-    env = _constants("fused_sh_tile.cuh")
-    offsets, total = {}, 0
-    for name, rows, cols in tfsm.KERNEL_LAYOUT:
-        offsets[name] = total
-        total += rows * cols
-    assert env["N_WEIGHTS"] == total
-    for name in ("w0", "w1", "w5", "w6", "wsig", "wrgb", "bsig", "brgb"):
-        assert env[f"OFF_{name.upper()}"] == offsets[name], name
-    assert env["OFF_B"] == offsets["b0"]
-    _, port, num_rgb = mlps["sh_deg 3"]
-    layout = tfsm.kernel_layout_bwd(num_rgb)
-    assert [n for n, _, _ in layout] == ["wsig", "w7", "w6", "w5", "w4", "w3", "w2", "w1", "wrgb"]
-    assert layout[0][1] * layout[0][2] == env["OFFT_W7"]
-    assert sum(r * c for _, r, c in layout[:-1]) == env["OFFT_WRGB"]
-    assert layout[-1][1:] == (256, 64)
-    assert tfsm.kernel_weights_bwd(port).numel() == env["OFFT_WRGB"] + 256 * 64
-    assert env["GRAD_ELEMS"] == tfsm.GRAD_ELEMS
-    assert env["GB0"] == sum(r * c for r, c in tfsm.GRAD_SHAPES[:10])
+def _sh_constants():
+    """The ``constexpr`` integer constants of csrc/mlp_tile.cuh's namespace
+    sh; ``mlp::X`` reads namespace mlp's X."""
+    src = _csrc("mlp_tile.cuh")
+
+    def parse(ns, env):
+        body = re.search(rf"\nnamespace {ns} {{\n(.*?)\n}}  // namespace {ns}\n", src, re.S).group(1)
+        for k, expr in re.findall(r"(?m)^constexpr (?:long long|int) (\w+) = ([^;]+);", body.replace("mlp::", "mlp_")):
+            env[k] = eval(expr, {}, dict(env))
+        return env
+
+    return parse("sh", {f"mlp_{k}": v for k, v in parse("mlp", {}).items()})
+
+
+def _probe(num_rgb):
+    """A float64 CondMLP whose parameters hold their own positions 1, 2, ..."""
+    probe = _port_mlp(num_rgb, 0).double()
+    with torch.no_grad():
+        at = 1
+        for prm in probe.parameters():
+            prm.copy_(torch.arange(at, at + prm.numel(), dtype=torch.float64).view(prm.shape))
+            at += prm.numel()
+    return probe
+
+
+def test_kernel_layouts_match_cuda_source():
+    """GRAD_SHAPES is the gradient layout sh::GW* of csrc/mlp_tile.cuh and
+    STASH_BYTES_PER_ROW its stash features; SM90_LAYOUT_BWD's offsets are
+    mlp_sm90.cuh's SWT_SH_* and its layers SH_DX_LAYERS, the dX ring's
+    table; the dX buffer holds each weight its products take once (the
+    coefficient head's, the sigma head's, w7..w1 with w5's h rows) and
+    nothing else."""
+    from tests.test_torch_fused_mlp import _cuda_layers, _layout_offsets, _sm90_constants
+
+    env = _sh_constants()
+    at, offsets = 0, {}
+    for name, (r, c) in zip(tfsm.FusedSHWeights._fields, tfsm.GRAD_SHAPES):
+        offsets[name] = at
+        at += r * c
+    for name in ("w0", "w1", "w5", "w6", "wsig", "wrgb", "b0", "bsig", "brgb"):
+        key = ("GB" + name[1:] if name.startswith("b") else "GW" + name[1:]).upper()
+        assert env[key] == offsets[name], name
+    assert env["GRAD_ELEMS"] == tfsm.GRAD_ELEMS == at
+    assert env["MAX_RGB"] == tfsm.MAX_RGB and env["G_SIG"] == env["G_RGB"] + tfsm.MAX_RGB
+    assert 2 * (env["A_FEATS"] + env["G_FEATS"]) == tfsm.STASH_BYTES_PER_ROW
+
+    sm = _sm90_constants()
+    offsets, total = _layout_offsets(tfsm.SM90_LAYOUT_BWD)
+    assert sm["SWT_SH_HEADS"] == offsets["wh"] and sm["SWT_SH_W7"] == offsets["w7"]
+    assert sm["SWT_SH_WEIGHTS"] == total
+    assert [(n, k, kd) for _, n, k, kd in tfsm.SM90_LAYOUT_BWD] == _cuda_layers("SH_DX_LAYERS")
+    assert tfsm.SM90_LAYOUT_BWD[0][2] == tfsm.MAX_RGB + 16
+
+    probe = _probe(27)
+    d = probe.dense
+    wkt = tfsm._build_kernel_weights_sm90_bwd(probe)
+    assert wkt.numel() == total
+    live = wkt[wkt != 0]
+    assert torch.unique(live).numel() == live.numel()
+    want = torch.cat([d[i].weight.reshape(-1) for i in (1, 2, 3, 4, 6, 7, 8, 9)] + [d[5].weight[:, :256].reshape(-1)])
+    torch.testing.assert_close(torch.sort(live).values, torch.sort(want.detach()).values, rtol=0, atol=0)
+
+
+def _sm90_bwd_matrices(wkt):
+    """K5b's dX buffer -> its [N][K] matrices by name (fused_mlp.sm90_slabs
+    undone)."""
+    from tests.test_torch_fused_mlp import _unslab
+
+    mats, at = {}, 0
+    for name, n, k, kd in tfsm.SM90_LAYOUT_BWD:
+        mats[name] = _unslab(wkt, at, n, k, kd)
+        at += n * k
+    assert at == wkt.numel()
+    return mats
 
 
 def test_kernel_weights_bwd_holds_the_transposed_weights(mlps):
+    """Unslabbed, each matrix of kernel_weights_sm90_bwd is the transpose of
+    the nn.Linear weights its dX product takes: [coefficient head^T (num_rgb
+    of 128 columns) | sigma head^T (1 of 16)], then w7, w6, w5's h columns,
+    w4..w1."""
     _, port, num_rgb = mlps["sg_dim 4"]
-    wkt = tfsm.kernel_weights_bwd(port)
+    mats = _sm90_bwd_matrices(tfsm.kernel_weights_sm90_bwd(port).float())
     d = port.dense
-    want = {"wsig": d[8].weight, "w5": d[5].weight[:, :256].T, "wrgb": d[9].weight.T}
-    want.update({f"w{i}": d[i].weight.T for i in (1, 2, 3, 4, 6, 7)})
-    at = 0
-    for name, rows, cols in tfsm.kernel_layout_bwd(num_rgb):
-        piece = wkt[at: at + rows * cols].view(rows, cols)
-        w = want[name].detach().bfloat16()
-        torch.testing.assert_close(piece[:, : w.shape[1]], w, rtol=0, atol=0)
-        assert not piece[:, w.shape[1]:].any()
-        at += rows * cols
-    assert at == wkt.numel()
+    bfT = lambda a: a.detach().bfloat16().float().T  # noqa: E731
+    want = {f"w{i}": bfT(d[i].weight) for i in (1, 2, 3, 4, 6, 7)}
+    want["w5"] = bfT(d[5].weight[:, :256])
+    want["wh"] = torch.zeros(256, tfsm.MAX_RGB + 16)
+    want["wh"][:, :num_rgb] = bfT(d[9].weight)
+    want["wh"][:, tfsm.MAX_RGB] = bfT(d[8].weight)[:, 0]
+    for name, _, _, _ in tfsm.SM90_LAYOUT_BWD:
+        torch.testing.assert_close(mats[name], want[name], rtol=0, atol=0, msg=name)
+    assert mats["wh"][:, num_rgb - 1].all() and mats["wh"][:, tfsm.MAX_RGB].all()
+
+
+def _walk_k5b(port, x, acts, g_rgb, g_sig):
+    """K5b's dX chain and dW walked on the host in its kernels' order over
+    its buffers, with the reference's recomputed activations: the heads'
+    gradients as one K = 144 product over the dX buffer's first matrix
+    into dense 7, then w7..w1 down to dense 0 (JAX's _bwd_kernel:
+    fused_sh_mlp.py:161-189); dW = A^T G over the stashes (x padded to 64,
+    a0..a7; w5's rows [x | h4]) into the gradient buffer's layout, un-permuted
+    by split_kernel_grads."""
+    mats = _sm90_bwd_matrices(tfsm.kernel_weights_sm90_bwd(port).float())
+    num_rgb = g_rgb.shape[1]
+    pad = torch.nn.functional.pad
+    pos = lambda a: (a > 0).float()  # noqa: E731
+    xs = pad(x, (0, 1))
+    gr, gs = pad(g_rgb, (0, tfsm.MAX_RGB - num_rgb)), pad(g_sig, (0, 127))
+    g = {7: fm._mm(torch.cat([gr, gs[:, :16]], 1), mats["wh"].T) * pos(acts["a7"])}
+    for l in range(6, -1, -1):
+        g[l] = fm._mm(g[l + 1], mats[f"w{l + 1}"].T) * pos(acts[f"a{l}"])
+    a_in = {0: xs, 5: torch.cat([xs, acts["a4"]], 1), **{l: acts[f"a{l - 1}"] for l in (1, 2, 3, 4, 6, 7)}}
+    parts = [fm._mmT(a_in[l], g[l]) for l in range(8)] + [fm._mmT(acts["a7"], gs), fm._mmT(acts["a7"], gr)]
+    parts += [g[l].sum(0) for l in range(8)] + [gs.sum(0), gr.sum(0)]
+    return tfsm.split_kernel_grads(torch.cat([p.reshape(-1) for p in parts]))
+
+
+@pytest.mark.parametrize("head", ["sh_deg 3", "num_rgb 128"])
+def test_sm90_bwd_walk_matches_jax(mlps, jax_backward, wide, head):
+    """K5b's buffers walked on the host in the kernels' layer order meet the
+    backward rule against JAX's _fused_sh_bwd, on JAX's recomputed
+    activations (sh_deg 3 and the widest head)."""
+    (_, port, num_rgb), (want, acts) = (mlps[head], jax_backward[head]) if head in mlps else wide
+    x, cot_rgb, cot_sig = (torch.from_numpy(a) for a in _inputs(3, num_rgb))
+    assert_backward_near(_walk_k5b(port, x, acts, cot_rgb, cot_sig), want)
+
+
+_SH_ENTRIES = [("weight_elems", "sm90::SH_WEIGHTS"), ("weight_t_elems", "sm90::SWT_SH_WEIGHTS"),
+               ("grad_elems", "sh::GRAD_ELEMS")]
+
+
+@pytest.mark.parametrize("entry, const", _SH_ENTRIES)
+def test_k5b_reports_the_sm90_buffer_sizes(mlps, entry, const):
+    """K5b's C interface reports the wgmma core's NeRF-SH buffer sizes, and
+    those are the sizes of the buffers the route hands it (the forward's
+    gather and the dX buffer) and of the gradient layout."""
+    from tests.test_torch_fused_mlp import _sm90_constants
+
+    ret = re.search(rf"long long fused_sh_bwd_{entry}\(\) {{ return ([\w:]+); }}", _csrc("fused_sh_bwd.cu")).group(1)
+    assert ret == const
+    value = (_sh_constants() if const.startswith("sh::") else _sm90_constants())[const.split("::")[1]]
+    for _, port, _ in mlps.values():
+        wk, wkt = tfsm.backward_weights(port, tfsm.forward_weights(port))
+        assert value == {"weight_elems": wk.numel(), "weight_t_elems": wkt.numel(),
+                         "grad_elems": tfsm.GRAD_ELEMS}[entry]
 
 
 def test_kernels_refuse_host_tensors(mlps):
@@ -388,8 +499,8 @@ def test_kernels_refuse_host_tensors(mlps):
     with pytest.raises(ValueError, match="CUDA"):
         tfsm.fused_sh_fwd(tfsm.forward_weights(port), torch.zeros(8, 63), num_rgb)
     with pytest.raises(ValueError, match="CUDA"):
-        tfsm.fused_sh_bwd(*tfsm.backward_weights(port), torch.zeros(8, 63), torch.zeros(8, num_rgb),
-                          torch.zeros(8, 1))
+        tfsm.fused_sh_bwd(*tfsm.backward_weights(port, tfsm.forward_weights(port)), torch.zeros(8, 63),
+                          torch.zeros(8, num_rgb), torch.zeros(8, 1))
 
 
 def test_fused_trunk_refuses_other_architectures():
@@ -436,7 +547,7 @@ def test_sm90_packing_maps_onto_pack_sh_params(num_rgb):
     JAX's above) entry for entry: each matrix transposed to [out][in],
     dense 5's input rows in the kernels' [x | h] order, the sigma head's
     rows past 0 and the coefficient head's rows past num_rgb zero; then the
-    biases. Each of kernel_weights' entries appears once."""
+    biases. Each entry of the KERNEL_LAYOUT staging buffer appears once."""
     mlp = _port_mlp(num_rgb, num_rgb)
     W = tfsm.pack_sh_params(mlp)
     mats, biases = _sm90_matrices(tfsm.kernel_weights_sm90(mlp))
@@ -452,12 +563,7 @@ def test_sm90_packing_maps_onto_pack_sh_params(num_rgb):
         torch.testing.assert_close(biases[name], getattr(W, name)[0, :n], rtol=0, atol=0, msg=name)
     assert not biases["bsig"][1:].any() and not biases["brgb"][num_rgb:].any()
 
-    probe = _port_mlp(num_rgb, 0).double()
-    with torch.no_grad():
-        at = 1
-        for prm in probe.parameters():
-            prm.copy_(torch.arange(at, at + prm.numel(), dtype=torch.float64).view(prm.shape))
-            at += prm.numel()
+    probe = _probe(num_rgb)
     old, new = tfsm._build_kernel_weights(probe), tfsm._build_kernel_weights_sm90(probe)
     torch.testing.assert_close(torch.sort(new[new != 0]).values, torch.sort(old[old != 0]).values, rtol=0, atol=0)
     assert torch.unique(new[new != 0]).numel() == int((new != 0).sum())
@@ -504,21 +610,19 @@ def test_k5f_reports_the_sm90_buffer_size(mlps):
         assert tfsm.forward_weights(port).numel() == _sm90_constants()["SH_WEIGHTS"]
 
 
-def test_route_hands_k5b_its_tile_buffer_and_k5f_the_cores(mlps, monkeypatch):
-    """The route's forward gathers the wgmma core's buffer for K5f; its
-    backward gathers K5b's own two tile buffers (K5b recomputes the trunk
-    from its layout)."""
+def test_route_draws_both_kernels_from_one_gather(mlps, monkeypatch):
+    """The route gathers the wgmma core's forward buffer once, for K5f;
+    K5b's backward reuses that tensor and gathers only its dX buffer."""
     _, port, num_rgb = mlps["sh_deg 3"]
     calls, real = [], fm.gather_weights
     monkeypatch.setattr(fm, "gather_weights", lambda m, layout, build: calls.append(layout) or real(m, layout, build))
     wf = tfsm.forward_weights(port)
-    wk, wkt = tfsm.backward_weights(port)
-    assert calls == [("fused_sh_sm90",), ("fused_sh",), ("fused_sh_bwd",)]
+    wk, wkt = tfsm.backward_weights(port, wf)
+    assert wk is wf
+    assert calls == [("fused_sh_sm90",), ("fused_sh_sm90_bwd",)]
     monkeypatch.undo()
     torch.testing.assert_close(wf, tfsm.kernel_weights_sm90(port), rtol=0, atol=0)
-    torch.testing.assert_close(wk, tfsm.kernel_weights(port), rtol=0, atol=0)
-    torch.testing.assert_close(wkt, tfsm.kernel_weights_bwd(port), rtol=0, atol=0)
-    assert wf.numel() != wk.numel()
+    torch.testing.assert_close(wkt, tfsm.kernel_weights_sm90_bwd(port), rtol=0, atol=0)
 
 
 def test_sm90_buffer_walked_in_the_kernels_order_matches_jax(mlps, jax_forward):
