@@ -11,16 +11,18 @@ upper-neighbour bricks) and its cache of a brick's link rows (kept when
 the lower corner crosses into another brick along y or z), both shared
 with K4 and run by both phases; K4's include its suffix term, its stop with
 sparsity on, a ray's last run of a corner slot dropped, a run's colour
-sums not reset when the slot's cell changes and its SH row's scalar tail
-dropped; the wgmma core's (mlp_sm90.cuh: K1f, K1b, K1rf, K1rb, K2, K5f
+sums not reset when the slot's cell changes, its SH row's scalar tail
+dropped and its touched-brick flags never set (the row-sparse steps'
+phase, train_plenoxels_sparse); the wgmma core's (mlp_sm90.cuh: K1f, K1b, K1rf, K1rb, K2, K5f
 and K5b) include the concat, the relu mask, the stage ring, the dW jobs
 (K1's and K5b's), the view encoder, the encoding stash, K1rb's, K1b's and
 K5b's forwards without their per-slab promotion, K1f handed the raw
 layout's buffer, K5f's two heads, K5b's dX heads' product without its
 sigma fragment and its coefficient head's dW cut to 4 columns; K5b's
-split-K reduce (fused_sh_bwd.cu). Run from the repository root:
+split-K reduce (fused_sh_bwd.cu). Run from the repository root (a pattern runs only the mutants whose
+label contains it):
 
-    python3 chip_mutants.py
+    python3 chip_mutants.py [pattern]
 
 Prints one line per (mutant, phase): CAUGHT or SURVIVED, with the check's
 message; exits 1 if a mutant survived a phase it should fail.
@@ -158,6 +160,12 @@ MUTANTS = {
         "for (int j = HEAD + BODY; j < HEAD + BODY; ++j) add<SCATTER>(dst + j, v[j], probe);",
         ("tile_march_bwd",),
     ),
+    "the march backward drops its touched-brick flag store": (
+        "nerf_projects_tpu_torch/csrc/tile_march_bwd.cu",
+        "if (SCATTER && p.touched && (run.gd != 0.f || colour)) p.touched[run.cell / CELLS] = 1;",
+        "// the touched-brick flag store dropped",
+        ("train_plenoxels_sparse",),
+    ),
     "K5's w5 rows left unpermuted (the reference's [h, x] order in the [x | h] tile)": (
         "nerf_projects_tpu_torch/ops/kernels/fused_sh_mlp.py",
         "w5=((d[5].weight[:, 256:], 0), (d[5].weight[:, :256], 64)),",
@@ -223,6 +231,7 @@ phases = {"kernel": lambda: c.phase_kernel(dev, fine_rows=65536),
           "fused_train_level": lambda: c.phase_kernel_train(dev),
           "tile_march_fwd": lambda: c.phase_kernel_march(dev),
           "tile_march_bwd": lambda: c.phase_kernel_march_bwd(dev),
+          "train_plenoxels_sparse": lambda: c.phase_train_plenoxels_sparse(dev, c.nvidia_smi()),
           "kernel_sh": lambda: c.phase_kernel_sh(dev),
           "kernel_raw": lambda: c.phase_kernel_raw(dev, serve_rows=65536, train_rows=65536),
           "train_raw": lambda: c.phase_train_raw(dev, c.nvidia_smi())}
@@ -242,7 +251,10 @@ def main() -> int:
     subprocess.run([sys.executable, "-c", "import chip_smoke as c; c.phase_build()"], check=True,
                    capture_output=True, text=True, timeout=900)
     survived = 0
+    pattern = sys.argv[1] if len(sys.argv) > 1 else ""
     for label, (path, old, new, must_fail) in MUTANTS.items():
+        if pattern not in label:
+            continue
         with tempfile.TemporaryDirectory() as d:
             shutil.copytree("nerf_projects_tpu_torch", os.path.join(d, "nerf_projects_tpu_torch"),
                             ignore=shutil.ignore_patterns("__pycache__", "*.tmp.so"))

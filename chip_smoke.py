@@ -223,6 +223,7 @@ import copy
 import dataclasses
 import faulthandler
 import json
+import os
 import re
 import subprocess
 import sys
@@ -921,13 +922,13 @@ OUR_KERNELS = ("mlp_grad_reduce_kernel", "sm90_fwd_kernel", "sm90_dx_kernel", "s
                "march_kernel", "march_bwd_kernel", "sh_grad_reduce_kernel")
 
 
-def profile_steps(run_steps, route: str, n: int = PROFILE_STEPS, split=None):
+def profile_steps(run_steps, route: str, n: int = PROFILE_STEPS, split=None, top: int = 6):
     """torch.profiler over ``run_steps(n)`` (n training steps; its result
     is returned): the card's busy time split into the port's hand-written
     kernels and everything else (the glue), with the largest glue
     kernels, and the idle share of the host-clock window. ``split`` maps
     a label to a pattern of kernel names: the busy time a step of each
-    such share is logged too."""
+    such share is logged too. ``top``: the glue kernels listed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -954,7 +955,7 @@ def profile_steps(run_steps, route: str, n: int = PROFILE_STEPS, split=None):
     if busy <= 0:
         log(f"profile: {route}: the profiler saw no device time; kernel and glue shares not measured")
         return result
-    top = sorted(glue.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(glue.items(), key=lambda kv: -kv[1])[:top]
     log(f"profile: {route}, {n} steps: host window {wall_us / n / 1e3:.4f} ms a step; device busy "
         f"{busy / n / 1e3:.4f} ms a step (idle share {1 - busy / wall_us:.3f}): hand-written kernels "
         f"{ours / n / 1e3:.4f} ms, other kernels {(busy - ours) / n / 1e3:.4f} ms; largest others: "
@@ -2254,6 +2255,292 @@ def phase_train_plenoxels(dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Plenoxels: the row-sparse steps and the training CLI
+# ---------------------------------------------------------------------------
+
+SPARSE_STEPS = 3            # steps of each row-sparse step held against a reference step
+SPARSE_TIMED = 20           # timed steps of each step function (a CUDA event after each)
+SPARSE_FRAC, SPARSE_RTOL, SPARSE_ATOL = 0.995, 1e-3, 1e-4   # tests/test_sparse_step.py:82-89
+CLI_RESO = "[[128,128,128],[256,256,256]]"
+CLI_STEPS = 40              # steps of the CLI drive, the upsample after half of them
+
+
+def close_share(got, want) -> float:
+    """The share of entries within SPARSE_RTOL and SPARSE_ATOL."""
+    return float(torch.isclose(got.float(), want.float(), rtol=SPARSE_RTOL, atol=SPARSE_ATOL).float().mean())
+
+
+def rms_now(rms, last_step, step: int, beta: float):
+    """A lazy state's rms as the dense recursion holds it after ``step``:
+    rms b^(step - last_step) on the rows ever touched."""
+    decay = torch.where(last_step >= 0, beta ** (step - last_step).double(), 1.0).float()
+    return rms * decay.reshape((-1,) + (1,) * (rms.dim() - 1))
+
+
+def hold_states(tag, pairs, mses, want_mses) -> None:
+    """Each (name, got, want) within tests/test_sparse_step.py's rule (more
+    than SPARSE_FRAC of the entries close), the first MSE within 1e-5 and
+    the later ones within 1e-4 (K4's atomics change their last bits)."""
+    shares = {name: close_share(got, want) for name, got, want in pairs}
+    rel = [abs(a - b) / abs(b) for a, b in zip(mses, want_mses)]
+    log(f"{tag}: {len(mses)} steps; MSE relative differences " + ", ".join(f"{r:.3e}" for r in rel)
+        + " (tolerances 1e-5, then 1e-4); entries close: " + ", ".join(f"{k} {v:.6f}" for k, v in shares.items())
+        + f" (more than {SPARSE_FRAC} needed)")
+    if not (rel[0] <= 1e-5 and all(r <= 1e-4 for r in rel[1:]) and min(shares.values()) > SPARSE_FRAC):
+        raise AssertionError(f"{tag}: the row-sparse step disagrees with its reference step")
+
+
+def timed_steps(tag, card, run_step, n_rays: int, route: str):
+    """A warm step, then SPARSE_TIMED steps with a CUDA event after each
+    (rays/s on the host clock, device ms a step), then a 3-step profile
+    (the idle share and the kernels). Returns the median device ms."""
+    run_step(0)
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True)]
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(SPARSE_TIMED):
+        run_step(1 + i)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])]
+    med = float(np.median(step_ms))
+    log(f"{tag} on {card}: {SPARSE_TIMED} steps of {n_rays} rays in {wall:.6f} s: "
+        f"{SPARSE_TIMED * n_rays / wall:.1f} rays/s; device ms a step median {med:.4f}, min {min(step_ms):.4f}, "
+        f"max {max(step_ms):.4f} (CUDA events)")
+
+    def run_steps(n):
+        for i in range(n):
+            run_step(1 + SPARSE_TIMED + i)
+
+    profile_steps(run_steps, route, n=3, top=12)
+    return med
+
+
+def op_table(tag, run_step, nb: int, top: int = 24) -> None:
+    """One step under torch.profiler with its operators' input shapes:
+    the operators by device time (their own kernels'), each with its
+    input shapes and calls, and the device time of those with an input
+    of the state's nb or nb + 1 rows (whole-state tensors: a pass over
+    them, or a gather or scatter of a step's rows from or into them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        run_step()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages(group_by_input_shape=True):
+        us = float(getattr(e, "self_device_time_total", 0.0))
+        if e.key.startswith("aten::") and us > 0:
+            shapes = [tuple(x) for x in (e.input_shapes or []) if isinstance(x, (list, tuple)) and x]
+            rows.append((us, e.key, shapes, e.count, any(x[0] in (nb, nb + 1) for x in shapes)))
+    rows.sort(key=lambda r: -r[0])
+    total = sum(r[0] for r in rows)
+    whole = sum(r[0] for r in rows if r[4])
+    log(f"{tag}: one step's operators by device time ({total / 1e3:.4f} ms; {whole / 1e3:.4f} ms in those with a "
+        f"whole-state input of {nb} or {nb + 1} rows): " + "; ".join(
+            f"{k} {sh} x{n} {us / 1e3:.4f} ms{' [whole-state input]' if w else ''}" for us, k, sh, n, w in rows[:top]))
+
+
+def phase_train_plenoxels_sparse(dev, card: str) -> dict:
+    """The row-sparse steps (train/plenoxels_sparse.py) at the fog 256^3
+    and shell 512^3 training configurations of train_plenoxels: (a) K4's
+    brick flags against the plain version's set; (b) SPARSE_STEPS steps
+    of train_step_tiles_sparse and of the lazy
+    train_step_tiles_packed_touched against train_step_tiles_pallas, and
+    of the per-visit touched step against its dense sweep; (c) a step of
+    each under set_sync_debug_mode (no waits); (d) each timed beside the
+    dense step; then (e) the training CLI, cli/train_plenoxels.run with
+    --step_mode touched from 128^3 to 256^3 on the synthetic scene.
+    Returns the K3 and K4 launches of the timed windows by batch shape,
+    those of the CLI run, and the CLI's wall."""
+    from nerf_projects_tpu_torch.ops.grid import GridRenderOptions
+    from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
+    from nerf_projects_tpu_torch.train import PlenoxelsTrainer
+    from nerf_projects_tpu_torch.train import plenoxels_sparse as ps
+
+    launches = {"tile_march_fwd": {}, "tile_march_bwd": {}}
+    kw_trainer = dict(n_iters=128_000, lambda_tv=1e-5, lambda_tv_sh=1e-3, device=dev)
+    for name, (reso, n_tiles) in TRAIN_SCENES.items():
+        tag = f"train_plenoxels_sparse: {name} {reso}^3"
+        bg = train_grid(dev, name)
+        nb = bg.n_bricks
+        geo = tm.geometry_only(bg)
+        trainer = PlenoxelsTrainer(GridRenderOptions(step_size=0.5), **kw_trainer)
+        trainer_pv = PlenoxelsTrainer(GridRenderOptions(step_size=0.5), rms_pervisit=True, **kw_trainer)
+        rays = train_tile_rays(SEED + 2, n_tiles, dev)
+        target = torch.full(rays.origins.shape, TRAIN_TARGET, device=dev)
+        n_rays = target.shape[0] * target.shape[1]
+
+        def gen(i):
+            return torch.Generator(device=dev).manual_seed(SEED + 20 + i)
+
+        # (a) K4's flags against the plain version's set
+        cells, pack, basis, max_steps = tm.march_inputs(bg, rays, trainer.opts)
+        kw = dict(max_steps=max_steps, color_mode=trainer.opts.color_mode, sigma_thresh=trainer.opts.sigma_thresh,
+                  stop_thresh=trainer.opts.stop_thresh)
+        g, s_total = bwd_inputs(cells, bg, pack, basis, target, trainer.opts, 0.0, max_steps)
+        gd, gsh, flags = tm.tile_march_bwd(cells, bg.brick_links, bg.reso, pack, basis, g, s_total,
+                                           flag_touched=True, **kw)
+        want = tm.touched_bricks(cells, bg.brick_links, bg.reso, pack, basis, g, s_total,
+                                 tiles_per_call=PLAIN_BATCH_TILES, **kw)
+        nonzero = (gd != 0).any(1) | (gsh != 0).flatten(1).any(1)
+        n_flag, n_want = int(flags.sum()), int(want.sum())
+        n_diff, n_missed = int((flags != want).sum()), int((nonzero & (flags[:nb] == 0)).sum())
+        log(f"{tag}: (a) K4 flags {n_flag} of {nb} bricks ({n_flag / nb:.4f}); the plain version's set "
+            f"(backward_flushes' adding runs) {n_want}; {n_diff} differ; bricks with a nonzero gradient "
+            f"{int(nonzero.sum())}, {n_missed} of them unflagged")
+        if n_diff or n_missed or int(flags[nb]) != 0 or n_flag == 0:
+            raise AssertionError(f"{tag}: K4's flags disagree with the plain version's set")
+        del cells, g, s_total, gd, gsh, want, nonzero
+        w_tv = max(int(trainer.tv_sparsity * nb), 1) + max(int(trainer.tv_sh_sparsity * nb), 1)
+        K = -(-((n_flag + 4 * w_tv) * 5 // 4) // 256) * 256  # the batch's flags and TV rows, 25% over
+        log(f"{tag}: max_touched {K} ({K / (nb + 1):.4f} of the state's rows)")
+
+        # (b) three steps of each against its reference; (c) no waits
+        dense_bg, dense_rms = bg, trainer.init_rms_bricks(bg)
+        want_mse = []
+        for i in range(SPARSE_STEPS):
+            dense_bg, dense_rms, st = trainer.train_step_tiles_pallas(dense_bg, dense_rms, rays, target, i, gen(i))
+            want_mse.append(float(st["mse"]))
+        last = SPARSE_STEPS - 1
+        steps = {
+            "sparse": (trainer, lambda: ps.sparse_state_from_grid(bg),
+                       lambda t, s, i: ps.train_step_tiles_sparse(t, geo, s, rays, target, i, gen(i), max_touched=K)),
+            "touched": (trainer, lambda: ps.packed_state_from_grid(bg, bf16_cells=True),
+                        lambda t, s, i: ps.train_step_tiles_packed_touched(t, geo, s, rays, target, i, gen(i),
+                                                                           max_touched=K)),
+        }
+        times = {}
+        for key, (tr, make, step) in steps.items():
+            state = make()
+            mses, overflow = [], []
+            for i in range(SPARSE_STEPS):
+                state, st = step(tr, state, i)
+                mses.append(float(st["mse"]))
+                overflow.append(float(st["touched_overflow"]))
+            if max(overflow) > 0:
+                raise AssertionError(f"{tag}: {key} step dropped touched rows ({overflow})")
+            if key == "sparse":
+                got = (state.density_k[:nb], state.sh_k[:nb], state.rms_density[:nb], state.rms_sh[:nb])
+            else:
+                got = (state.packed_k[:nb, :, 0], state.packed_k[:nb, :, 1:1 + 3 * bg.basis_dim],
+                       state.rms[:nb, :, 0], state.rms[:nb, :, 1:1 + 3 * bg.basis_dim])
+            ls = state.last_step[:nb]
+            hold_states(f"{tag}: (b) {key} step against train_step_tiles_pallas", [
+                ("density", got[0], dense_bg.density_bricks), ("sh", got[1], dense_bg.sh_bricks),
+                ("rms density", rms_now(got[2], ls, last, trainer.rms_beta), dense_rms.rms_density),
+                ("rms sh", rms_now(got[3], ls, last, trainer.rms_beta), dense_rms.rms_sh)], mses, want_mse)
+            if key == "touched" and not torch.equal(state.cells, state.packed_k.to(torch.bfloat16)):
+                raise AssertionError(f"{tag}: the touched step's bf16 cells are not its masters' rounding")
+            check_waits(f"{tag}: (c) one {key} step", lambda: step(tr, state, SPARSE_STEPS), most=0)
+            holder = [state]
+
+            def run_step(i, holder=holder, step=step, tr=tr):
+                holder[0] = step(tr, holder[0], SPARSE_STEPS + 1 + i)[0]
+
+            tm.tile_march_fwd.launches = tm.tile_march_bwd.launches = 0
+            times[key] = timed_steps(f"{tag}: (d) {key} step", card, run_step, n_rays,
+                                     f"Plenoxels {key} step, {name} {reso}^3")
+            for k in launches:
+                launches[k][f"{name} batch"] = launches[k].get(f"{name} batch", 0) + getattr(tm, k).launches
+            op_table(f"{tag}: (d) {key} step", lambda: run_step(SPARSE_TIMED + 3), nb)
+            del state, holder, got
+            torch.cuda.empty_cache()
+
+        # the per-visit touched step against its dense sweep
+        pv_states = {}
+        pv_mse = {}
+        for key, dense in (("touched per-visit", False), ("touched dense sweep", True)):
+            state, pv_mse[key] = ps.packed_state_from_grid(bg, bf16_cells=True), []
+            for i in range(SPARSE_STEPS):
+                state, st = ps.train_step_tiles_packed_touched(trainer_pv, geo, state, rays, target, i, gen(i),
+                                                               max_touched=K, dense_optim=dense)
+                pv_mse[key].append(float(st["mse"]))
+            pv_states[key] = state
+        a, b = pv_states["touched per-visit"], pv_states["touched dense sweep"]
+        hold_states(f"{tag}: (b) per-visit touched step against its dense sweep (dense_optim=True)",
+                    [("packed masters", a.packed_k, b.packed_k), ("rms", a.rms, b.rms)],
+                    pv_mse["touched per-visit"], pv_mse["touched dense sweep"])
+        if not torch.equal(a.last_step, b.last_step):
+            raise AssertionError(f"{tag}: the per-visit touched step's last_step differs from its dense sweep's")
+        for key, dense in (("touched per-visit", False), ("touched dense sweep", True)):
+            holder = [pv_states.pop(key)]
+
+            def step_pv(st_, i, dense=dense):
+                return ps.train_step_tiles_packed_touched(trainer_pv, geo, st_, rays, target, i, gen(i),
+                                                          max_touched=K, dense_optim=dense)[0]
+
+            check_waits(f"{tag}: (c) one {key} step", lambda: step_pv(holder[0], SPARSE_STEPS), most=0)
+
+            def run_step(i, holder=holder, step_pv=step_pv):
+                holder[0] = step_pv(holder[0], SPARSE_STEPS + 1 + i)
+
+            tm.tile_march_fwd.launches = tm.tile_march_bwd.launches = 0
+            times[key] = timed_steps(f"{tag}: (d) {key} step", card, run_step, n_rays,
+                                     f"Plenoxels {key} step, {name} {reso}^3")
+            for k in launches:
+                launches[k][f"{name} batch"] += getattr(tm, k).launches
+            del holder
+            torch.cuda.empty_cache()
+        del a, b
+
+        # the dense step beside them
+        holder = [(dense_bg, dense_rms)]
+
+        def run_dense(i, holder=holder):
+            b_, r_, _ = trainer.train_step_tiles_pallas(*holder[0], rays, target, SPARSE_STEPS + i, gen(i))
+            holder[0] = (b_, r_)
+
+        times["dense"] = timed_steps(f"{tag}: (d) the dense step (train_step_tiles_pallas)", card, run_dense, n_rays,
+                                     f"Plenoxels dense step, {name} {reso}^3")
+        log(f"{tag}: device ms a step, median: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+            + f"; against the dense step " + ", ".join(f"{k} {times['dense'] / v:.2f}x" for k, v in times.items()
+                                                      if k != "dense"))
+        del holder, dense_bg, dense_rms, bg, geo
+        torch.cuda.empty_cache()
+
+    # (e) the training CLI on the synthetic scene, through one upsample
+    import tempfile
+
+    from nerf_projects_tpu_torch.cli import train_plenoxels as cli
+    from nerf_projects_tpu_torch.data.base import SceneData
+    from nerf_projects_tpu_torch.data.synthetic import make_dataset
+
+    ds = make_dataset(n_views=8, image_size=64, device=dev)
+    scene = SceneData(images=ds["images"].cpu().numpy(), poses=np.asarray(ds["poses"]), intrinsics=ds["intrinsics"],
+                      near=ds["near"], far=ds["far"])
+    with tempfile.TemporaryDirectory() as d:
+        args = cli.build_parser().parse_args([
+            "--train_dir", d, "--step_mode", "touched", "--reso", CLI_RESO, "--upsamp_every", str(CLI_STEPS // 2),
+            "--n_iters", str(CLI_STEPS), "--print_every", "2", "--device", "cuda"])
+        tm.tile_march_fwd.launches = tm.tile_march_bwd.launches = 0
+        t0 = time.perf_counter()
+        grid, _, result = cli.run(args, scene=scene, test_scene=scene)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"tile_march_fwd": tm.tile_march_fwd.launches, "tile_march_bwd": tm.tile_march_bwd.launches}
+        entries = json.load(open(f"{d}/metrics_log.json"))
+        mses = [e["metrics"]["mse"] for e in entries if e["phase"] == "training"]
+        ckpt = f"{d}/ckpt.npz"
+        saved = os.path.getsize(ckpt) if os.path.exists(ckpt) else 0
+    log(f"train_plenoxels_sparse: (e) cli/train_plenoxels.run --step_mode touched --reso {CLI_RESO}, {CLI_STEPS} "
+        f"steps of {args.batch_size} rays (make_dataset, 8 views of 64x64) on {card}: wall {wall:.3f} s (the "
+        f"upsample, the final eval and the checkpoint included); reso {grid.reso}, capacity {grid.capacity}; mse "
+        f"{mses[0]:.6f} -> {mses[-1]:.6f} over {len(mses)} logged steps; test PSNR {result['psnr']:.4f}; "
+        f"ckpt.npz {saved} bytes; launches {counts}")
+    if list(grid.reso) != json.loads(CLI_RESO)[-1] or not saved or not all(np.isfinite(mses)):
+        raise AssertionError("train_plenoxels_sparse: the CLI did not upsample, save or train finitely")
+    if not np.mean(mses[-3:]) < np.mean(mses[:3]):
+        raise AssertionError("train_plenoxels_sparse: the CLI's loss did not fall")
+    if any(v <= 0 for v in counts.values()):
+        raise AssertionError(f"train_plenoxels_sparse: the CLI launched no {counts} kernel")
+    return launches, counts, wall
+
+
+# ---------------------------------------------------------------------------
 # NeRF-SH: the fused trunk forward (K5f) and backward (K5b)
 # ---------------------------------------------------------------------------
 
@@ -2711,8 +2998,13 @@ def main() -> int:
     frame_launches = phase_render_plenoxels(dev, card)
     march_bwd = phase_kernel_march_bwd(dev)
     train_launches = phase_train_plenoxels(dev, card)
-    march["launches"] = sum(frame_launches.values()) + sum(train_launches["tile_march_fwd"].values())
-    march_bwd["launches"] = sum(train_launches["tile_march_bwd"].values())
+    sparse_launches, cli_launches, _ = phase_train_plenoxels_sparse(dev, card)
+    for k, shapes in sparse_launches.items():
+        for shape, n in shapes.items():
+            train_launches[k][shape] = train_launches[k].get(shape, 0) + n
+    march["launches"] = (sum(frame_launches.values()) + sum(train_launches["tile_march_fwd"].values())
+                         + cli_launches["tile_march_fwd"])
+    march_bwd["launches"] = sum(train_launches["tile_march_bwd"].values()) + cli_launches["tile_march_bwd"]
     kernels += [march, march_bwd]
     sh_fwd, sh_bwd = phase_kernel_sh(dev)
     sh_serve = phase_render_nerf_sh(dev, card)

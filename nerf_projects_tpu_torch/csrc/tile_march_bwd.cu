@@ -22,7 +22,10 @@
 //   * add cw * g_sigma to grad_density and cw * g_rgb[ch] * basis_b to
 //     grad_sh[ch * B + b] of each of the 8 corner cells (cw its
 //     trilinear weight), skipping corners in empty bricks. A sample on an
-//     upper face adds to the clamped last cell, as K3 reads it.
+//     upper face adds to the clamped last cell, as K3 reads it;
+//   * optionally flag each brick it adds into: touched[row] = 1 (the
+//     row-sparse training steps update only the flagged bricks, so they
+//     never scan the gradient arrays for the rows that changed).
 // These are the formulas of tile_march.py:1443-1496.
 //
 // A ray ends where it leaves [t0, t1) or after max_steps, or, when
@@ -93,6 +96,7 @@ struct Params {
   const float* s_total;   // [n_rays]: the suffix seed
   float* grad_density;    // [nb, 512]
   float* grad_sh;         // [nb, 512, 3B]
+  int* touched;           // [nb + 1] or null: 1 at the brick of each run that adds
   float* sink;            // [2, n_rays], the probe's output (SCATTER false): sums, samples visited
   long long n_rays;
   int r, max_steps, sigmoid;
@@ -145,12 +149,15 @@ __device__ __forceinline__ void add_row(float* dst, const float gc[3], const flo
 // A run's adds: its density gradient, then its 3B SH gradients as one
 // row (add_row; grad_sh itself is 16-byte aligned), each left out where
 // its sums are 0 (with sparsity on, the samples past the last active one
-// add to the density only).
+// add to the density only). A run that adds flags its brick: a plain
+// store of 1, which every writer of the word agrees on.
 template <int B, bool SCATTER>
 __device__ __forceinline__ void flush(const Params& p, const Run& run, const float basis[B], float& probe) {
   if (run.cell < 0) return;
+  const bool colour = run.g0 != 0.f || run.g1 != 0.f || run.g2 != 0.f;
+  if (SCATTER && p.touched && (run.gd != 0.f || colour)) p.touched[run.cell / CELLS] = 1;
   if (run.gd != 0.f) add<SCATTER>(p.grad_density + run.cell, run.gd, probe);
-  if (run.g0 == 0.f && run.g1 == 0.f && run.g2 == 0.f) return;
+  if (!colour) return;
   const float gc[3] = {run.g0, run.g1, run.g2};
   float* dst = p.grad_sh + run.cell * (3 * B);
   switch (static_cast<int>((run.cell * (3 * B)) & 3)) {
@@ -335,17 +342,20 @@ int tile_march_bwd_channels(int basis_dim) { return ((1 + 3 * basis_dim + 7) / 8
 // [n_rays, 12], basis float32 [n_rays / r, basis_dim], grad_rgb float32
 // [n_rays, 3], s_total float32 [n_rays]; adds into grad_density float32
 // [nb, 512] and grad_sh float32 [nb, 512, 3 * basis_dim], which the
-// caller zeroes. Launched on `stream`; returns the CUDA error of the
-// launch, 0 on success, cudaErrorInvalidValue for a basis_dim other than
-// 1, 4, 9, 16, 25.
+// caller zeroes; with touched int32 [nb + 1] (zeroed by the caller; null:
+// no flags) it also sets touched[row] = 1 for each brick it adds into.
+// Launched on `stream`; returns the CUDA error of the launch, 0 on
+// success, cudaErrorInvalidValue for a basis_dim other than 1, 4, 9, 16,
+// 25.
 int tile_march_bwd(const void* cells, const void* links, const void* pack, const void* basis,
                    const void* grad_rgb, const void* s_total, void* grad_density, void* grad_sh,
-                   long long n_rays, int r, int X, int Y, int Z, int BY, int BZ, int basis_dim,
-                   int max_steps, float sigma_thresh, float stop_thresh, float sparsity_scale,
-                   int sigmoid, void* stream) {
+                   void* touched, long long n_rays, int r, int X, int Y, int Z, int BY, int BZ,
+                   int basis_dim, int max_steps, float sigma_thresh, float stop_thresh,
+                   float sparsity_scale, int sigmoid, void* stream) {
   Params p;
   p.grad_density = static_cast<float*>(grad_density);
   p.grad_sh = static_cast<float*>(grad_sh);
+  p.touched = static_cast<int*>(touched);
   p.sink = nullptr;
   return run(p, cells, links, pack, basis, grad_rgb, s_total, n_rays, r, X, Y, Z, BY, BZ, basis_dim,
              max_steps, sigma_thresh, stop_thresh, sparsity_scale, sigmoid, stream);
@@ -363,6 +373,7 @@ int tile_march_bwd_probe(const void* cells, const void* links, const void* pack,
   Params p;
   p.grad_density = nullptr;
   p.grad_sh = nullptr;
+  p.touched = nullptr;
   p.sink = static_cast<float*>(sink);
   return run(p, cells, links, pack, basis, grad_rgb, s_total, n_rays, r, X, Y, Z, BY, BZ, basis_dim,
              max_steps, sigma_thresh, stop_thresh, sparsity_scale, sigmoid, stream);

@@ -1,0 +1,171 @@
+"""SparseGrid topology lifecycle: upsampling, dilation and empty-space
+distances (port of ``nerf_projects_tpu/models/grid_lifecycle.py``).
+
+Parity targets (reference svox2/svox2/svox2.py):
+  * ``resample`` (:1223-1424): progressive upsampling: density and SH
+    trilinearly resampled at the new resolution's cell positions, a mask
+    by sigma threshold or by the largest ray weight over the training
+    cameras (``pipeline/extraction.py::grid_weight_render``) with an
+    optional top-k ``max_elements`` bound, 3D dilation (x2 by default),
+    then the links rebuilt (z-order) over the kept cells;
+  * ``dilate_mask`` (csrc/misc_kernel.cu:21): 26-neighbourhood dilation;
+  * ``compute_skip_grid`` (:1487-1494, accel_dist_prop): the L-inf
+    distance to the nearest occupied cell;
+  * ``resize`` (:1451-1486): the SH basis dimension changed in place.
+
+These are host-staged events between training epochs, as the reference
+schedules them (opt.py:855-887): the masks and links are numpy and scipy
+(on both machines); the resampling runs on the grid's device. Not ported
+yet: ``to_octree`` and ``octree_to_grid`` (ROADMAP Queue 1 item 12, the
+PlenOctree pipeline) and ``sparsify_background`` (item 4, the background
+model); each raises NotImplementedError.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from nerf_projects_tpu_torch.models.sparse_grid import SparseGrid, _grid_transform, morton_code_3d
+from nerf_projects_tpu_torch.ops.grid import trilerp
+
+
+def dilate_mask(mask: np.ndarray, iterations: int = 1) -> np.ndarray:
+    """26-neighbourhood binary dilation (misc_kernel.cu:21)."""
+    from scipy import ndimage
+
+    if iterations <= 0:
+        return mask
+    return ndimage.binary_dilation(mask, structure=np.ones((3, 3, 3), bool), iterations=iterations)
+
+
+def compute_skip_grid(links: np.ndarray) -> np.ndarray:
+    """Chebyshev (L-inf) distance to the nearest occupied cell, int32 [X,
+    Y, Z]: 0 at occupied cells (accel_dist_prop)."""
+    from scipy import ndimage
+
+    occupied = np.asarray(links) >= 0
+    if occupied.all():
+        return np.zeros(links.shape, np.int32)
+    if not occupied.any():
+        return np.full(links.shape, max(links.shape), np.int32)
+    return ndimage.distance_transform_cdt(~occupied, metric="chessboard").astype(np.int32)
+
+
+def _occupancy_from_weights(grid: SparseGrid, density: np.ndarray, new_reso, cameras, *, weight_thresh: float,
+                            step_size: float = 1e-3, ray_subsample: int = 4, max_elements: int = 0) -> np.ndarray:
+    """The largest ray weight over the training cameras, thresholded
+    (resample's weight path, svox2.py:1319-1358). Each camera pose is
+    moved into the grid's unit-cube frame first."""
+    from nerf_projects_tpu_torch.pipeline.extraction import grid_weight_render
+
+    reso = tuple(new_reso)
+    sig = np.maximum(density.reshape(reso), 0.0)
+    max_w = np.zeros(reso, np.float32)
+    for pose, K, h, w in cameras:
+        pose = np.asarray(pose, np.float64).copy()
+        pose[:3, 3] = (pose[:3, 3] - grid.center) / grid.radius
+        w_img = grid_weight_render(sig, pose.astype(np.float32), K, h, w, step_size=step_size,
+                                   ray_subsample=ray_subsample, device=grid.device)
+        max_w = np.maximum(max_w, w_img)
+    if max_elements > 0 and (max_w >= weight_thresh).sum() > max_elements:
+        thresh = np.partition(max_w.ravel(), -max_elements)[-max_elements]  # the top-k bound
+        return max_w >= max(thresh, weight_thresh)
+    return max_w >= weight_thresh
+
+
+def resample(
+    grid: SparseGrid,
+    new_reso,
+    *,
+    sigma_thresh: float = 5.0,
+    weight_thresh: float = 0.01,
+    dilate: int = 2,
+    cameras: Optional[Sequence] = None,
+    use_z_order: bool = True,
+    max_elements: int = 0,
+    batch_size: int = 262144,
+) -> SparseGrid:
+    """The grid rebuilt at ``new_reso`` over its occupied cells, on its
+    device. ``cameras``: [(c2w, K, height, width), ...] for the
+    largest-ray-weight mask; else the sigma threshold."""
+    if isinstance(new_reso, int):
+        new_reso = (new_reso, new_reso, new_reso)
+    new_reso = tuple(int(r) for r in new_reso)
+    dev = grid.device
+    X, Y, Z = new_reso
+    n = X * Y * Z
+    # the new grid's cell positions in world space, then in the old grid
+    scale, offset, radius, center = _grid_transform(new_reso, grid.radius, grid.center, dev)
+    density_new = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    sh_new = torch.empty((n, grid.sh_data.shape[1]), dtype=torch.float32, device=dev)
+    for i in range(0, n, batch_size):
+        idx = torch.arange(i, min(i + batch_size, n), device=dev)
+        g = torch.stack([idx // (Y * Z), (idx // Z) % Y, idx % Z], dim=-1).float()
+        gpts = grid.world_to_grid((g - offset) / scale * radius + center)
+        density_new[i:i + batch_size] = trilerp(grid, grid.density_data, gpts)
+        sh_new[i:i + batch_size] = trilerp(grid, grid.sh_data, gpts)
+
+    dens_host = density_new[:, 0].cpu().numpy()
+    if cameras is not None:
+        mask = _occupancy_from_weights(grid, dens_host, new_reso, cameras, weight_thresh=weight_thresh,
+                                       max_elements=max_elements)
+    else:
+        mask = (dens_host >= sigma_thresh).reshape(new_reso)
+    mask = dilate_mask(mask, dilate)
+    if not mask.any():
+        # a degenerate threshold: keep the densest cell so the grid stays
+        # renderable (the reference would fail downstream instead)
+        mask = mask.reshape(-1)
+        mask[np.argmax(dens_host)] = True
+        mask = mask.reshape(new_reso)
+
+    n_active = int(mask.sum())
+    links = np.full(new_reso, -1, np.int32)
+    act = np.argwhere(mask)
+    if n_active and use_z_order:
+        act = act[np.argsort(morton_code_3d(act[:, 0], act[:, 1], act[:, 2]))]
+    links[act[:, 0], act[:, 1], act[:, 2]] = np.arange(n_active, dtype=np.int32)
+    flat_idx = torch.from_numpy((act[:, 0] * Y + act[:, 1]) * Z + act[:, 2]).to(dev)
+    return SparseGrid(
+        links=torch.from_numpy(links).to(dev),
+        density_data=density_new[flat_idx],
+        sh_data=sh_new[flat_idx],
+        radius=grid.radius.copy(),
+        center=grid.center.copy(),
+        basis_dim=grid.basis_dim,
+    )
+
+
+def resize(grid: SparseGrid, basis_dim: int) -> SparseGrid:
+    """The SH basis dimension changed (svox2.py:1451-1486): per colour the
+    min(old, new) low-order coefficients kept, added ones zero. The
+    caller resets its optimizer state (the reference clears sh_rms)."""
+    if int(np.sqrt(basis_dim)) ** 2 != basis_dim:
+        raise ValueError("basis_dim (SH) must be a square number")
+    if not (1 <= basis_dim <= 25):
+        raise ValueError("basis_dim 1-25 supported")
+    old = grid.basis_dim
+    if basis_dim == old:
+        return grid
+    sh = grid.sh_data.reshape(grid.capacity, 3, old)
+    keep = min(old, basis_dim)
+    new_sh = torch.zeros((grid.capacity, 3, basis_dim), dtype=grid.sh_data.dtype, device=grid.device)
+    new_sh[:, :, :keep] = sh[:, :, :keep]
+    return dataclasses.replace(grid, sh_data=new_sh.reshape(grid.capacity, 3 * basis_dim), basis_dim=basis_dim)
+
+
+def to_octree(grid: SparseGrid, *, depth: Optional[int] = None, sigma_thresh: float = 0.0):
+    raise NotImplementedError("to_octree needs the PlenOctree model, not ported yet (ROADMAP Queue 1 item 12)")
+
+
+def octree_to_grid(tree, *, reso: Optional[int] = None, sigma_thresh: float = 0.0, dilate: int = 1,
+                   batch: int = 262144):
+    raise NotImplementedError("octree_to_grid needs the PlenOctree model, not ported yet (ROADMAP Queue 1 item 12)")
+
+
+def sparsify_background(msi, sigma_thresh: float = 1.0, dilate: int = 1):
+    raise NotImplementedError("sparsify_background needs the background model, not ported yet "
+                              "(ROADMAP Queue 1 item 4)")

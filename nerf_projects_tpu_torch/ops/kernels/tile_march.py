@@ -12,9 +12,13 @@ gradients of the MSE, beta and Cauchy sparsity losses, summed over each
 corner's run of samples first, straight into brick-layout arrays;
 ``march_backward_reference`` is its plain version,
 ``backward_flushes`` the host twin of its runs, and ``march_backward``
-dispatches as ``march`` does.
+dispatches as ``march`` does. With ``flag_touched`` the backward also
+returns int32 [nb + 1] flags, 1 at each brick it adds a gradient into
+(the kernel sets them where it adds a run; ``touched_bricks`` is the
+plain version's set), the rows that the row-sparse training steps
+update.
 ``render_fused_tiles_pallas`` runs both: the fused render + gradient of
-a Plenoxels training step.
+a Plenoxels training step; ``fused_grad_blocks`` also returns the flags.
 
 What it computes, per tile (from ``_make_fwd_kernel`` and ``_pack_rays``):
 ray geometry in grid space, samples at tt = T0 + k * dt from the tile's
@@ -485,7 +489,8 @@ def march_backward_reference(cells: torch.Tensor, brick_links: torch.Tensor, res
                              basis: torch.Tensor, grad_rgb: torch.Tensor, s_total: torch.Tensor, *,
                              max_steps: int, color_mode: str = "bias", sigma_thresh: float = 1e-8,
                              stop_thresh: float = 1e-7, sparsity_scale: float = 0.0, slice_steps: int = 32,
-                             skip_empty: bool = False, reach: Optional[torch.Tensor] = None):
+                             skip_empty: bool = False, reach: Optional[torch.Tensor] = None,
+                             flag_touched: bool = False):
     """Plain version of ``tile_march_bwd`` on any device, ``slice_steps``
     steps of every ray at a time: the gradients of the march's loss with
     respect to the cells' density and SH, (grad_density [nb, 512],
@@ -501,15 +506,24 @@ def march_backward_reference(cells: torch.Tensor, brick_links: torch.Tensor, res
     With ``skip_empty`` the backward evaluates only the steps that the
     kernel visits (``kernel_visits`` under the reachable-brick mask
     ``reach``, default ``reachable_bricks``), as the kernel's skip does:
-    with a right mask the gradients are the same bits as without it."""
+    with a right mask the gradients are the same bits as without it.
+
+    With ``flag_touched``, also int32 flags [nb + 1]: 1 at the brick of
+    each corner term that the kernel accumulates (``enter``) with a
+    nonzero density or colour gradient. That is ``touched_bricks``' set
+    (the bricks of the kernel's runs that add) unless a run's terms
+    cancel to an exact 0, where this set is the larger; any superset of
+    the bricks with a nonzero gradient serves the training steps."""
     B = basis.shape[-1]
     nb = cells.shape[0]
     r = pack.shape[1]
     bas = basis.float().repeat_interleave(r, dim=0)  # [N, B]
     grad_d = torch.zeros(nb * BRICK**3, device=pack.device)
     grad_sh = torch.zeros(nb * BRICK**3, 3 * B, device=pack.device)
+    touched = torch.zeros(nb + 1, dtype=torch.int32, device=pack.device)
     if nb == 0:
-        return grad_d.reshape(0, BRICK**3), grad_sh.reshape(0, BRICK**3, 3 * B)
+        out = grad_d.reshape(0, BRICK**3), grad_sh.reshape(0, BRICK**3, 3 * B)
+        return out + (touched,) if flag_touched else out
     for corners in _backward_terms(cells, brick_links, reso, pack, basis, grad_rgb, s_total, max_steps=max_steps,
                                    color_mode=color_mode, sigma_thresh=sigma_thresh, stop_thresh=stop_thresh,
                                    sparsity_scale=sparsity_scale, slice_steps=slice_steps, skip_empty=skip_empty,
@@ -519,7 +533,14 @@ def march_backward_reference(cells: torch.Tensor, brick_links: torch.Tensor, res
             grad_d.index_add_(0, idx, torch.where(ok, c["gd"], 0.0).reshape(-1))
             gsh = c["gc"][..., None] * bas[:, None, None, :]  # [N, S, 3, B]
             grad_sh.index_add_(0, idx, torch.where(ok[..., None, None], gsh, 0.0).reshape(-1, 3 * B))
-    return grad_d.reshape(nb, BRICK**3), grad_sh.reshape(nb, BRICK**3, 3 * B)
+            if flag_touched:
+                adds = c["enter"] & ((c["gd"] != 0) | (c["gc"] != 0).any(-1))
+                touched.index_fill_(0, torch.where(adds, c["cell"] // BRICK**3, nb).reshape(-1), 1)
+    out = grad_d.reshape(nb, BRICK**3), grad_sh.reshape(nb, BRICK**3, 3 * B)
+    if flag_touched:
+        touched[nb].fill_(0)
+        return out + (touched,)
+    return out
 
 
 def backward_flushes(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: torch.Tensor,
@@ -537,7 +558,8 @@ def backward_flushes(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack:
     aligned and scalar ones around them. Returns dict(ray [F], cell [F]
     (row * 512 + cell in the brick), density [F], colour [F, 3] (before
     the tile basis), adds: the floats the kernel adds into the arrays,
-    add_ops: the add instructions it issues for them)."""
+    add_ops: the add instructions it issues for them, bricks: the bricks
+    of the runs that add, the kernel's flags)."""
     B = basis.shape[-1]
     r = pack.shape[1]
     rays, ks, cells_, gd, gc = [], [], [], [], []
@@ -577,7 +599,26 @@ def backward_flushes(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack:
     body = (N - head) // 4
     ops = head + body + (N - head - 4 * body)
     return dict(ray=key[new] // 8, cell=cell[new], density=density, colour=colour,
-                adds=int(live_d.sum()) + N * int(live_c.sum()), add_ops=int(live_d.sum()) + int(ops.sum()))
+                adds=int(live_d.sum()) + N * int(live_c.sum()), add_ops=int(live_d.sum()) + int(ops.sum()),
+                bricks=torch.unique(cell[new][live_d | live_c] // BRICK**3))
+
+
+def touched_bricks(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: torch.Tensor, basis: torch.Tensor,
+                   grad_rgb: torch.Tensor, s_total: torch.Tensor, *, tiles_per_call: int = 64,
+                   **kw) -> torch.Tensor:
+    """The plain version of the kernel's flags: int32 [nb + 1], 1 at the
+    brick of each run that ``backward_flushes`` counts as adds (its
+    density or colour sum nonzero), ``tiles_per_call`` tiles at a time (a
+    run never leaves its ray). ``kw`` as ``backward_flushes``."""
+    nb = cells.shape[0]
+    flags = torch.zeros(nb + 1, dtype=torch.int32, device=pack.device)
+    if "reach" not in kw:
+        kw["reach"] = reachable_bricks(brick_links, reso)
+    for i in range(0, pack.shape[0], tiles_per_call):
+        f = backward_flushes(cells, brick_links, reso, pack[i:i + tiles_per_call], basis[i:i + tiles_per_call],
+                             grad_rgb[i:i + tiles_per_call], s_total[i:i + tiles_per_call], **kw)
+        flags[f["bricks"]] = 1
+    return flags
 
 
 # ---------------------------------------------------------------------------
@@ -672,10 +713,10 @@ def march(cells, brick_links, reso, pack, basis, **kw):
 @functools.lru_cache(maxsize=None)
 def _bwd_library():
     F = ctypes.c_float
-    args = [_VP] * 6 + [_VP, _VP, _LL] + [_INT] * 8 + [F, F, F, _INT, _VP]
+    args = [_VP] * 6 + [_VP, _VP, _VP, _LL] + [_INT] * 8 + [F, F, F, _INT, _VP]
     return load_library("tile_march_bwd", {
         "tile_march_bwd": (args, _INT),
-        "tile_march_bwd_probe": (args[:6] + [_VP] + args[8:], _INT),
+        "tile_march_bwd_probe": (args[:6] + [_VP] + args[9:], _INT),
         "tile_march_bwd_channels": ([_INT], _INT),
         "tile_march_bwd_error_string": ([_INT], ctypes.c_char_p),
     })
@@ -684,8 +725,8 @@ def _bwd_library():
 def _bwd_launch(cells, brick_links, reso, pack, basis, grad_rgb, s_total, outs, *, max_steps, color_mode,
                 sigma_thresh, stop_thresh, sparsity_scale, probe):
     """Check the inputs and launch ``tile_march_bwd`` into ``outs``
-    (grad_density, grad_sh), or, with ``probe``, ``tile_march_bwd_probe``
-    into ``outs`` (sink,)."""
+    (grad_density, grad_sh, touched or None), or, with ``probe``,
+    ``tile_march_bwd_probe`` into ``outs`` (sink,)."""
     dev = pack.device
     if dev.type != "cuda":
         raise ValueError(f"tile_march_bwd runs on a CUDA device, got {dev}")
@@ -709,13 +750,16 @@ def _bwd_launch(cells, brick_links, reso, pack, basis, grad_rgb, s_total, outs, 
         raise ValueError(f"reso {tuple(reso)} does not fit brick_links of shape {(BX, BY, BZ)}")
     if not probe and outs[1].data_ptr() % 16:
         raise ValueError("tile_march_bwd adds grad_sh's rows as float4s: grad_sh must be 16-byte aligned")
+    if not probe and outs[2] is not None:
+        check_tensor(outs[2], "touched", torch.int32, (nb + 1,), dev)
     if T * r == 0:
         return
     fn = lib.tile_march_bwd_probe if probe else lib.tile_march_bwd
     with torch.cuda.device(dev):
         rc = fn(
             cells.data_ptr(), brick_links.data_ptr(), pack.data_ptr(), basis.data_ptr(), grad_rgb.data_ptr(),
-            s_total.data_ptr(), *(o.data_ptr() for o in outs), T * r, r, X, Y, Z, BY, BZ, B, int(max_steps),
+            s_total.data_ptr(), *(None if o is None else o.data_ptr() for o in outs), T * r, r, X, Y, Z, BY, BZ, B,
+            int(max_steps),
             float(sigma_thresh), float(stop_thresh), float(sparsity_scale), int(color_mode == "sigmoid"),
             current_stream(dev),
         )
@@ -726,24 +770,27 @@ def _bwd_launch(cells, brick_links, reso, pack, basis, grad_rgb, s_total, outs, 
 def tile_march_bwd(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: torch.Tensor,
                    basis: torch.Tensor, grad_rgb: torch.Tensor, s_total: torch.Tensor, *, max_steps: int,
                    color_mode: str = "bias", sigma_thresh: float = 1e-8, stop_thresh: float = 1e-7,
-                   sparsity_scale: float = 0.0):
+                   sparsity_scale: float = 0.0, flag_touched: bool = False):
     """Launch the CUDA backward: the inputs of ``tile_march_fwd`` plus
     grad_rgb float32 [T, r, 3] and s_total float32 [T, r] on one card ->
     (grad_density [nb, 512], grad_sh [nb, 512, 3B]) float32 as
-    ``march_backward_reference``. A ray's corner slot sums its gradient
-    while its cell stays a corner and adds the run into the arrays with
-    float32 atomics (``backward_flushes`` counts them): the order of the
-    sums differs from the plain version's, and their last bits change
-    from run to run."""
+    ``march_backward_reference``, and with ``flag_touched`` int32 flags
+    [nb + 1], 1 at each brick a run adds into (``touched_bricks``' set).
+    A ray's corner slot sums its gradient while its cell stays a corner
+    and adds the run into the arrays with float32 atomics
+    (``backward_flushes`` counts them): the order of the sums differs
+    from the plain version's, and their last bits change from run to
+    run."""
     nb, B = cells.shape[0], basis.shape[-1]
     grad_d = torch.zeros((nb, BRICK**3), dtype=torch.float32, device=pack.device)
     grad_sh = torch.zeros((nb, BRICK**3, 3 * B), dtype=torch.float32, device=pack.device)
-    _bwd_launch(cells, brick_links, reso, pack, basis, grad_rgb, s_total, (grad_d, grad_sh),
+    touched = torch.zeros(nb + 1, dtype=torch.int32, device=pack.device) if flag_touched else None
+    _bwd_launch(cells, brick_links, reso, pack, basis, grad_rgb, s_total, (grad_d, grad_sh, touched),
                 max_steps=max_steps, color_mode=color_mode, sigma_thresh=sigma_thresh,
                 stop_thresh=stop_thresh, sparsity_scale=sparsity_scale, probe=False)
     if pack.shape[0] * pack.shape[1]:
         tile_march_bwd.launches += 1
-    return grad_d, grad_sh
+    return (grad_d, grad_sh, touched) if flag_touched else (grad_d, grad_sh)
 
 
 tile_march_bwd.launches = 0
@@ -878,6 +925,27 @@ def loss_seeds(out: torch.Tensor, rgb_gt: torch.Tensor, opts: GridRenderOptions,
     return rgb_out, g.contiguous(), s_total.contiguous()
 
 
+def _fused(bg, rays, rgb_gt, opts, *, beta_loss, sparsity_loss, n_chunks, use_occupancy, kernel_arrays,
+           flag_touched):
+    """K3, the loss seeds and K4: (rgb_out, K4's outputs, aux)."""
+    cells, pack, basis, max_steps = march_inputs(bg, rays, opts, n_chunks=n_chunks, use_occupancy=use_occupancy,
+                                                 kernel_arrays=kernel_arrays)
+    kw = dict(max_steps=max_steps, color_mode=opts.color_mode, sigma_thresh=opts.sigma_thresh,
+              stop_thresh=opts.stop_thresh)
+    out = march(cells, bg.brick_links, bg.reso, pack, basis, **kw)
+    rgb_out, g, s_total = loss_seeds(out, rgb_gt, opts, beta_loss)
+    grads = march_backward(cells, bg.brick_links, bg.reso, pack, basis, g, s_total,
+                           sparsity_scale=float(sparsity_loss), flag_touched=flag_touched, **kw)
+    aux = {
+        "acc": out[:, 3],
+        "log_transmit": -out[:, 5],
+        "sparsity_sum": out[:, 6],
+        "window_miss": torch.zeros((), dtype=torch.float32, device=pack.device),
+        "dropped_active_chunks": torch.zeros((), dtype=torch.int32, device=pack.device),
+    }
+    return rgb_out, grads, aux
+
+
 def render_fused_tiles_pallas(
     bg: BrickGrid,
     rays: Rays,
@@ -908,19 +976,69 @@ def render_fused_tiles_pallas(
     are float32 and no sample is dropped. ``kernel_arrays``: prebuilt
     cells (``build_kernel_arrays``, any dtype for the plain versions)."""
     del grad_dtype, compact_chunks
-    cells, pack, basis, max_steps = march_inputs(bg, rays, opts, n_chunks=n_chunks, use_occupancy=use_occupancy,
-                                                 kernel_arrays=kernel_arrays)
-    kw = dict(max_steps=max_steps, color_mode=opts.color_mode, sigma_thresh=opts.sigma_thresh,
-              stop_thresh=opts.stop_thresh)
-    out = march(cells, bg.brick_links, bg.reso, pack, basis, **kw)
-    rgb_out, g, s_total = loss_seeds(out, rgb_gt, opts, beta_loss)
-    grad_density, grad_sh = march_backward(cells, bg.brick_links, bg.reso, pack, basis, g, s_total,
-                                           sparsity_scale=float(sparsity_loss), **kw)
-    aux = {
-        "acc": out[:, 3],
-        "log_transmit": -out[:, 5],
-        "sparsity_sum": out[:, 6],
-        "window_miss": torch.zeros((), dtype=torch.float32, device=pack.device),
-        "dropped_active_chunks": torch.zeros((), dtype=torch.int32, device=pack.device),
-    }
+    rgb_out, (grad_density, grad_sh), aux = _fused(
+        bg, rays, rgb_gt, opts, beta_loss=beta_loss, sparsity_loss=sparsity_loss, n_chunks=n_chunks,
+        use_occupancy=use_occupancy, kernel_arrays=kernel_arrays, flag_touched=False)
     return rgb_out, grad_density, grad_sh, aux
+
+
+def kernel_cells(kernel_arrays, n_bricks: int) -> torch.Tensor:
+    """The cells [nb, 512, CP] the march reads, from prebuilt kernel
+    arrays in any of the layouts the training states hold: cells [nb, 512,
+    CP] or with the sentinel row [nb + 1, 512, CP] (a view of the first nb
+    rows), or a (density [nb(+1), 512], sh [nb(+1), 512, 3B]) pair of
+    masters (packed into new cells of their dtype)."""
+    if isinstance(kernel_arrays, (tuple, list)):
+        density, sh = (x[:n_bricks] for x in kernel_arrays)
+        B = sh.shape[-1] // 3
+        cells = sh.new_zeros((n_bricks, BRICK**3, channels(B)))
+        cells[..., 0] = density.reshape(n_bricks, BRICK**3)
+        cells[..., 1:1 + 3 * B] = sh
+        return cells
+    return kernel_arrays[:n_bricks]
+
+
+def fused_grad_blocks(
+    bg: BrickGrid,
+    rays: Rays,
+    rgb_gt: torch.Tensor,
+    opts: GridRenderOptions = GridRenderOptions(),
+    *,
+    beta_loss: float = 0.0,
+    sparsity_loss: float = 0.0,
+    n_chunks: Optional[int] = None,
+    use_occupancy: bool = False,
+    kernel_arrays=None,
+    grad_dtype=torch.float32,
+    compact_chunks: Optional[int] = None,
+    wps: int = 1,
+    skip_empty: bool = False,
+):
+    """Fused render + gradient with the bricks it wrote (counterpart of
+    ``fused_grad_blocks``): (rgb_out [T, r, 3], (grad_density [nb, 512],
+    grad_sh [nb, 512, 3B]) float32, touched int32 [nb + 1] (1 at each
+    brick K4 adds a gradient into; row nb, the training states' sentinel,
+    is 0), aux dict(acc, log_transmit, sparsity_sum, window_miss (0),
+    dropped_active_chunks (0))).
+
+    The TPU's version returns per-(tile, window, corner) gradient blocks
+    and their brick rows [T, C, 8], which the row-sparse steps reduce onto
+    the bricks they touch. K4 already sums each run of a corner's samples
+    on chip and adds it into brick arrays, so the port returns those
+    arrays and the flags; a step gathers its touched rows from them. Any
+    r rays a tile (the TPU's tiles hold 128 or 256).
+
+    ``kernel_arrays``: prebuilt cells or masters (``kernel_cells``), or
+    None to build bf16 cells from ``bg``. The TPU's schedule knobs
+    change no result when nothing overflows, so they are accepted and
+    ignored: ``grad_dtype`` (its gradient blocks' dtype; the port's
+    gradients are float32), ``compact_chunks`` (its chunk compaction),
+    ``wps`` (windows per grid step), ``skip_empty`` (its window skip; K3
+    and K4 always skip empty bricks, with the same bits) and the layout of
+    ``kernel_arrays``."""
+    del grad_dtype, compact_chunks, wps, skip_empty
+    cells = None if kernel_arrays is None else kernel_cells(kernel_arrays, bg.n_bricks)
+    rgb_out, (grad_density, grad_sh, touched), aux = _fused(
+        bg, rays, rgb_gt, opts, beta_loss=beta_loss, sparsity_loss=sparsity_loss, n_chunks=n_chunks,
+        use_occupancy=use_occupancy, kernel_arrays=cells, flag_touched=True)
+    return rgb_out, (grad_density, grad_sh), touched, aux

@@ -23,8 +23,9 @@ come from the step number on the host, and the TV windows from a
 ``torch.Generator`` that the caller passes, which should live on the
 grid's device.
 
-Not ported here: the learned-basis and background steps, and the
-packed, sparse and touched steps of ``plenoxels_sparse.py``.
+The packed, sparse and touched-row steps are in
+``train/plenoxels_sparse.py``, over the same trainer. Not ported: the
+learned-basis and background steps.
 """
 from __future__ import annotations
 
@@ -102,9 +103,9 @@ class PlenoxelsTrainer:
         device: Optional[Union[str, torch.device]] = None,
     ):
         """The JAX trainer's knobs with its defaults. The lumisphere TV
-        knobs are read by the cell route only; ``rms_pervisit`` belongs
-        to the touched-row steps, which are not ported, and is kept
-        unread. ``bf16_grad_blocks`` sets the TPU's
+        knobs are read by the cell route only; ``rms_pervisit`` by the
+        row-sparse steps (``train/plenoxels_sparse.py``), not by the dense
+        steps here. ``bf16_grad_blocks`` sets the TPU's
         gradient-block dtype, which the port's backward ignores (it adds
         float32 gradients straight into the brick arrays). ``device``:
         where the grids to train live (None: the card, raising without

@@ -3,6 +3,8 @@ chip_mutants.py mutant's original text occurs exactly once in its file, so
 a mutant cannot go stale when code moves, and the phases it must fail are
 ones chip_mutants.py runs; every chip_smoke.py function that a
 chip_paired.sh mode or a mutant phase calls exists."""
+import ast
+import inspect
 import re
 from pathlib import Path
 
@@ -57,3 +59,22 @@ def test_chip_probes_refuse_without_a_card(monkeypatch):
 
     monkeypatch.setattr(chip_probes.torch.cuda, "is_available", lambda: False)
     assert chip_probes.main() == 1
+
+
+def test_sparse_phase_is_callable_and_imports_only_the_port():
+    """The row-sparse steps' phase exists, a mutant must fail it, and it
+    (like the whole script) imports nothing of the JAX package."""
+    fn = chip_smoke.phase_train_plenoxels_sparse
+    assert callable(fn) and list(inspect.signature(fn).parameters) == ["dev", "card"]
+    assert any("train_plenoxels_sparse" in m[3] for m in chip_mutants.MUTANTS.values())
+    for node in ast.walk(ast.parse((ROOT / "chip_smoke.py").read_text())):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+        for name in names:
+            assert not name.startswith("jax") and (name == "nerf_projects_tpu_torch"
+                                                   or not name.startswith("nerf_projects_tpu")
+                                                   or name.startswith("nerf_projects_tpu_torch.")), name
+    src = inspect.getsource(fn)
+    for used in ("train_step_tiles_sparse", "train_step_tiles_packed_touched", "touched_bricks", "check_waits",
+                 "flag_touched=True", "train_plenoxels"):
+        assert used in src, used
