@@ -13,7 +13,9 @@ with K4 and run by both phases; K4's include its suffix term, its stop with
 sparsity on, a ray's last run of a corner slot dropped, a run's colour
 sums not reset when the slot's cell changes, its SH row's scalar tail
 dropped and its touched-brick flags never set (the row-sparse steps'
-phase, train_plenoxels_sparse); the wgmma core's (mlp_sm90.cuh: K1f, K1b, K1rf, K1rb, K2, K5f
+phase, train_plenoxels_sparse); the render CLI's fast route's top-K
+keeping the smallest weights (plain torch, ops/grid.py; the
+render_plenoxels_eval phase); the wgmma core's (mlp_sm90.cuh: K1f, K1b, K1rf, K1rb, K2, K5f
 and K5b) include the concat, the relu mask, the stage ring, the dW jobs
 (K1's and K5b's), the view encoder, the encoding stash, K1rb's, K1b's and
 K5b's forwards without their per-slab promotion, K1f handed the raw
@@ -210,6 +212,12 @@ MUTANTS = {
         "stash[slot(tile64, a_f8(MODE), fg, L.ra + 8 * h, L.t)] = kb < 4 ? 0u : r4[i];",
         ("kernel_raw", "fused_train_level", "fused_mlp_bwd", "kernel_sh"),
     ),
+    "the render CLI's fast route keeps the top-K smallest weights (ops/grid.py::_render_top_k)": (
+        "nerf_projects_tpu_torch/ops/grid.py",
+        "top_w, top_idx = torch.topk(weights, k, dim=-1)",
+        "top_w, top_idx = torch.topk(weights, k, dim=-1, largest=False)",
+        ("render_plenoxels_eval",),
+    ),
     "the transmittance's backward without its division by the factor": (
         "nerf_projects_tpu_torch/ops/render.py",
         "return torch.flip(torch.cumsum(torch.flip(g * c, (-1,)), dim=-1), (-1,)) / f",
@@ -234,7 +242,9 @@ phases = {"kernel": lambda: c.phase_kernel(dev, fine_rows=65536),
           "train_plenoxels_sparse": lambda: c.phase_train_plenoxels_sparse(dev, c.nvidia_smi()),
           "kernel_sh": lambda: c.phase_kernel_sh(dev),
           "kernel_raw": lambda: c.phase_kernel_raw(dev, serve_rows=65536, train_rows=65536),
-          "train_raw": lambda: c.phase_train_raw(dev, c.nvidia_smi())}
+          "train_raw": lambda: c.phase_train_raw(dev, c.nvidia_smi()),
+          "render_plenoxels_eval": lambda: c.phase_render_plenoxels_eval(dev, c.nvidia_smi()),
+          "train_plenoxels_bg": lambda: c.phase_train_plenoxels_bg(dev, c.nvidia_smi())}
 for name in sys.argv[1:]:
     fn = phases[name]
     try:

@@ -9,7 +9,8 @@ Run from the repository root, with no arguments:
 Phases, each of which raises (exit code 1) on failure:
 
   build   nvcc compiles the nine kernel libraries for sm_90a, one
-          process per source, all at once.
+          process per source, all at once; g++ the host op
+          (csrc/native_ops.cpp).
   kernel  each kernel against its plain PyTorch version on the card,
           then timed with CUDA events beside its bound and its plain
           version: the fused-MLP forward (K1f, on the wgmma core over the
@@ -126,6 +127,23 @@ Phases, each of which raises (exit code 1) on failure:
           with CUDA events, with and without early stop, beside the first
           port's per-sample march cut after its link reads, after its
           densities and whole (tile_march_fwd_probe).
+  render_plenoxels_eval
+          cli/render_imgs.py's per-ray routes (plain torch, no kernel) on
+          render_plenoxels' fog and shell 512^3 grids as SparseGrids
+          (to_sparse_grid) and frame 0's 800x800 camera: one frame through
+          render_grid_image with the CLI's fast keywords (occupancy at 256
+          active steps, top-48 colour, bf16 density cache), finite, acc in
+          [0, 1]; on a chunk of 16,384 rays (the CLI's default) the top-K
+          identity with a float32 cache against the same call without
+          color_top_k (equal acc; per ray and channel exact - fast in
+          [0, (acc - the top-48 weight) x the ray's largest colour]); the
+          frame with the bf16 cache against the float32 cache (the scene's
+          densities and the same jittered below bf16's resolution), under
+          stated gates; the exact route without occupancy on that chunk
+          (its peak memory, beside the first port's eight-corner trilerp);
+          ms a frame and peak memory of the fast route and of the exact
+          route with occupancy beside K3's frame route, and the share of
+          rays that the 256 active steps cut short.
   kernel_march_bwd
           the tile march's backward (K4) against its plain PyTorch
           version on the card (BWD_CASES): a random 32^3 grid whose rays
@@ -165,6 +183,23 @@ Phases, each of which raises (exit code 1) on failure:
           and K4 alone timed on the batch with CUDA events beside their
           bounds, K4 with its probe, zero fill and its visits and adds
           as in kernel_march_bwd.
+  train_plenoxels_sparse
+          the row-sparse steps (train/plenoxels_sparse.py) on the same
+          batches, against the dense step, then the training CLI (see
+          phase_train_plenoxels_sparse).
+  train_plenoxels_bg
+          the cell route's background and learned-basis steps (plain
+          torch, no kernel) on the fog 256^3 grid as a SparseGrid, 5,120
+          rays a step: train_step_bg with BackgroundMSI.create(), and
+          train_step_with_basis with a 3D texture (reso 16, basis 9) and
+          with the MLP (width 16); 10 steps of each (the loss falls), one
+          step of each under set_sync_debug_mode (no waits), one step of
+          each on 256 rays on the card and on the host from one state and
+          the same TV windows (gradients and updates held), device ms a
+          step and peak memory beside train_step; a ReferenceBackground
+          behind the grid on 4,096 rays against the host's render; the
+          full-grid TV loss over build_neighbor_links (the g++ host op,
+          held to its numpy version).
   kernel_sh
           the fused NeRF-SH trunk's forward (K5f, on the wgmma core)
           against its plain PyTorch version on 1, 100, 8192 + 1 and
@@ -312,6 +347,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     builds = _build.build_all(LIBRARIES)  # one nvcc per source, all at once
+    builds["native_ops (g++)"] = _build.build_host("native_ops")  # the host op of the full-grid TV loss
     for name, b in builds.items():
         log(f"build: {name} {b.seconds:.1f} s -> {b.path.name}")
         entry, injected = "", 0
@@ -1800,6 +1836,7 @@ def phase_render_plenoxels(dev, card: str) -> int:
         window = time.perf_counter() - t_window
         n_launch = tm.tile_march_fwd.launches
         launches[f"{name} frame"] = n_launch
+        FRAME_MS[name] = float(np.median(secs) * 1e3)
         mean_acc = float(first[0]["acc"].mean())
         log(f"render_plenoxels: {name} on {card}: {GRID_RESO}^3 basis {GRID_BASIS} step 0.5, {bg.n_bricks} active bricks, "
             f"cells {gb:.3f} GB, peak allocated {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB; "
@@ -1815,6 +1852,220 @@ def phase_render_plenoxels(dev, card: str) -> int:
         del cells, bg, first
         torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Plenoxels evaluation: the render CLI's per-ray routes (plain torch)
+# ---------------------------------------------------------------------------
+
+
+EVAL_CHUNK = 16384          # cli/render_imgs.py's --chunk default
+EVAL_TOP_K = 48             # its --color_top_k default
+EVAL_ACTIVE_STEPS = 256     # the steps the fast route marches inside a ray's occupied span
+TOPK_SLACK = 1e-5           # exact - fast per channel within [0, (acc - top-K weight) max colour], this slack
+TOPK_ACC_TOL = 1e-5         # acc of the fast route (float32 cache) against the route without top-K
+CACHE_MAX_TOL = 2e-2        # |rgb(bf16 cache) - rgb(float32 cache)|: the JAX package's bf16-against-float32 bound
+CACHE_MEAN_TOL = 2.0 ** -8  # mean of it: bf16 keeps 2^-9 of a density, times ~2 for the optical depth under the weights
+FRAME_MS = {}               # render_plenoxels: K3's frame route, ms a frame by scene
+
+
+def eval_scene(i: int):
+    """A one-view scene for cli/render_imgs.py's render_grid_image: the
+    camera of frame_tiles(i) (OpenCV pose, focal 800 px, 800x800)."""
+    import types
+
+    pose = np.eye(4, dtype=np.float32)
+    ang = 0.15 * i
+    pose[0, 3] = 2.4 * np.sin(ang)
+    pose[2, 3] = -2.4 * np.cos(ang)
+    K = np.array([[FRAME, 0.0, FRAME / 2.0], [0.0, FRAME, FRAME / 2.0], [0.0, 0.0, 1.0]], np.float32)
+    return types.SimpleNamespace(height=FRAME, width=FRAME, intrinsics=K, poses=[pose], meta={"convention": "opencv"})
+
+
+def scene_sparse_grid(dev, shell: bool):
+    """scene_grid's 512^3 fog or shell as a SparseGrid on the card
+    (float32 values of its bf16 cells), through to_sparse_grid."""
+    from nerf_projects_tpu_torch.ops.brick_grid import to_sparse_grid
+
+    bg, cells = scene_grid(dev, shell)
+    B = bg.basis_dim
+    bg = dataclasses.replace(bg, density_bricks=cells[..., 0].float(), sh_bricks=cells[..., 1:1 + 3 * B].float())
+    del cells
+    grid = to_sparse_grid(bg)
+    del bg
+    torch.cuda.empty_cache()
+    return grid
+
+
+def trilerp_eight_corners(grid, data, gpts):
+    """The port's first trilerp (ops/grid.py), which gathered the eight
+    corners' rows at once, [..., 8, C]; kept to measure the memory that
+    form needs."""
+    X, Y, Z = grid.reso
+    reso = torch.tensor(grid.reso, device=gpts.device)
+    l = torch.minimum(torch.clamp(torch.floor(gpts).to(torch.int32), min=0), reso - 2)
+    w = torch.clamp(gpts - l.to(gpts.dtype), 0.0, 1.0)
+    wx, wy, wz = w[..., 0:1], w[..., 1:2], w[..., 2:3]
+    base = (l[..., 0].long() * Y + l[..., 1].long()) * Z + l[..., 2].long()
+    offs = torch.tensor([0, 1, Z, Z + 1, Y * Z, Y * Z + 1, Y * Z + Z, Y * Z + Z + 1], device=gpts.device)
+    links8 = grid.links.reshape(-1)[base[..., None] + offs]
+    vals = torch.where((links8 >= 0)[..., None], data[torch.clamp(links8, min=0).long()], 0.0)
+    cw = torch.stack([(1 - wx) * (1 - wy) * (1 - wz), (1 - wx) * (1 - wy) * wz, (1 - wx) * wy * (1 - wz),
+                      (1 - wx) * wy * wz, wx * (1 - wy) * (1 - wz), wx * (1 - wy) * wz, wx * wy * (1 - wz),
+                      wx * wy * wz], dim=-2)
+    return torch.sum(vals * cw, dim=-2)
+
+
+def wall_ms(fn, n: int = 2) -> tuple:
+    """(ms a call on the host clock, each call synchronised, after a warm
+    call; peak allocated GB over the timed calls)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3, torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_render_plenoxels_eval(dev, card: str) -> None:
+    """cli/render_imgs.py's per-ray routes on render_plenoxels' 512^3 fog
+    and shell grids (as SparseGrids) and frame 0's 800x800 camera: (a) one
+    frame through render_grid_image with the CLI's fast keywords
+    (occupancy, top-48 colour, bf16 density cache): finite, acc in [0, 1];
+    (b) on one chunk of 16,384 rays, the fast route with a float32 cache
+    against the same call without color_top_k: equal acc, and per ray and
+    channel exact - fast in [0, (acc - sum of the top-K weights) x the
+    ray's largest sample colour]; (c) the frame with the bf16 cache
+    against the float32 cache; (d) the exact route without occupancy on
+    that chunk: its peak memory, beside the eight-corner trilerp's; (e)
+    ms a frame and peak memory of the fast route and of the exact route
+    with occupancy, beside K3's frame route, and the share of rays that
+    the 256 active steps cut short. Plain torch: no kernel."""
+    from nerf_projects_tpu_torch.cli.render_imgs import _view_rays, render_grid_image
+    from nerf_projects_tpu_torch.ops import grid as og
+    from nerf_projects_tpu_torch.ops.grid_accel import active_t_range, build_occupancy
+    from nerf_projects_tpu_torch.ops.sh import eval_sh_bases
+
+    opts = og.GridRenderOptions(step_size=0.5)
+    scene = eval_scene(0)
+    for name, shell in (("fog", False), ("shell", True)):
+        tag = f"render_plenoxels_eval: {name} {GRID_RESO}^3"
+        t_build = time.perf_counter()
+        grid = scene_sparse_grid(dev, shell)
+        occ = build_occupancy(grid, factor=8, sigma_thresh=opts.sigma_thresh)
+        cache16, cache32 = og.make_render_cache(grid, torch.bfloat16), og.make_render_cache(grid, torch.float32)
+        torch.cuda.synchronize()
+        log(f"{tag}: SparseGrid of {grid.capacity} cells, occupancy and caches built in "
+            f"{time.perf_counter() - t_build:.3f} s; grid {grid.sh_data.numel() * 4 / 1e9:.3f} GB of SH")
+        fast = dict(occupancy=occ, color_top_k=EVAL_TOP_K, dense_density=cache16)
+
+        # (a) and (e): the fast route's frame
+        out = {}
+        fast_ms, fast_gb = wall_ms(lambda: out.__setitem__("img", render_grid_image(grid, scene, 0, opts, EVAL_CHUNK,
+                                                                                    **fast)))
+        img16 = out["img"]
+        if tuple(img16.shape) != (FRAME, FRAME, 3) or not bool(torch.isfinite(img16).all()):
+            raise AssertionError(f"{tag}: (a) the fast route's frame is not finite of shape ({FRAME}, {FRAME}, 3)")
+
+        # (b) the top-K identity on the centre chunk
+        flat = _view_rays(scene, 0, FRAME, FRAME, dev).map(lambda x: x.reshape(-1, 3))
+        c0 = FRAME * FRAME // 2 - EVAL_CHUNK // 2
+        rays = flat.map(lambda x: x[c0:c0 + EVAL_CHUNK])
+        kw = dict(occupancy=occ, active_steps=EVAL_ACTIVE_STEPS)
+        with torch.no_grad():
+            got = og.volume_render_grid(grid, rays, opts, color_top_k=EVAL_TOP_K, dense_density=cache32, **kw)
+            ref = og.volume_render_grid(grid, rays, opts, **kw)
+            _, _, _, _, _, _, gpts = og._march(grid, rays, opts, occ, EVAL_ACTIVE_STEPS)
+            coeffs = og.trilerp(grid, grid.sh_data, gpts).reshape(gpts.shape[:-1] + (3, grid.basis_dim))
+            colour = og.decode_rgb(coeffs, eval_sh_bases(grid.basis_dim, rays.viewdirs)[:, None, :], opts.color_mode)
+            max_c = torch.where((ref["weights"] > 0)[..., None], colour, 0.0).amax(dim=1)  # [R, 3]
+            del gpts, coeffs, colour
+        acc = got["acc"]
+        if not (float(acc.min()) >= -1e-6 and float(acc.max()) <= 1 + 1e-5):
+            raise AssertionError(f"{tag}: (a) acc outside [0, 1]")
+        top_w = torch.topk(ref["weights"], EVAL_TOP_K, dim=-1).values.sum(-1)
+        dropped = torch.clamp(ref["acc"] - top_w, min=0.0)
+        diff = ref["rgb"] - got["rgb"]
+        upper = dropped[:, None] * max_c
+        below = int((diff < -TOPK_SLACK).any(-1).sum())
+        above = int((diff > upper + TOPK_SLACK).any(-1).sum())
+        d_acc = float((got["acc"] - ref["acc"]).abs().max())
+        log(f"{tag}: (b) top-{EVAL_TOP_K} on {EVAL_CHUNK} rays (float32 cache) against the same call without "
+            f"color_top_k: max |acc err| {d_acc:.3e} (tolerance {TOPK_ACC_TOL}); exact - fast per channel in "
+            f"[{float(diff.min()):.3e}, {float(diff.max()):.3e}], the dropped weight (acc - top-K weight) mean "
+            f"{float(dropped.mean()):.4e}, max {float(dropped.max()):.4e}; rays below 0: {below}, above "
+            f"(acc - top-K weight) x max colour: {above} (slack {TOPK_SLACK})")
+        if below or above or not d_acc <= TOPK_ACC_TOL:
+            raise AssertionError(f"{tag}: (b) the top-K route breaks its identity with the full route")
+        del got, ref, max_c, top_w, dropped, diff, upper
+
+        # (c) the bf16 cache against the float32 cache, whole frame: on the
+        # scene's densities (bf16 values, which the bf16 cache holds exactly)
+        # and on them jittered below bf16's resolution, which it rounds
+        gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+        jitter = 1.0 + torch.rand(grid.density_data.shape, generator=gen, device=dev) * 2.0 ** -8
+        jittered = dataclasses.replace(grid, density_data=grid.density_data * jitter)
+        del jitter
+        for label, g_, c16, c32 in (("the scene's densities", grid, cache16, cache32),
+                                    ("densities x (1 + 2^-8 U[0, 1))", jittered, None, None)):
+            c16 = og.make_render_cache(g_, torch.bfloat16) if c16 is None else c16
+            c32 = og.make_render_cache(g_, torch.float32) if c32 is None else c32
+            a, b = (render_grid_image(g_, scene, 0, opts, EVAL_CHUNK, occupancy=occ, color_top_k=EVAL_TOP_K,
+                                      dense_density=c) for c in (c16, c32))
+            d = (a - b).abs()
+            log(f"{tag}: (c) bf16 against float32 density cache over the frame, {label}: max |rgb err| "
+                f"{float(d.max()):.4e} (gate {CACHE_MAX_TOL}), mean {float(d.mean()):.4e} (gate {CACHE_MEAN_TOL:.4e}); "
+                f"cells whose density bf16 changes {float((c16.float() != c32).float().mean()):.4f}")
+            if not (float(d.max()) <= CACHE_MAX_TOL and float(d.mean()) <= CACHE_MEAN_TOL):
+                raise AssertionError(f"{tag}: (c) the bf16 cache strays from the float32 cache")
+            del a, b, d, c16, c32
+        del jittered, cache32
+
+        # (d) the exact route without occupancy on one chunk at the CLI's default
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated() / 1e9
+        exact_ms, exact_gb = wall_ms(lambda: og.volume_render_grid(grid, rays, opts), n=1)
+        S = og.default_max_steps(grid, opts.step_size)
+        before, real_trilerp = "not run", og.trilerp
+        try:
+            og.trilerp = trilerp_eight_corners  # the same route through the first port's trilerp
+            torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                og.volume_render_grid(grid, rays, opts)
+            torch.cuda.synchronize()
+            before = f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB"
+        except torch.cuda.OutOfMemoryError as e:
+            before = f"out of memory ({str(e).splitlines()[0][:160]})"
+        finally:
+            og.trilerp = real_trilerp
+            torch.cuda.empty_cache()
+        log(f"{tag}: (d) the exact route without occupancy on {EVAL_CHUNK} rays x {S} steps: {exact_ms:.4f} ms, "
+            f"peak allocated {exact_gb:.3f} GB ({exact_gb - base:.3f} GB over the {base:.3f} GB held before the "
+            f"call), on {card}; through the first port's eight-corner trilerp: peak {before}")
+
+        # (e) the exact route with occupancy, the share cut by the active steps
+        occ_ms, occ_gb = wall_ms(lambda: render_grid_image(grid, scene, 0, opts, EVAL_CHUNK, occupancy=occ))
+        cut = hit = 0
+        with torch.no_grad():
+            for i in range(0, flat.origins.shape[0], 4 * EVAL_CHUNK):
+                r = flat.map(lambda x: x[i:i + 4 * EVAL_CHUNK])
+                og_ = grid.world_to_grid(r.origins)
+                dirs_g, _, dt, _, t0, t1 = og.ray_grid_geometry(grid.reso, grid.radius, og_, r.directions, opts)
+                t0, t1 = active_t_range(occ, og_, dirs_g, t0, t1)
+                h = t1 > t0
+                hit += int(h.sum())
+                cut += int((h & ((t1 - t0) / dt > EVAL_ACTIVE_STEPS)).sum())
+        k3 = FRAME_MS.get(name)
+        log(f"{tag}: (e) on {card}: fast route (occupancy, top-{EVAL_TOP_K}, bf16 cache) {fast_ms:.4f} ms a frame, "
+            f"peak allocated {fast_gb:.3f} GB; exact route with occupancy {occ_ms:.4f} ms a frame, peak "
+            f"{occ_gb:.3f} GB; K3's frame route (render_plenoxels) "
+            + (f"{k3:.4f} ms a frame" if k3 is not None else "not run") +
+            f"; {EVAL_ACTIVE_STEPS} active steps cut {cut} of the {hit} rays that reach occupied space "
+            f"({cut / max(hit, 1):.4f}; {cut / (FRAME * FRAME):.4f} of the frame)")
+        del grid, occ, cache16, img16, flat, rays, out
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2290,8 +2541,8 @@ def hold_states(tag, pairs, mses, want_mses) -> None:
         raise AssertionError(f"{tag}: the row-sparse step disagrees with its reference step")
 
 
-def timed_steps(tag, card, run_step, n_rays: int, route: str):
-    """A warm step, then SPARSE_TIMED steps with a CUDA event after each
+def timed_steps(tag, card, run_step, n_rays: int, route: str, n_steps: int = SPARSE_TIMED):
+    """A warm step, then n_steps steps with a CUDA event after each
     (rays/s on the host clock, device ms a step), then a 3-step profile
     (the idle share and the kernels). Returns the median device ms."""
     run_step(0)
@@ -2299,7 +2550,7 @@ def timed_steps(tag, card, run_step, n_rays: int, route: str):
     events = [torch.cuda.Event(enable_timing=True)]
     t0 = time.perf_counter()
     events[0].record()
-    for i in range(SPARSE_TIMED):
+    for i in range(n_steps):
         run_step(1 + i)
         events.append(torch.cuda.Event(enable_timing=True))
         events[-1].record()
@@ -2307,13 +2558,13 @@ def timed_steps(tag, card, run_step, n_rays: int, route: str):
     wall = time.perf_counter() - t0
     step_ms = [a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])]
     med = float(np.median(step_ms))
-    log(f"{tag} on {card}: {SPARSE_TIMED} steps of {n_rays} rays in {wall:.6f} s: "
-        f"{SPARSE_TIMED * n_rays / wall:.1f} rays/s; device ms a step median {med:.4f}, min {min(step_ms):.4f}, "
+    log(f"{tag} on {card}: {n_steps} steps of {n_rays} rays in {wall:.6f} s: "
+        f"{n_steps * n_rays / wall:.1f} rays/s; device ms a step median {med:.4f}, min {min(step_ms):.4f}, "
         f"max {max(step_ms):.4f} (CUDA events)")
 
     def run_steps(n):
         for i in range(n):
-            run_step(1 + SPARSE_TIMED + i)
+            run_step(1 + n_steps + i)
 
     profile_steps(run_steps, route, n=3, top=12)
     return med
@@ -2538,6 +2789,260 @@ def phase_train_plenoxels_sparse(dev, card: str) -> dict:
     if any(v <= 0 for v in counts.values()):
         raise AssertionError(f"train_plenoxels_sparse: the CLI launched no {counts} kernel")
     return launches, counts, wall
+
+
+BG_STEPS = 10               # steps of each step function in (a)
+BG_TIMED = 10               # timed steps of each in (d), a CUDA event after each
+BG_CHECK_RAYS = 256         # rays of the card-against-host step
+BG_RENDER_RAYS = 4096       # rays of the reference background's render
+BG_GRAD_TOL = 1e-4          # of scale: float32 autograd on both, the card's scatter-adds in another order
+UPDATE_TOL = 1e-3           # |update err| in learning rates, where the gradient is clear of noise (held_update)
+
+
+def grid_to(grid, dev):
+    return dataclasses.replace(grid, links=grid.links.to(dev), density_data=grid.density_data.to(dev),
+                               sh_data=grid.sh_data.to(dev))
+
+
+def held_update(tag, got, want, g, lr: float, plain_rmsprop: bool) -> tuple:
+    """A tensor updated by the card's step against the host's (both from
+    one state, so their difference is that of the updates): within
+    UPDATE_TOL of the step's learning rate where |g| > 1e-3 max |g| and
+    sqrt(rms) > 100 eps after this first step (rms = g^2 with the
+    masters' bootstrap, (1 - b) g^2 without it). There the step lr g /
+    (sqrt(rms) + eps) moves by at most lr x 0.01 x |dg| / |g| for a
+    gradient error dg. Returns (error in learning rates, entries held)."""
+    g, got, want = g.detach().cpu(), got.detach().cpu(), want.detach().cpu()
+    keep = (g.abs() > 1e-3 * g.abs().max()) & ((np.sqrt(0.05) if plain_rmsprop else 1.0) * g.abs() > 100 * 1e-8)
+    n = int(keep.sum())
+    err = float((got[keep] - want[keep]).abs().max()) / lr if n else 0.0
+    if not err < UPDATE_TOL:
+        raise AssertionError(f"{tag}: the card's update strays {err:.3e} learning rates from the host's ({n} entries)")
+    return err, n
+
+
+def held_grad(tag, got, want) -> float:
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    err = float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+    if not (err < BG_GRAD_TOL and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{tag}: the card's gradient strays {err:.3e} of scale from the host's")
+    return err
+
+
+def phase_train_plenoxels_bg(dev, card: str) -> None:
+    """The cell route's background and learned-basis steps
+    (train/plenoxels_trainer.py) on the fog 256^3 grid of TRAIN_SCENES as a
+    SparseGrid, 5,120 rays a step (40 tiles of 8x16), target 0.4:
+    train_step_bg with BackgroundMSI.create() (16 layers, reso 128) and
+    train_step_with_basis with a 3D texture (reso 16, basis 9,
+    reinit_learned_basis "sh") and with the MLP (width 16). (a) BG_STEPS
+    steps of each: the loss falls and stays finite; (b) one step of each
+    under set_sync_debug_mode: no waits; (c) one step of each on 256 rays
+    on the card and on the host from the same state with the same TV
+    windows: gradients within BG_GRAD_TOL of scale, updates within
+    UPDATE_TOL learning rates where |g| is clear of noise (held_update;
+    the masters' on the background route, whose whole-grid host passes
+    every route shares); (d) device ms a step
+    (CUDA events) and peak memory of each beside train_step (the cell
+    route), then a ReferenceBackground composited behind the grid on
+    4,096 rays against the host's render (each against the same render
+    in float64: the card within NOISE_FACTOR x the host's distance), and
+    the full-grid TV loss over
+    build_neighbor_links (the g++ host op, against its numpy version).
+    Plain torch but the host op: no kernel."""
+    from nerf_projects_tpu_torch.ops import basis as ob
+    from nerf_projects_tpu_torch.ops.background import BackgroundMSI, ReferenceBackground
+    from nerf_projects_tpu_torch.ops.brick_grid import to_sparse_grid
+    from nerf_projects_tpu_torch.ops.grid import GridRenderOptions, volume_render_grid
+    from nerf_projects_tpu_torch.train import PlenoxelsTrainer
+    from nerf_projects_tpu_torch.train import plenoxels_trainer as pt
+
+    reso, n_tiles = TRAIN_SCENES["fog"]
+    tag = f"train_plenoxels_bg: fog {reso}^3"
+    grid = to_sparse_grid(train_grid(dev, "fog"))
+    rays = train_tile_rays(SEED + 2, n_tiles, dev).map(lambda x: x.reshape(-1, 3))
+    n_rays = rays.origins.shape[0]
+    target = torch.full((n_rays, 3), TRAIN_TARGET, device=dev)
+    kw_trainer = dict(n_iters=128_000, lambda_tv=1e-5, lambda_tv_sh=1e-3)
+    trainer = PlenoxelsTrainer(GridRenderOptions(step_size=0.5), device=dev, **kw_trainer)
+    host_trainer = PlenoxelsTrainer(GridRenderOptions(step_size=0.5), device="cpu", **kw_trainer)
+    msi = BackgroundMSI.create(device=dev)
+    texture = ob.reinit_learned_basis(ob.init_basis_3d(16, grid.basis_dim, device=dev), init_type="sh")
+    mlp = ob.init_basis_mlp(torch.Generator(device=dev).manual_seed(SEED + 30), grid.basis_dim, mlp_width=16)
+    zeros = lambda p: {k: torch.zeros_like(v) for k, v in p.items()} if isinstance(p, dict) else torch.zeros_like(p)
+    log(f"{tag}: SparseGrid of {grid.capacity} cells; {n_rays} rays a step; MSI {tuple(msi.data.shape)}, texture "
+        f"{tuple(texture.shape)}, MLP {sum(v.numel() for v in mlp.values())} parameters")
+
+    def gen(i):
+        return torch.Generator(device=dev).manual_seed(SEED + 40 + i)
+
+    def bg_step(state, i):
+        g, m, rms, rb = state
+        g, m, rms, rb, st = trainer.train_step_bg(g, m, rms, rb, rays, target, i, gen(i))
+        return (g, m, rms, rb), st
+
+    def basis_step(basis_type):
+        def step(state, i):
+            g, rms, b, rb = state
+            g, rms, b, rb, st = trainer.train_step_with_basis(g, rms, b, rb, rays, target, i, gen(i),
+                                                              basis_type=basis_type)
+            return (g, rms, b, rb), st
+        return step
+
+    def cell_step(state, i):
+        g, rms = state
+        g, rms, st = trainer.train_step(g, rms, rays, target, i, gen(i))
+        return (g, rms), st
+
+    routes = {
+        "train_step_bg": (bg_step, lambda: (grid, msi, trainer.init_rms(grid), torch.zeros_like(msi.data))),
+        "train_step_with_basis, 3D texture": (basis_step(ob.BASIS_TYPE_3D_TEXTURE),
+                                              lambda: (grid, trainer.init_rms(grid), texture, zeros(texture))),
+        "train_step_with_basis, MLP": (basis_step(ob.BASIS_TYPE_MLP),
+                                       lambda: (grid, trainer.init_rms(grid), mlp, zeros(mlp))),
+        "train_step (the cell route)": (cell_step, lambda: (grid, trainer.init_rms(grid))),
+    }
+    times = {}
+    for route, (step, init) in routes.items():
+        # (a) training
+        state, mses = init(), []
+        for i in range(BG_STEPS):
+            state, st = step(state, i)
+            mses.append(float(st["mse"]))
+        log(f"{tag}: (a) {route}: mse over {BG_STEPS} steps " + " ".join(f"{m:.6f}" for m in mses))
+        if not (np.isfinite(mses).all() and np.mean(mses[-3:]) < np.mean(mses[:3])):
+            raise AssertionError(f"{tag}: (a) {route}: the loss did not fall or went non-finite")
+        # (b) no waits
+        check_waits(f"{tag}: (b) one {route} step", lambda: step(state, BG_STEPS), most=0)
+        # (d) timings
+        holder = [state]
+
+        def run_step(i, holder=holder, step=step):
+            holder[0] = step(holder[0], BG_STEPS + 1 + i)[0]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times[route] = timed_steps(f"{tag}: (d) {route}", card, run_step, n_rays, f"Plenoxels {route}, fog {reso}^3",
+                                   n_steps=BG_TIMED)
+        log(f"{tag}: (d) {route}: peak allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB on {card}")
+        del state, holder
+        torch.cuda.empty_cache()
+    log(f"{tag}: device ms a step, median: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+
+    # (c) one step on 256 rays, card against host, the same TV windows
+    sub, sub_t = rays.map(lambda x: x[:BG_CHECK_RAYS]), target[:BG_CHECK_RAYS]
+    host_sub, host_t = sub.map(lambda x: x.cpu()), sub_t.cpu()
+    gs = reso ** 3
+    windows = [pt.sample_window(gen(99), gs, max(int(f * gs), 1))
+               for f in (trainer.tv_sparsity, trainer.tv_sh_sparsity)]
+    host_grid = grid_to(grid, "cpu")
+    to_host = lambda p: {k: v.cpu() for k, v in p.items()} if isinstance(p, dict) else p.cpu()
+    own = {"train_step_bg": (msi.data, to_host(msi.data)), "3D texture": (texture, to_host(texture)),
+           "MLP": (mlp, to_host(mlp))}
+    basis_types = {"3D texture": ob.BASIS_TYPE_3D_TEXTURE, "MLP": ob.BASIS_TYPE_MLP}
+    real_window = pt.sample_window
+    try:
+        def fed(fn):
+            drawn = iter(windows)
+            pt.sample_window = lambda generator, n, w: next(drawn)
+            return fn()
+
+        for route, (p_card, p_host) in own.items():
+            kw = {} if route == "train_step_bg" else dict(basis_type=basis_types[route])
+            lr_own = trainer.lr_sh_fn(0) * 0.1 / 1e-2 if route == "train_step_bg" else 1e-6  # the steps' defaults
+            # the card: the step itself, and its gradients (their noise sets the entries held)
+            if route == "train_step_bg":
+                m = BackgroundMSI(p_card, msi.radii)
+                cg = fed(lambda: trainer.bg_grads(grid, m, sub, sub_t, torch.Generator()))
+                new = fed(lambda: trainer.train_step_bg(grid, m, trainer.init_rms(grid), torch.zeros_like(p_card), sub,
+                                                        sub_t, 0, torch.Generator()))
+                c_new = (new[0].density_data, new[0].sh_data, new[1].data)
+                hg = fed(lambda: host_trainer.bg_grads(host_grid, BackgroundMSI(p_host, msi.radii), host_sub, host_t,
+                                                       torch.Generator()))
+            else:
+                cg = fed(lambda: trainer.basis_grads(grid, p_card, sub, sub_t, torch.Generator(), **kw))
+                new = fed(lambda: trainer.train_step_with_basis(grid, trainer.init_rms(grid), p_card, zeros(p_card), sub,
+                                                                sub_t, 0, torch.Generator(), **kw))
+                c_new = (new[0].density_data, new[0].sh_data, new[2])
+                hg = fed(lambda: host_trainer.basis_grads(host_grid, p_host, host_sub, host_t, torch.Generator(), **kw))
+            # the host: the same step composed from its gradients (one autograd pass on the host, not two); the
+            # masters' update (the same _cell_apply on every route, whole-grid passes on the host) on the first route
+            h_own = ({k: host_trainer._rmsprop_plain(p_host[k], hg[2][k], torch.zeros_like(hg[2][k]), lr_own)[0]
+                      for k in p_host} if isinstance(p_host, dict)
+                     else host_trainer._rmsprop_plain(p_host, hg[2], torch.zeros_like(hg[2]), lr_own)[0])
+            upd = []
+            if route == "train_step_bg":
+                h_grid, _ = host_trainer._cell_apply(host_grid, host_trainer.init_rms(host_grid), hg[0], hg[1], 0)
+                upd = [held_update(f"{tag}: (c) {route} density", c_new[0], h_grid.density_data, cg[0],
+                                   trainer.lr_sigma_fn(0), False),
+                       held_update(f"{tag}: (c) {route} sh", c_new[1], h_grid.sh_data, cg[1], trainer.lr_sh_fn(0), False)]
+                del h_grid
+            flat = lambda x: [x[k] for k in sorted(x)] if isinstance(x, dict) else [x]
+            errs = [held_grad(f"{tag}: (c) {route} gradient {i}", a, b)
+                    for i, (a, b) in enumerate(zip([cg[0], cg[1], *flat(cg[2])], [hg[0], hg[1], *flat(hg[2])]))]
+            loss_err = abs(float(cg[3]) - float(hg[3])) / abs(float(hg[3]))
+            upd += [held_update(f"{tag}: (c) {route} own parameters", a, b, g_, lr_own, True)
+                    for a, b, g_ in zip(flat(c_new[2]), flat(h_own), flat(cg[2]))]
+            if sum(n for _, n in upd) == 0:
+                raise AssertionError(f"{tag}: (c) {route}: no updated entry's gradient is clear of noise")
+            log(f"{tag}: (c) {route}, one step on {BG_CHECK_RAYS} rays, card against host (the same state and TV "
+                f"windows): gradients within {max(errs):.3e} of scale (tolerance {BG_GRAD_TOL}), loss {loss_err:.3e} "
+                f"relative; the updates of {'the masters and ' if route == 'train_step_bg' else ''}its own "
+                f"parameters within {max(e for e, _ in upd):.3e} "
+                f"learning rates where |g| is clear of noise (tolerance {UPDATE_TOL}; entries held: "
+                + ", ".join(str(n) for _, n in upd) + ")")
+            if not loss_err < BG_GRAD_TOL:
+                raise AssertionError(f"{tag}: (c) {route}: the card's loss strays from the host's")
+    finally:
+        pt.sample_window = real_window
+
+    # (d) a ReferenceBackground behind the grid, card against host
+    g_ref = torch.Generator(device=dev).manual_seed(SEED + 31)
+    ref_reso, ref_layers = 64, 16
+    links = torch.randperm(2 * ref_reso * ref_reso, generator=g_ref, device=dev).reshape(2 * ref_reso, ref_reso)
+    links = torch.where(torch.rand(links.shape, generator=g_ref, device=dev) < 0.2, -1, links).to(torch.int32)
+    data = torch.randn((2 * ref_reso * ref_reso, ref_layers, 4), generator=g_ref, device=dev)
+    data[..., 3] = torch.rand(data.shape[:-1], generator=g_ref, device=dev) * 3.0
+    ref_bg = ReferenceBackground(data, links)
+    r4 = rays.map(lambda x: x[:BG_RENDER_RAYS])
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_rgb = volume_render_grid(grid, r4, trainer.opts, background=ref_bg)["rgb"]
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        host_rgb = volume_render_grid(host_grid, r4.map(lambda x: x.cpu()), trainer.opts,
+                                      background=ReferenceBackground(data.cpu(), links.cpu()))["rgb"]
+        g64 = dataclasses.replace(grid, density_data=grid.density_data.double(), sh_data=grid.sh_data.double())
+        exact = volume_render_grid(g64, r4.map(lambda x: x.double()), trainer.opts,
+                                   background=ReferenceBackground(data.double(), links))["rgb"].cpu()
+        del g64
+    err = float((card_rgb.cpu() - host_rgb).abs().max())
+    card_64, host_64 = (float((x.cpu().double() - exact).abs().max()) for x in (card_rgb, host_rgb))
+    solid = volume_render_grid(grid, r4, trainer.opts)["rgb"]
+    moved = float((card_rgb - solid).abs().max())
+    log(f"{tag}: (d) a ReferenceBackground ({ref_layers} layers, reso {ref_reso}, 20% of texels pruned) "
+        f"behind the grid on {BG_RENDER_RAYS} rays: card {card_ms:.3f} ms; max |rgb err| against the host's render "
+        f"{err:.3e}; against float64 sums (the same render in float64 on the card) the card {card_64:.3e}, the host "
+        f"{host_64:.3e} (the card within {NOISE_FACTOR}x the host's + 1e-6); it moves the rgb by up to {moved:.4f} "
+        f"from the solid background")
+    if not (card_64 <= NOISE_FACTOR * host_64 + 1e-6 and moved > 1e-3 and bool(torch.isfinite(card_rgb).all())):
+        raise AssertionError(f"{tag}: (d) the reference background's render on the card disagrees with the host's")
+
+    # the full-grid TV loss over the host op
+    t0 = time.perf_counter()
+    nbr = pt.build_neighbor_links(grid.links)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = pt.neighbor_links_reference(grid.links)
+    plain_s = time.perf_counter() - t0
+    if not np.array_equal(nbr, plain):
+        raise AssertionError(f"{tag}: build_neighbor_links (g++) disagrees with its numpy version")
+    tv_d, tv_s = (float(pt.tv_loss(x, nbr)) for x in (grid.density_data, grid.sh_data))
+    log(f"{tag}: build_neighbor_links over {reso}^3 links: the g++ host op {native_s:.3f} s, equal to its numpy "
+        f"version ({plain_s:.3f} s); full-grid TV loss: density {tv_d:.6f}, SH {tv_s:.6f}")
+    del grid, host_grid, nbr, plain
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2996,9 +3501,11 @@ def main() -> int:
     raw_bwd["launches"] = raw_counts["fused_mlp_raw_bwd"]
     march = phase_kernel_march(dev)
     frame_launches = phase_render_plenoxels(dev, card)
+    phase_render_plenoxels_eval(dev, card)
     march_bwd = phase_kernel_march_bwd(dev)
     train_launches = phase_train_plenoxels(dev, card)
     sparse_launches, cli_launches, _ = phase_train_plenoxels_sparse(dev, card)
+    phase_train_plenoxels_bg(dev, card)
     for k, shapes in sparse_launches.items():
         for shape, n in shapes.items():
             train_launches[k][shape] = train_launches[k].get(shape, 0) + n

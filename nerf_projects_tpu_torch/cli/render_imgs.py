@@ -2,10 +2,13 @@
 ``nerf_projects_tpu/cli/render_imgs.py``; reference svox2/opt/render_imgs.py).
 
 Routes:
-  * default: the exact per-ray render (``ops/grid.py::volume_render_grid``)
-    in chunks of rays. ``--exact`` names it; the JAX package's default
-    fast path (occupancy + top-K colour + dense density cache) is not
-    ported;
+  * default: the fast per-ray render, as the JAX package's default, in
+    chunks of rays: each ray's march shrunk to its occupied span
+    (``build_occupancy``, at most 256 steps there), densities read from a
+    bf16 dense cache (``make_render_cache``) and colour fetched only at
+    the ``--color_top_k`` samples of largest weight (48);
+  * ``--exact``: the exact per-ray render (``ops/grid.py::volume_render_grid``)
+    of every sample, in chunks of rays;
   * ``--tiles``: 8x16-ray tiles through the march kernel
     (``ops/kernels/tile_march.py``);
   * ``--frame``: the whole frame in one march launch with per-ray early
@@ -57,18 +60,20 @@ def _view_rays(scene, view, height, width, device):
 
 
 def render_grid_image(grid: SparseGrid, scene, view: int, opts: GridRenderOptions, chunk: int = 16384,
-                      *, occupancy=None) -> torch.Tensor:
-    """The exact render of one view, in chunks of ``chunk`` rays, on the
-    grid's device -> [H, W, 3]. ``occupancy`` (``build_occupancy``)
-    shrinks each ray to its occupied span, at most 256 steps there, as
-    the JAX route does."""
+                      *, occupancy=None, color_top_k=None, dense_density=None) -> torch.Tensor:
+    """The per-ray render of one view, in chunks of ``chunk`` rays, on the
+    grid's device -> [H, W, 3]: exact with no keyword; ``occupancy``
+    (``build_occupancy``) shrinks each ray to its occupied span, at most
+    256 steps there, ``color_top_k`` and ``dense_density`` as
+    ``volume_render_grid`` takes them (the JAX route's keywords)."""
     rays = _view_rays(scene, view, scene.height, scene.width, grid.device)
     flat = rays.map(lambda x: x.reshape(-1, 3))
     n = flat.origins.shape[0]
     outs = []
     for i in range(0, n, chunk):
         out = volume_render_grid(grid, flat.map(lambda x: x[i:i + chunk]), opts, occupancy=occupancy,
-                                 active_steps=256 if occupancy is not None else None)
+                                 active_steps=256 if occupancy is not None else None, color_top_k=color_top_k,
+                                 dense_density=dense_density)
         outs.append(out["rgb"])
     return torch.cat(outs).reshape(scene.height, scene.width, 3)
 
@@ -118,7 +123,11 @@ def main(argv=None):
                    help="whole-frame renderer: one march launch, per-ray early stop")
     p.add_argument("--tiles", action="store_true", help="render through the tile march kernel")
     p.add_argument("--exact", action="store_true",
-                   help="the exact per-ray render (the default route of the port)")
+                   help="the exact per-ray render: no occupancy interval, top-K colour or dense density cache")
+    p.add_argument("--color_top_k", type=int, default=48)
+    p.add_argument("--no_fallback", action="store_true",
+                   help="accepted for the JAX CLI's sake: the TPU's tile route re-renders the rays its "
+                        "windows miss; the port's march misses none")
     p.add_argument("--max_windows", type=int, default=None,
                    help="--frame: the TPU plan's window cap; not ported (raises)")
     p.add_argument("--chunk", type=int, default=16384)
@@ -151,8 +160,16 @@ def main(argv=None):
             def render_view(v):
                 return render_grid_image_tiles(bg, ka, n_chunks, scene, v, opts)
     else:
+        fast = {}
+        if not args.exact:
+            from nerf_projects_tpu_torch.ops.grid import make_render_cache
+            from nerf_projects_tpu_torch.ops.grid_accel import build_occupancy
+
+            fast = dict(occupancy=build_occupancy(grid, factor=8, sigma_thresh=opts.sigma_thresh),
+                        color_top_k=args.color_top_k, dense_density=make_render_cache(grid, dtype=torch.bfloat16))
+
         def render_view(v):
-            return render_grid_image(grid, scene, v, opts, args.chunk)
+            return render_grid_image(grid, scene, v, opts, args.chunk, **fast)
 
     def sync():
         if device.type == "cuda":

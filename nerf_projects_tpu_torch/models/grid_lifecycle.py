@@ -15,10 +15,10 @@ Parity targets (reference svox2/svox2/svox2.py):
 
 These are host-staged events between training epochs, as the reference
 schedules them (opt.py:855-887): the masks and links are numpy and scipy
-(on both machines); the resampling runs on the grid's device. Not ported
-yet: ``to_octree`` and ``octree_to_grid`` (ROADMAP Queue 1 item 12, the
-PlenOctree pipeline) and ``sparsify_background`` (item 4, the background
-model); each raises NotImplementedError.
+(on both machines); the resampling runs on the grid's device.
+``sparsify_background`` prunes a background MSI's texels (svox2.py:1426-1449).
+Not ported yet: ``to_octree`` and ``octree_to_grid`` (ROADMAP Queue 1 item
+12, the PlenOctree pipeline); each raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -167,5 +167,20 @@ def octree_to_grid(tree, *, reso: Optional[int] = None, sigma_thresh: float = 0.
 
 
 def sparsify_background(msi, sigma_thresh: float = 1.0, dilate: int = 1):
-    raise NotImplementedError("sparsify_background needs the background model, not ported yet "
-                              "(ROADMAP Queue 1 item 4)")
+    """Zero the background MSI's texels whose density is below
+    ``sigma_thresh`` after the keep mask is dilated (26-neighbourhood in
+    (layer, v, u), as the reference's _C.dilate): the reference's
+    ``sparsify_background`` (svox2.py:1426-1449), called after an upsample
+    (opt.py:876-880). The reference drops pruned texels from its compact
+    arrays; the MSI is dense, so they become zeros, which render as
+    empty. On the host (scipy), returned on the MSI's device."""
+    from scipy import ndimage
+
+    from nerf_projects_tpu_torch.ops.background import BackgroundMSI
+
+    data = msi.data.detach().cpu().numpy()  # [L, H, W, 4]
+    keep = data[..., 3] >= sigma_thresh
+    if dilate > 0:
+        keep = ndimage.binary_dilation(keep, structure=np.ones((3, 3, 3), bool), iterations=int(dilate))
+    data = np.where(keep[..., None], data, 0.0).astype(np.float32)
+    return BackgroundMSI(data=torch.from_numpy(data).to(msi.data.device), radii=msi.radii)

@@ -160,10 +160,13 @@ class SparseGrid:
 
     # -- persistence -------------------------------------------------------
 
-    def save(self, path: str):
-        """npz with the svox2 key schema (svox2.py:1526-1576)."""
-        np.savez_compressed(
-            path,
+    def save(self, path: str, background=None):
+        """npz with the svox2 key schema (svox2.py:1526-1576).
+        ``background``: an ``ops.background.ReferenceBackground`` saved
+        under svox2's ``background_data`` / ``background_links`` keys
+        (svox2.py:1546-1548), read back by
+        ``ops.background.load_reference_background``."""
+        data = dict(
             radius=self.radius,
             center=self.center,
             links=self.links.cpu().numpy(),
@@ -172,6 +175,11 @@ class SparseGrid:
             basis_type=0,  # BASIS_TYPE_SH
             basis_dim=self.basis_dim,
         )
+        if background is not None:
+            from nerf_projects_tpu_torch.ops.background import save_reference_background
+
+            save_reference_background(data, background)
+        np.savez_compressed(path, **data)
 
     @staticmethod
     def load(path: str, device: Optional[Union[str, torch.device]] = None) -> "SparseGrid":

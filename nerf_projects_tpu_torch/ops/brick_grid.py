@@ -200,25 +200,22 @@ def create_brick_grid(
 
 
 def to_sparse_grid(bg: BrickGrid) -> SparseGrid:
-    """BrickGrid -> SparseGrid (exact round trip through cell_mask), on
-    the brick grid's device."""
+    """BrickGrid -> SparseGrid (exact round trip through cell_mask), built
+    on the brick grid's device."""
     BX, BY, BZ = bg.bricks_shape
     X, Y, Z = bg.reso
-    brick_links = bg.brick_links.cpu().numpy()
-    mask = bg.cell_mask.cpu().numpy()
-    density = bg.density_bricks.detach().float().cpu().numpy()
-    sh = bg.sh_bricks.detach().float().cpu().numpy()
+    mask = bg.cell_mask.bool()
+    order = (torch.cumsum(mask.reshape(-1).to(torch.int64), 0) - 1).reshape(mask.shape)
+    cell_rows = torch.where(mask, order, -1)  # [nb, 512]
+    dens_out = bg.density_bricks.detach().float()[mask][:, None]
+    sh_out = bg.sh_bricks.detach().float()[mask]
 
-    order = (np.cumsum(mask.reshape(-1)) - 1).reshape(mask.shape)
-    cell_rows = np.where(mask, order, -1)  # [nb, 512]
-    dens_out = density[mask][:, None].astype(np.float32)
-    sh_out = sh[mask].astype(np.float32)
-
-    cell_links_full = np.full((BX, BY, BZ, BRICK**3), -1, np.int64)
-    cell_links_full[brick_links >= 0] = cell_rows[brick_links[brick_links >= 0]]
-    v = cell_links_full.reshape(BX, BY, BZ, BRICK, BRICK, BRICK)
-    v = v.transpose(0, 3, 1, 4, 2, 5)  # [bx, lx, by, ly, bz, lz]
-    links = v.reshape(BX * BRICK, BY * BRICK, BZ * BRICK).astype(np.int32)
-    links = np.ascontiguousarray(links[:X, :Y, :Z])
-    return SparseGrid.from_numpy(links, dens_out, sh_out, bg.radius, bg.center, bg.basis_dim,
-                                 device=bg.device)
+    brick_links = bg.brick_links.long()
+    full = torch.full((BX, BY, BZ, BRICK**3), -1, dtype=torch.int64, device=bg.device)
+    sel = brick_links >= 0
+    full[sel] = cell_rows[brick_links[sel]]
+    v = full.reshape(BX, BY, BZ, BRICK, BRICK, BRICK).permute(0, 3, 1, 4, 2, 5)  # [bx, lx, by, ly, bz, lz]
+    links = v.reshape(BX * BRICK, BY * BRICK, BZ * BRICK)[:X, :Y, :Z].to(torch.int32).contiguous()
+    return SparseGrid(links=links, density_data=dens_out.contiguous(), sh_data=sh_out.contiguous(),
+                      radius=np.broadcast_to(np.asarray(bg.radius, np.float32), (3,)).copy(),
+                      center=np.asarray(bg.center, np.float32).copy(), basis_dim=bg.basis_dim)

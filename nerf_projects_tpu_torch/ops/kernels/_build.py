@@ -1,13 +1,15 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and host ops.
 
 Each ``csrc/<name>.cu`` has a plain C interface. ``nvcc`` compiles it for
-``sm_90a`` into a shared library in ``_build/`` (listed in .gitignore),
-named by a hash of the source, the headers it includes from ``csrc/``
-(``#include "..."``, followed recursively) and the flags, so a library is
-rebuilt when any of them changes. The library is written under a temporary name
+``sm_90a`` into a shared library in ``_build/`` (listed in .gitignore); a
+host op, ``csrc/<name>.cpp``, is compiled by ``g++`` the same way
+(``build_host``, ``load_host``). Each library is
+named by a hash of its source, the headers it includes from ``csrc/``
+(``#include "..."``, followed recursively) and the flags, so it is
+rebuilt when any of them changes. It is written under a temporary name
 and renamed into place; nothing else guards the build, so there is no
-lock to go stale. A missing ``nvcc`` or a failed build raises with the
-compiler's output.
+lock to go stale. A missing compiler or a failed build raises with the
+compiler's output; nothing falls back to another version.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 BUILD_TIMEOUT_S = 600
 
 
@@ -53,10 +56,11 @@ def find_nvcc() -> str:
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
-def sources(name: str, csrc: Path = CSRC) -> list:
-    """``csrc/<name>.cu`` and every header it includes with ``#include
-    "..."``, directly or through another header, in a fixed order."""
-    seen, todo = [], [csrc / f"{name}.cu"]
+def sources(name: str, csrc: Path = CSRC, suffix: str = ".cu") -> list:
+    """``csrc/<name><suffix>`` and every header it includes with
+    ``#include "..."``, directly or through another header, in a fixed
+    order."""
+    seen, todo = [], [csrc / f"{name}{suffix}"]
     while todo:
         path = todo.pop(0)
         if path in seen:
@@ -69,38 +73,55 @@ def sources(name: str, csrc: Path = CSRC) -> list:
     return seen
 
 
-def digest(name: str, csrc: Path = CSRC) -> str:
+def digest(name: str, csrc: Path = CSRC, flags=NVCC_FLAGS, suffix: str = ".cu") -> str:
     """Hash of the flags and of ``sources(name)``: names the library."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources(name, csrc):
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in sources(name, csrc, suffix):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(name: str) -> Build:
-    """Compile ``csrc/<name>.cu`` unless a library of these sources and
-    these flags exists already."""
-    src = CSRC / f"{name}.cu"
-    out = BUILD_DIR / f"{name}-{digest(name)}.so"
+def _compile(name: str, find_compiler, flags, suffix: str) -> Build:
+    src = CSRC / f"{name}{suffix}"
+    out = BUILD_DIR / f"{name}-{digest(name, flags=flags, suffix=suffix)}.so"
     if out.exists():
         return Build(out, 0.0, "")
-    nvcc = find_nvcc()
+    compiler = find_compiler()
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [compiler, *flags, "-o", str(tmp), str(src)],
             capture_output=True, text=True, timeout=BUILD_TIMEOUT_S,
         )
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed on {src} (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
+                f"{Path(compiler).name} failed on {src} (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
     return Build(out, time.perf_counter() - t0, proc.stdout + proc.stderr)
+
+
+def build(name: str) -> Build:
+    """Compile ``csrc/<name>.cu`` unless a library of these sources and
+    these flags exists already."""
+    return _compile(name, find_nvcc, NVCC_FLAGS, ".cu")
+
+
+def find_gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host ops are compiled with g++")
+    return gxx
+
+
+def build_host(name: str) -> Build:
+    """Compile the host op ``csrc/<name>.cpp`` with g++ unless a library
+    of these sources and these flags exists already."""
+    return _compile(name, find_gxx, GXX_FLAGS, ".cpp")
 
 
 def build_all(names) -> dict:
@@ -114,3 +135,10 @@ def build_all(names) -> dict:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     return ctypes.CDLL(str(build(name).path))
+
+
+@functools.lru_cache(maxsize=None)
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of the host op ``csrc/<name>.cpp``, built on
+    first use."""
+    return ctypes.CDLL(str(build_host(name).path))

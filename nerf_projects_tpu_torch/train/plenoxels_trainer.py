@@ -15,7 +15,12 @@ no autograd graph, as the CUDA original. ``train_step_tiles`` is its
 plain counterpart, autograd through ``ops/tile_render.py::render_tiles``.
 ``train_step`` is the reference-exact cell route: autograd through the
 per-ray render of a SparseGrid (``ops/grid.py``) with the cell-level
-sampled TV of ``ops/tv.py``; it runs no kernel. Each step returns a new
+sampled TV of ``ops/tv.py``; it runs no kernel. ``train_step_bg`` (a
+background MSI behind the grid, opt.py's bg_optim path) and
+``train_step_with_basis`` (a learned colour basis, opt.py's lr_basis path)
+are the cell route with one more set of parameters, each under its own
+RMSprop. ``tv_loss`` over ``build_neighbor_links`` (a g++-built host op)
+reports the full-grid TV. Each step returns a new
 grid and optimizer state (the masters are replaced, not updated in
 place); the cells the kernels read are rebuilt from the float32 masters
 on every step. Nothing in a step waits for the card: the learning rates
@@ -24,8 +29,7 @@ come from the step number on the host, and the TV windows from a
 grid's device.
 
 The packed, sparse and touched-row steps are in
-``train/plenoxels_sparse.py``, over the same trainer. Not ported: the
-learned-basis and background steps.
+``train/plenoxels_sparse.py``, over the same trainer.
 """
 from __future__ import annotations
 
@@ -52,6 +56,50 @@ from nerf_projects_tpu_torch.ops.tv import (
 )
 from nerf_projects_tpu_torch.ops.tv_bricks import sample_brick_window, tv_grad_bricks
 from nerf_projects_tpu_torch.train.schedules import log_linear_decay
+
+
+def neighbor_links_reference(links) -> np.ndarray:
+    """The plain version of ``build_neighbor_links``: the JAX package's
+    numpy loop."""
+    links = np.asarray(links.cpu() if torch.is_tensor(links) else links)
+    cap = int(links.max()) + 1
+    nbr = np.full((cap, 3), -1, np.int32)
+    active = np.argwhere(links >= 0)
+    rows = links[active[:, 0], active[:, 1], active[:, 2]]
+    for axis in range(3):
+        shifted = active.copy()
+        shifted[:, axis] += 1
+        ok = shifted[:, axis] < links.shape[axis]
+        n_rows = np.full(len(active), -1, np.int32)
+        n_rows[ok] = links[shifted[ok, 0], shifted[ok, 1], shifted[ok, 2]]
+        nbr[rows, axis] = n_rows
+    return nbr
+
+
+def build_neighbor_links(links) -> np.ndarray:
+    """int32 [cap, 3]: the compact rows of the +x, +y, +z neighbours of
+    each active cell (-1 where empty or past the grid), cap = the largest
+    link + 1; ``links`` a tensor or array [X, Y, Z]. A host op
+    (``utils/native.py``) for the full-grid TV loss; training takes the
+    sampled TV gradients of ``ops/tv.py``."""
+    from nerf_projects_tpu_torch.utils import native
+
+    links = np.asarray(links.cpu() if torch.is_tensor(links) else links)
+    return native.build_neighbor_links(links, int(links.max()) + 1)
+
+
+def tv_loss(data: torch.Tensor, nbr) -> torch.Tensor:
+    """Isotropic total variation over the active cells through their
+    neighbour rows: data [cap, C], nbr [cap, 3] (a tensor or array);
+    differences to empty neighbours are 0 (the reference's link-guarded
+    TV, loss_kernel.cu:65-110). The loss value, for reporting."""
+    nbr = torch.as_tensor(np.asarray(nbr) if not torch.is_tensor(nbr) else nbr, device=data.device)
+    sq = 0.0
+    for axis in range(3):
+        n = nbr[:, axis]
+        d = torch.where((n >= 0)[:, None], data[torch.clamp(n, min=0).long()] - data, 0.0)
+        sq = sq + torch.sum(d * d, dim=-1)
+    return torch.mean(torch.sqrt(sq + 1e-12))
 
 
 class RMSState(NamedTuple):
@@ -185,21 +233,37 @@ class PlenoxelsTrainer:
             g_s = g if g_s is None else g_s + g
         return g_d, g_s
 
-    def cell_grads(self, grid: SparseGrid, rays: Rays, target: torch.Tensor, generator: torch.Generator):
-        """The gradients of ``train_step``: (g_density [cap, 1], g_sh
-        [cap, 3B], loss, mse), the TV and L2 terms added."""
+    def _autograd_cell(self, grid: SparseGrid, generator: torch.Generator, loss_fn, extra=()):
+        """Autograd of ``loss_fn(grid, *extra) -> (total, mse)`` over the
+        grid's masters and the tensors ``extra``, with the cell route's
+        TV and L2 gradients added to the masters': (g_density, g_sh,
+        [g of each of extra], total, mse)."""
         self._check(grid)
         dens = grid.density_data.detach().requires_grad_(True)
         sh = grid.sh_data.detach().requires_grad_(True)
-        out = volume_render_grid(dataclasses.replace(grid, density_data=dens, sh_data=sh), rays, self.opts)
-        loss, mse = self._data_loss(out, target)
-        g_density, g_sh = torch.autograd.grad(loss, (dens, sh))
+        leaves = [t.detach().requires_grad_(True) for t in extra]
+        total, mse = loss_fn(dataclasses.replace(grid, density_data=dens, sh_data=sh), *leaves)
+        g_density, g_sh, *g_extra = torch.autograd.grad(total, (dens, sh, *leaves))
         tv_d, tv_s = self._tv_grads(grid, generator)
         if tv_d is not None:
             g_density = g_density + tv_d
         if tv_s is not None:
             g_sh = g_sh + tv_s
-        return g_density, g_sh, loss.detach(), mse.detach()
+        return g_density, g_sh, g_extra, total.detach(), mse.detach()
+
+    def _cell_apply(self, grid: SparseGrid, rms: RMSState, g_density, g_sh, step):
+        new_density, rms_d = self._optim(self.sigma_optim, grid.density_data, g_density, rms.rms_density,
+                                         self.lr_sigma_fn(step), minval=self.density_minval)
+        new_sh, rms_s = self._optim(self.sh_optim, grid.sh_data, g_sh, rms.rms_sh, self.lr_sh_fn(step))
+        return (dataclasses.replace(grid, density_data=new_density, sh_data=new_sh),
+                RMSState(rms_density=rms_d, rms_sh=rms_s))
+
+    def cell_grads(self, grid: SparseGrid, rays: Rays, target: torch.Tensor, generator: torch.Generator):
+        """The gradients of ``train_step``: (g_density [cap, 1], g_sh
+        [cap, 3B], loss, mse), the TV and L2 terms added."""
+        g_density, g_sh, _, loss, mse = self._autograd_cell(
+            grid, generator, lambda g: self._data_loss(volume_render_grid(g, rays, self.opts), target))
+        return g_density, g_sh, loss, mse
 
     def train_step(self, grid: SparseGrid, rms: RMSState, rays: Rays, target: torch.Tensor, step,
                    generator: torch.Generator):
@@ -208,11 +272,88 @@ class PlenoxelsTrainer:
         RMSprop or SGD with the density floor. Returns (grid, rms,
         {"loss", "mse", "psnr"})."""
         g_density, g_sh, loss, mse = self.cell_grads(grid, rays, target, generator)
-        new_density, rms_d = self._optim(self.sigma_optim, grid.density_data, g_density, rms.rms_density,
-                                         self.lr_sigma_fn(step), minval=self.density_minval)
-        new_sh, rms_s = self._optim(self.sh_optim, grid.sh_data, g_sh, rms.rms_sh, self.lr_sh_fn(step))
-        return (dataclasses.replace(grid, density_data=new_density, sh_data=new_sh),
-                RMSState(rms_density=rms_d, rms_sh=rms_s), {"loss": loss, "mse": mse, "psnr": _psnr(mse)})
+        new_grid, new_rms = self._cell_apply(grid, rms, g_density, g_sh, step)
+        return new_grid, new_rms, {"loss": loss, "mse": mse, "psnr": _psnr(mse)}
+
+    def _rmsprop_plain(self, p, g, r, lr):
+        """RMSprop without the first-visit bootstrap, eps 1e-8 (the basis'
+        and the background's optimizer in the JAX package)."""
+        b = self.rms_beta
+        r2 = b * r + (1 - b) * g**2
+        return p - lr * g / (torch.sqrt(r2) + 1e-8), r2
+
+    def basis_grads(self, grid: SparseGrid, basis_params, rays: Rays, target: torch.Tensor,
+                    generator: torch.Generator, *, basis_type: int, mlp_posenc_size: int = 0):
+        """The gradients of ``train_step_with_basis``: (g_density, g_sh,
+        g_basis (a tensor, or a dict like ``basis_params``), loss, mse)."""
+        from nerf_projects_tpu_torch.ops.basis import eval_basis
+
+        is_mlp = isinstance(basis_params, dict)
+        keys = sorted(basis_params) if is_mlp else None
+        extra = [basis_params[k] for k in keys] if is_mlp else [basis_params]
+
+        def loss_fn(g, *leaves):
+            if is_mlp:
+                sh_mult = eval_basis(basis_type, g.basis_dim, rays.viewdirs, mlp_params=dict(zip(keys, leaves)),
+                                     mlp_posenc_size=mlp_posenc_size)
+            else:
+                sh_mult = eval_basis(basis_type, g.basis_dim, rays.viewdirs, basis_data=leaves[0])
+            return self._data_loss(volume_render_grid(g, rays, self.opts, sh_mult=sh_mult), target)
+
+        g_density, g_sh, g_extra, loss, mse = self._autograd_cell(grid, generator, loss_fn, extra)
+        return g_density, g_sh, dict(zip(keys, g_extra)) if is_mlp else g_extra[0], loss, mse
+
+    def train_step_with_basis(self, grid: SparseGrid, rms: RMSState, basis_params, rms_basis, rays: Rays,
+                              target: torch.Tensor, step, generator: torch.Generator, *, basis_type: int,
+                              mlp_posenc_size: int = 0, lr_basis: float = 1e-6):
+        """The cell route with a learned colour basis (JAX
+        ``train_step_with_basis``; opt.py's lr_basis path, svox2.py:2086):
+        ``basis_params`` the [r, r, r, B] texture (BASIS_TYPE_3D_TEXTURE)
+        or the MLP's parameter dict (BASIS_TYPE_MLP), ``rms_basis`` of the
+        same form, updated by RMSprop at ``lr_basis`` and ``rms_beta``.
+        Returns (grid, rms, basis_params, rms_basis, {"loss", "mse",
+        "psnr"})."""
+        g_density, g_sh, g_basis, loss, mse = self.basis_grads(
+            grid, basis_params, rays, target, generator, basis_type=basis_type, mlp_posenc_size=mlp_posenc_size)
+        new_grid, new_rms = self._cell_apply(grid, rms, g_density, g_sh, step)
+        if isinstance(basis_params, dict):
+            upd = {k: self._rmsprop_plain(basis_params[k], g_basis[k], rms_basis[k], lr_basis) for k in basis_params}
+            new_basis, new_rms_basis = {k: v[0] for k, v in upd.items()}, {k: v[1] for k, v in upd.items()}
+        else:
+            new_basis, new_rms_basis = self._rmsprop_plain(basis_params, g_basis, rms_basis, lr_basis)
+        return new_grid, new_rms, new_basis, new_rms_basis, {"loss": loss, "mse": mse, "psnr": _psnr(mse)}
+
+    def bg_grads(self, grid: SparseGrid, background, rays: Rays, target: torch.Tensor, generator: torch.Generator,
+                 *, lambda_tv_bg: float = 1e-3):
+        """The gradients of ``train_step_bg``: (g_density, g_sh, g_bg
+        [nlayers, H, W, 4], loss, mse)."""
+        from nerf_projects_tpu_torch.ops.background import BackgroundMSI, background_tv_loss
+
+        def loss_fn(g, bg_data):
+            bg = BackgroundMSI(bg_data, background.radii)
+            total, mse = self._data_loss(volume_render_grid(g, rays, self.opts, background=bg), target)
+            return total + lambda_tv_bg * background_tv_loss(bg), mse
+
+        g_density, g_sh, (g_bg,), loss, mse = self._autograd_cell(grid, generator, loss_fn, (background.data,))
+        return g_density, g_sh, g_bg, loss, mse
+
+    def train_step_bg(self, grid: SparseGrid, background, rms: RMSState, rms_bg: torch.Tensor, rays: Rays,
+                      target: torch.Tensor, step, generator: torch.Generator, *, lr_bg_scale: float = 0.1,
+                      lambda_tv_bg: float = 1e-3):
+        """The cell route with a ``BackgroundMSI`` behind the grid (JAX
+        ``train_step_bg``; opt.py's bg_optim path, svox2.py
+        optim_background_step): the background's TV over the whole MSI
+        (the reference samples a fraction of it), RMSprop on the
+        background at lr_sh * lr_bg_scale / 1e-2. Returns (grid,
+        background, rms, rms_bg, {"loss", "mse", "psnr"})."""
+        from nerf_projects_tpu_torch.ops.background import BackgroundMSI
+
+        g_density, g_sh, g_bg, loss, mse = self.bg_grads(grid, background, rays, target, generator,
+                                                         lambda_tv_bg=lambda_tv_bg)
+        new_grid, new_rms = self._cell_apply(grid, rms, g_density, g_sh, step)
+        new_bg, rms_b = self._rmsprop_plain(background.data, g_bg, rms_bg, self.lr_sh_fn(step) * lr_bg_scale / 1e-2)
+        return (new_grid, BackgroundMSI(new_bg, background.radii), new_rms, rms_b,
+                {"loss": loss, "mse": mse, "psnr": _psnr(mse)})
 
     def render_step(self, grid: SparseGrid, rays: Rays):
         return volume_render_grid(grid, rays, self.opts, return_depth=True)

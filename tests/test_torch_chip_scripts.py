@@ -78,3 +78,30 @@ def test_sparse_phase_is_callable_and_imports_only_the_port():
     for used in ("train_step_tiles_sparse", "train_step_tiles_packed_touched", "touched_bricks", "check_waits",
                  "flag_touched=True", "train_plenoxels"):
         assert used in src, used
+
+
+@pytest.mark.parametrize("name", ["phase_render_plenoxels_eval", "phase_train_plenoxels_bg"])
+def test_eval_and_background_phases_are_callable_and_import_only_the_port(name):
+    """The render CLI's per-ray routes' phase and the background and
+    learned-basis steps' phase exist with the other phases' signature, a
+    chip_mutants.py phase runs each, the top-K mutant must fail the render
+    one, and neither imports anything of the JAX package."""
+    fn = getattr(chip_smoke, name)
+    assert callable(fn) and list(inspect.signature(fn).parameters) == ["dev", "card"]
+    assert name[len("phase_"):] in {n for n, _ in PHASES}
+    src = inspect.getsource(fn)
+    for node in ast.walk(ast.parse(src)):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+        for mod in names:
+            assert not mod.startswith("jax") and (not mod.startswith("nerf_projects_tpu")
+                                                  or mod.startswith("nerf_projects_tpu_torch")), mod
+    if name == "phase_render_plenoxels_eval":
+        assert any(m[3] == ("render_plenoxels_eval",) and "largest=False" in m[2]
+                   for m in chip_mutants.MUTANTS.values())
+        for used in ("render_grid_image", "color_top_k", "make_render_cache", "build_occupancy", "torch.topk"):
+            assert used in src, used
+    else:
+        for used in ("train_step_bg", "train_step_with_basis", "check_waits", "build_neighbor_links",
+                     "ReferenceBackground", "timed_steps"):
+            assert used in src, used

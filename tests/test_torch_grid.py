@@ -199,8 +199,10 @@ def test_volume_render_grid_with_occupancy_matches_jax():
     got = tgrid.volume_render_grid(tg, tr, tgrid.GridRenderOptions(), occupancy=tocc, active_steps=40)
     for k in ("rgb", "acc", "log_transmit"):
         close(got[k], want[k], rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        tgrid.volume_render_grid(tg, tr, tgrid.GridRenderOptions(backend="nvol"))
+    want = jgrid.volume_render_grid(jg, jr, jgrid.GridRenderOptions(backend="nvol"), occupancy=jocc, active_steps=40)
+    got = tgrid.volume_render_grid(tg, tr, tgrid.GridRenderOptions(backend="nvol"), occupancy=tocc, active_steps=40)
+    for k in ("rgb", "acc", "log_transmit"):
+        close(got[k], want[k], rtol=1e-5, atol=1e-5)
 
 
 def test_occupancy_intervals_match_jax():

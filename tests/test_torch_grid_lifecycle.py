@@ -112,8 +112,11 @@ def test_unported_exports_name_their_roadmap_item():
         tgl.to_octree(tg)
     with pytest.raises(NotImplementedError, match="item 12"):
         tgl.octree_to_grid(None)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tgl.sparsify_background(None)
+    # sparsify_background (item 4) is ported: tests/test_torch_background.py holds it to JAX's
+    from nerf_projects_tpu_torch.ops.background import BackgroundMSI
+
+    msi = BackgroundMSI.create(2, 4, device="cpu")
+    assert tgl.sparsify_background(msi, sigma_thresh=0.05).data.shape == msi.data.shape
 
 
 def test_grid_weight_render_runs_on_the_card_unless_asked():

@@ -1,7 +1,8 @@
 """The port's Plenoxels render CLI end to end on the CPU: a Blender scene
 written on the fly, a grid saved by the JAX package, and
-``cli/render_imgs.py`` through its default (exact) route, ``--tiles`` and
-``--frame``, against the JAX package's exact render of the same views."""
+``cli/render_imgs.py`` through its default (fast) route, ``--exact``,
+``--tiles`` and ``--frame``, against the JAX package's exact render of the
+same views."""
 import json
 import os
 from dataclasses import replace
@@ -87,15 +88,16 @@ def test_exact_route_matches_the_jax_render(scene_and_grid):
 
 
 def test_cli_routes_on_the_cpu(scene_and_grid, tmp_path, capsys):
-    """main() through the default route, --tiles and --frame on
-    device="cpu": metrics JSON, saved renders; the frame and tile march
-    renders agree with each other and stay near the exact render (they
-    march from each tile's least entry with the tile's basis)."""
+    """main() through the default (fast) route, --exact, --tiles and
+    --frame on device="cpu": metrics JSON, saved renders; the frame and
+    tile march renders agree with each other and stay near the exact
+    render (they march from each tile's least entry with the tile's
+    basis), and so does the fast route."""
     root, ckpt = scene_and_grid
     means, images = {}, {}
-    for route in ("exact", "tiles", "frame"):
+    for route in ("default", "exact", "tiles", "frame"):
         out = tmp_path / route
-        flags = [] if route == "exact" else [f"--{route}"]
+        flags = [] if route == "default" else [f"--{route}"]
         tri.main([ckpt, root, "--device", "cpu", "--out_dir", str(out), "--n_images", "2", *flags])
         means[route] = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert os.path.isfile(out / "metrics.json") and os.path.isfile(out / "0001.png")
@@ -116,6 +118,7 @@ def test_cli_routes_on_the_cpu(scene_and_grid, tmp_path, capsys):
     np.testing.assert_allclose(frame.numpy(), tiles.numpy(), rtol=1e-5, atol=1e-5)
     assert float((frame - exact).abs().mean()) < 2e-2
     assert abs(means["frame"]["psnr"] - means["exact"]["psnr"]) < 0.5
+    assert abs(means["default"]["psnr"] - means["exact"]["psnr"]) < 0.5
     tri.main([ckpt, root, "--device", "cpu", "--frame", "--timing", "--n_images", "1"])
     timing = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert timing["fps"] > 0 and timing["device"] == "cpu"
