@@ -15,7 +15,10 @@ sums not reset when the slot's cell changes, its SH row's scalar tail
 dropped and its touched-brick flags never set (the row-sparse steps'
 phase, train_plenoxels_sparse); the render CLI's fast route's top-K
 keeping the smallest weights (plain torch, ops/grid.py; the
-render_plenoxels_eval phase); the wgmma core's (mlp_sm90.cuh: K1f, K1b, K1rf, K1rb, K2, K5f
+render_plenoxels_eval phase); the training loop's checkpoint restore
+without Adam's state and the NeRF-SH evaluate scoring every view against
+view 0 (plain torch; the train_nerf_loop and train_nerf_sh_cli phases);
+the wgmma core's (mlp_sm90.cuh: K1f, K1b, K1rf, K1rb, K2, K5f
 and K5b) include the concat, the relu mask, the stage ring, the dW jobs
 (K1's and K5b's), the view encoder, the encoding stash, K1rb's, K1b's and
 K5b's forwards without their per-slab promotion, K1f handed the raw
@@ -218,6 +221,18 @@ MUTANTS = {
         "top_w, top_idx = torch.topk(weights, k, dim=-1, largest=False)",
         ("render_plenoxels_eval",),
     ),
+    "the training loop's checkpoint restore skips Adam's state (train/checkpoint.py::load_checkpoint)": (
+        "nerf_projects_tpu_torch/train/checkpoint.py",
+        "    template.optimizer.load_state_dict(opt)\n",
+        "",
+        ("train_nerf_loop",),
+    ),
+    "the NeRF-SH evaluate scores every view against view 0's image (cli/eval_nerf_sh.py)": (
+        "nerf_projects_tpu_torch/cli/eval_nerf_sh.py",
+        "m = compute_metrics(img, scene.images[v])",
+        "m = compute_metrics(img, scene.images[0])",
+        ("train_nerf_sh_cli",),
+    ),
     "the transmittance's backward without its division by the factor": (
         "nerf_projects_tpu_torch/ops/render.py",
         "return torch.flip(torch.cumsum(torch.flip(g * c, (-1,)), dim=-1), (-1,)) / f",
@@ -244,7 +259,9 @@ phases = {"kernel": lambda: c.phase_kernel(dev, fine_rows=65536),
           "kernel_raw": lambda: c.phase_kernel_raw(dev, serve_rows=65536, train_rows=65536),
           "train_raw": lambda: c.phase_train_raw(dev, c.nvidia_smi()),
           "render_plenoxels_eval": lambda: c.phase_render_plenoxels_eval(dev, c.nvidia_smi()),
-          "train_plenoxels_bg": lambda: c.phase_train_plenoxels_bg(dev, c.nvidia_smi())}
+          "train_plenoxels_bg": lambda: c.phase_train_plenoxels_bg(dev, c.nvidia_smi()),
+          "train_nerf_loop": lambda: c.phase_train_nerf_loop(dev, c.nvidia_smi()),
+          "train_nerf_sh_cli": lambda: c.phase_train_nerf_sh_cli(dev, c.nvidia_smi())}
 for name in sys.argv[1:]:
     fn = phases[name]
     try:

@@ -7,6 +7,7 @@ tree than this file's: its chip_smoke.py and package are the ones used):
     python3 /path/to/chip_probes.py route [tag [rays [draws]]]  # K1b's and K1rb's rule under the route's own g
     python3 /path/to/chip_probes.py k2    # K2's fine level timed around other work
     python3 /path/to/chip_probes.py sh [draws]  # K5b's float64-sums rule per draw and row count
+    python3 /path/to/chip_probes.py k2f64 [draws]  # K2's float64-sums rule per draw of a coarse level
 
 f64: K1rb's gradients against the plain version with float64 sums, as
 chip_smoke.check_grads reads the rule (the kernel's relative Frobenius
@@ -35,6 +36,13 @@ kernel's reading and its worst tensor, the kernel's and the float32
 plain version's relative distances from the float64 sums for that
 tensor, and the reading of the plain version with another float32 order
 (partial_sums) on the same inputs.
+
+k2f64: K2's float64-sums rule (as chip_smoke.check_grads reads it) at
+the coarse level that chip_smoke.phase_kernel_train holds against
+float64 sums (S 96, R 8, with chip_smoke.level_batch's inputs and that
+phase's model), at 128 and 1,024 rays, `draws` (16) seeded draws of the
+inputs: per draw the three worst tensors, each with the kernel's and
+the float32 plain version's relative distances from the float64 sums.
 """
 from __future__ import annotations
 
@@ -186,6 +194,33 @@ def probe_sh(dev, draws: int) -> None:
                       f"sums {ctl:.3f}x ({names[k]})", flush=True)
 
 
+def probe_k2_f64(dev, draws: int) -> None:
+    from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerf_projects_tpu_torch.ops.kernels import fused_train as ft
+
+    model, _ = model_on(dev, c.SEED + 3)
+    wkt = fm.kernel_weights_sm90_bwd(model)
+    wk, W = fm.kernel_weights_sm90(model, raw_layout=True), fm.pack_params(model, raw_layout=True)
+    for draw in range(draws):
+        gen = torch.Generator().manual_seed(100 + draw)
+        for n in (128, 1024):
+            x, vt = c.level_batch(gen, n, c.COARSE, c.MEGA_RC, dev, raw=True)
+            kw = dict(S=c.COARSE, R=c.MEGA_RC, n_rays_total=n, bkgd=1.0, want_weights=False, raw_inputs=True)
+            got = ft.fused_train_level(wk, wkt, x, vt, **kw)[3]
+            want = ft.fused_train_level_reference(W, x, vt, **kw)[3]
+            with fm.float64_sums():
+                exact = ft.fused_train_level_reference(W, x, vt, **kw)[3]
+            rs = []
+            for field, a, b, e in zip(fm.FusedMLPWeights._fields, got, want, exact):
+                e = e.double()
+                en = e.norm() + 1e-30
+                ka, pb = float((a.double() - e).norm() / en), float((b.double() - e).norm() / en)
+                rs.append((ka / (pb + 1e-5), field, ka, pb))
+            rs.sort(reverse=True)
+            print("k2f64", draw, n, " ".join(f"{f}={r:.3f} (kernel {ka:.2e}, plain {pb:.2e})"
+                                            for r, f, ka, pb in rs[:3]), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_probes: no CUDA device; this script runs only on a card", file=sys.stderr)
@@ -203,8 +238,11 @@ def main() -> int:
         probe_k2(dev)
     elif what == "sh":
         probe_sh(dev, int(sys.argv[2]) if len(sys.argv) > 2 else 3)
+    elif what == "k2f64":
+        probe_k2_f64(dev, int(sys.argv[2]) if len(sys.argv) > 2 else 16)
     else:
-        print("usage: chip_probes.py f64 [tag] | route [tag [rays [draws]]] | k2 | sh [draws]", file=sys.stderr)
+        print("usage: chip_probes.py f64 [tag] | route [tag [rays [draws]]] | k2 | sh [draws] | k2f64 [draws]",
+              file=sys.stderr)
         return 2
     return 0
 

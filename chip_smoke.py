@@ -240,6 +240,30 @@ Phases, each of which raises (exit code 1) on failure:
           and K5b launches, peak memory; then one step's waiting calls
           (none) and a profile of 5 steps, the card's busy time a step
           split into K5f's launches, K5b's and the rest.
+  train_nerf_loop
+          train/loop.py::train at the lego configuration (a config dict,
+          no YAML: 64 + 128 samples, viewdirs, white background, 1,024
+          rays a step, lrate 5e-4 decaying over 500k steps, precrop_frac
+          0.5) on make_dataset's scene at half-res lego's size (400^2,
+          4 train views, 1 test view), 60 steps a route: batching on the
+          autograd route (i_print 20, i_weights 30, i_testset 60); the
+          same resumed from its step-30 checkpoint (the restored models,
+          Adam moments and generator equal to the file's); no_batching
+          with precrop_iters 20; the mega route (K2) through
+          trainer_kwargs; a forward-facing NDC scene at fern's factor-8
+          size (504x378). Each: losses finite and falling, the files,
+          metrics.json's PSNR against a direct render_image +
+          compute_metrics, the loop's rays/s beside scan_steps', eval s
+          a view, peak memory, K2's launches; one loop step of each draw
+          under torch.cuda.set_sync_debug_mode (no waits).
+  train_nerf_sh_cli
+          cli/train_nerf_sh.py::train_main at sh_deg 3 (8x256, 64 + 128
+          samples, 1,024 rays a step, use_fused_trunk) on
+          make_dataset(n_views=4, image_size=128), 60 steps (print 20,
+          save 30, render 60), then cli/eval_nerf_sh.py::evaluate from
+          checkpoint.pt with flags.json restoring the model: K5f and K5b
+          launches, view 0's MSE below the initial model's, the three
+          JSON files, each view's PSNR against render_image_sh's.
 
 Each MLP kernel is also timed at every level size its main paths launch
 it at (a serving request's and a training step's coarse and fine
@@ -287,6 +311,7 @@ NOISE_FACTOR = 2.0          # kernel vs float64 sums, over float32 plain vs floa
 TRAIN_TOL = 2e-3            # rgb, acc, weights of a train level (tests/test_fused_train.py)
 TRAIN_RAYS = 1024           # rays per training step
 COARSE, FINE = 96, 192      # samples per ray: the flagship training configuration
+LOOP_COARSE, LOOP_FINE = 64, 128  # samples per ray: the training loop's lego configuration
 MEGA_RC, MEGA_RF = 8, 4     # rays per block of the per-ray inputs, coarse and fine
 WARM_STEPS = 3              # training steps before the timed window
 CHECK_RAYS = 64             # rays of the one-step check against the plain versions
@@ -686,9 +711,10 @@ def level_batch(gen, n_rays: int, S: int, R: int, dev, raw: bool):
 def phase_kernel_train(dev) -> dict:
     """K2 against its plain version at the coarse level (S 96, R 8, with
     weights; a second launch must give the same bits), the fine level (S
-    288, R 4) and, once, with encoded inputs; its gradients at a 128-ray
-    coarse level against float64 sums; then each level timed. Rays whose
-    last sample's weight changes sign (the 1e10 tail) are counted, not
+    288, R 4), the training loop's lego levels (S 64, R 8 and S 192, R 4)
+    and, once, with encoded inputs; its gradients at a 128-ray coarse
+    level against float64 sums; then each level timed. Rays whose last
+    sample's weight changes sign (the 1e10 tail) are counted, not
     compared."""
     from nerf_projects_tpu_torch.models.nerf import NeRFMLP
     from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
@@ -698,11 +724,17 @@ def phase_kernel_train(dev) -> dict:
     model = NeRFMLP(depth=8, width=256, use_viewdirs=True).reset_parameters(gen)
     model = random_biases(model, gen).to(dev)
     wkt = fm.kernel_weights_sm90_bwd(model)
-    shapes = (("coarse", COARSE, MEGA_RC, True, True), ("fine", COARSE + FINE, MEGA_RF, False, True),
-              ("coarse, encoded inputs", COARSE, MEGA_RC, True, False))
+    # the loop's levels draw from a generator of their own: the other
+    # levels and the float64 check below keep their inputs, and that
+    # check's rule reads differently draw by draw (chip_probes.py k2f64)
+    loop_gen = torch.Generator().manual_seed(SEED + 32)
+    shapes = (("coarse", COARSE, MEGA_RC, True, True, gen), ("fine", COARSE + FINE, MEGA_RF, False, True, gen),
+              ("loop coarse", LOOP_COARSE, MEGA_RC, True, True, loop_gen),
+              ("loop fine", LOOP_COARSE + LOOP_FINE, MEGA_RF, False, True, loop_gen),
+              ("coarse, encoded inputs", COARSE, MEGA_RC, True, False, gen))
     max_abs, timed = 0.0, {}
-    for tag, S, R, want_w, raw in shapes:
-        x, vt = level_batch(gen, TRAIN_RAYS, S, R, dev, raw)
+    for tag, S, R, want_w, raw, draw in shapes:
+        x, vt = level_batch(draw, TRAIN_RAYS, S, R, dev, raw)
         wk, W = fm.kernel_weights_sm90(model, raw_layout=raw), fm.pack_params(model, raw_layout=raw)
         kw = dict(S=S, R=R, n_rays_total=TRAIN_RAYS, bkgd=1.0, want_weights=want_w, raw_inputs=raw)
         got = ft.fused_train_level(wk, wkt, x, vt, **kw)
@@ -760,10 +792,14 @@ def phase_kernel_train(dev) -> dict:
     max_abs = max(max_abs, check_grads(f"kernel: fused_train_level coarse (S {COARSE}, R {MEGA_RC}, {n_small} rays)",
                                        got, want, fm.FusedMLPWeights._fields, exact))
     # a training step launches both levels: its numbers are the sums
-    ms, plain_ms, b_ms = (sum(t[i] for t in timed.values()) for i in range(3))
-    log(f"kernel: fused_train_level per step (coarse + fine): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms, {b_ms / ms:.3f} of bound")
-    SIZE_TIMES["fused_train_level"] = {"training step": (ms, b_ms)}
+    for step, levels in (("training step", (COARSE, COARSE + FINE)),
+                         ("loop step", (LOOP_COARSE, LOOP_COARSE + LOOP_FINE))):
+        ms, plain_ms, b_ms = (sum(timed[S][i] for S in levels) for i in range(3))
+        log(f"kernel: fused_train_level per {step} (coarse + fine, S {levels}): {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms, {b_ms / ms:.3f} of bound")
+        SIZE_TIMES.setdefault("fused_train_level", {})[step] = (ms, b_ms)
+    # the kernels line's times are the flagship training step's
+    ms, plain_ms, b_ms = (sum(timed[S][i] for S in (COARSE, COARSE + FINE)) for i in range(3))
     return {
         "name": "fused_train_level", "route": "cuda",
         "source": "nerf_projects_tpu_torch/csrc/fused_train.cu",
@@ -1005,6 +1041,28 @@ def profile_steps(run_steps, route: str, n: int = PROFILE_STEPS, split=None, top
     return result
 
 
+def hold_step(tag, on_card, on_host, rays, target) -> None:
+    """One step's loss and fine MSE (within 3e-3 relative) and coarse
+    gradients (check_grads) of a trainer on the card against the same
+    trainer on the host, which runs the kernels' plain versions, from the
+    same random models (biases too) on the same rays."""
+    gen = torch.Generator().manual_seed(SEED + 4)
+    params = tuple(random_biases(m, gen) for m in on_card.init_params(SEED))
+    host_params = tuple(copy.deepcopy(m).cpu() for m in params)
+    (loss, mse), grads = on_card._value_and_grad(params, None, rays, target)
+    (hloss, hmse), hgrads = on_host._value_and_grad(host_params, None, rays.map(lambda t: t.cpu()), target.cpu())
+    log(f"{tag}: loss {float(loss):.6f} (plain {float(hloss):.6f}), fine mse {float(mse):.6f} "
+        f"(plain {float(hmse):.6f})")
+    if not (abs(float(loss) - float(hloss)) < 3e-3 * float(hloss)
+            and abs(float(mse) - float(hmse)) < 3e-3 * float(hmse)):
+        raise AssertionError(f"{tag}: the loss disagrees with the plain versions")
+    # the coarse model's gradients come from the coarse level alone, which
+    # the fine level's resample (sensitive to bf16 noise) does not reach
+    names = list(grads[0])
+    check_grads(f"{tag}, coarse model", [grads[0][k].cpu() for k in names],
+                [hgrads[0][k] for k in names], names)
+
+
 def phase_train(dev, card: str) -> dict:
     """NeRFTrainer at the flagship training configuration (bench.py's):
     8x256 coarse and fine MLPs with viewdirs, multires 10/4, 96 coarse +
@@ -1045,23 +1103,8 @@ def phase_train(dev, card: str) -> dict:
     idx = torch.arange(CHECK_RAYS, device=dev) * (ds["pixels"].shape[0] // CHECK_RAYS)
     rays, target = ds["rays"].map(lambda t: t[idx]), ds["pixels"][idx]
     for mega in (True, False):
-        on_card, on_host = make(mega, check), make(mega, check, "cpu")
-        gen = torch.Generator().manual_seed(SEED + 4)
-        params = tuple(random_biases(m, gen) for m in on_card.init_params(SEED))
-        host_params = tuple(copy.deepcopy(m).cpu() for m in params)
-        (loss, mse), grads = on_card._value_and_grad(params, None, rays, target)
-        (hloss, hmse), hgrads = on_host._value_and_grad(host_params, None, rays.map(lambda t: t.cpu()), target.cpu())
-        tag = f"train: one {'fused train-level' if mega else 'fused-MLP autograd'} step of {CHECK_RAYS} rays"
-        log(f"{tag}: loss {float(loss):.6f} (plain {float(hloss):.6f}), fine mse {float(mse):.6f} "
-            f"(plain {float(hmse):.6f})")
-        if not (abs(float(loss) - float(hloss)) < 3e-3 * float(hloss)
-                and abs(float(mse) - float(hmse)) < 3e-3 * float(hmse)):
-            raise AssertionError(f"{tag}: the loss disagrees with the plain versions")
-        # the coarse model's gradients come from the coarse level alone, which
-        # the fine level's resample (sensitive to bf16 noise) does not reach
-        names = list(grads[0])
-        check_grads(f"{tag}, coarse model", [grads[0][k].cpu() for k in names],
-                    [hgrads[0][k] for k in names], names)
+        hold_step(f"train: one {'fused train-level' if mega else 'fused-MLP autograd'} step of {CHECK_RAYS} rays",
+                  make(mega, check), make(mega, check, "cpu"), rays, target)
 
     out = {}
     for route, mega in (("fused train level (use_mega)", True), ("fused MLP under autograd", False)):
@@ -3467,6 +3510,275 @@ def phase_train_nerf_sh(dev, card: str) -> dict:
     return counts
 
 
+LOOP_STEPS = 60              # loop steps of each route
+LOOP_SCAN_STEPS = 20         # trainer.scan_steps steps timed beside each route's loop
+LOOP_FOCAL = 555.555         # half-res lego: 0.5 * 800 / tan(0.5 * camera_angle_x), halved
+FERN_HW, FERN_FOCAL = (378, 504), 407.5625  # fern's poses_bounds.npy hwf at factor 8
+PSNR_TOL_DB = 1e-4
+
+
+def loop_config(basedir: str, expname: str, **kw):
+    """The loop's config for the Blender lego configuration, as an AttrDict
+    with no YAML: 64 + 128 samples, viewdirs, white background, 1,024
+    rays a step, Adam at 5e-4 decaying over 500k steps, precrop_frac 0.5."""
+    from nerf_projects_tpu_torch.utils.config import AttrDict, create_default_config
+
+    cfg = create_default_config()
+    cfg.update(dataset_type="blender", N_samples=LOOP_COARSE, N_importance=LOOP_FINE, use_viewdirs=True,
+               white_bkgd=True, N_rand=TRAIN_RAYS, lrate=5e-4, lrate_decay=500, precrop_frac=0.5, basedir=basedir,
+               expname=expname, i_print=20, i_weights=30, i_testset=LOOP_STEPS)
+    cfg.update(kw)
+    return AttrDict(cfg)
+
+
+def loop_scenes(dev):
+    """(train, test) SceneData: half-res lego's size, make_dataset's sphere
+    scene (4 train views, 1 test view); and a forward-facing NDC scene at
+    fern's factor-8 size, the same spheres 4 units down -z from cameras
+    near the origin that all look down -z, near 0 and far 1 in NDC."""
+    from nerf_projects_tpu_torch.core.rays import camera_rays
+    from nerf_projects_tpu_torch.data.base import SceneData
+    from nerf_projects_tpu_torch.data.synthetic import default_scene, make_dataset, render_scene
+
+    ds = make_dataset(n_views=5, image_size=400, focal=LOOP_FOCAL, seed=SEED, device=dev)
+    images = ds["images"].cpu().numpy()
+    kw = dict(intrinsics=ds["intrinsics"], near=ds["near"], far=ds["far"], white_bkgd=True)
+    lego = (SceneData(images=images[:4], poses=ds["poses"][:4], **kw),
+            SceneData(images=images[4:], poses=ds["poses"][4:], **kw))
+    spheres = default_scene()
+    spheres = spheres._replace(centers=spheres.centers + torch.tensor([0.0, 0.0, -4.0]))
+    (H, W), rng = FERN_HW, np.random.default_rng(SEED + 30)
+    K = np.array([[FERN_FOCAL, 0, W / 2], [0, FERN_FOCAL, H / 2], [0, 0, 1]], np.float32)
+    poses = np.tile(np.eye(4, dtype=np.float32), (5, 1, 1))
+    poses[:, :2, 3] = rng.uniform(-0.3, 0.3, (5, 2))
+    views = []
+    for pose in poses:
+        rays = camera_rays(H, W, K, pose, device=dev)
+        views.append(torch.cat([render_scene(spheres, rays.map(lambda t: t[r:r + 64]), white_bkgd=False)
+                                for r in range(0, H, 64)]))
+    images = torch.stack(views).cpu().numpy()
+    kw = dict(intrinsics=K, near=0.0, far=1.0, ndc=True)
+    fern = (SceneData(images=images[:4], poses=poses[:4], **kw), SceneData(images=images[4:], poses=poses[4:], **kw))
+    return lego, fern
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_train_nerf_loop(dev, card: str) -> dict:
+    """``train/loop.py::train`` at the lego configuration (a config dict, no
+    YAML), LOOP_STEPS steps a route on the card: batching on the autograd
+    route (i_print 20, i_weights 30, i_testset 60); the same resumed from
+    its step-30 checkpoint; no_batching with precrop_iters 20; the mega
+    route (K2) through trainer_kwargs, whose step at the loop's levels is
+    also held against the host's plain path (hold_step); and a
+    forward-facing NDC scene at fern's factor-8 size. Each route: the
+    losses finite and falling, the files, the testset PSNR against a
+    direct render_image + compute_metrics of the final state, the loop's
+    rays/s beside scan_steps' on the same configuration, eval seconds a
+    view and peak memory. Then one loop step (draw + train_step) of each
+    draw under set_sync_debug_mode: no waits. K2's launch counter is
+    zeroed just before the mega run and read just after. Returns
+    {"fused_train_level": launches}."""
+    import shutil
+    import tempfile
+
+    from nerf_projects_tpu_torch.core.rays import Rays, camera_rays, ndc_rays
+    from nerf_projects_tpu_torch.obs.metrics import compute_metrics
+    from nerf_projects_tpu_torch.ops.kernels import fused_train as ft
+    from nerf_projects_tpu_torch.train import loop
+
+    lego, fern = loop_scenes(dev)
+    torch.cuda.synchronize()
+    routes = {
+        "batching": (lego, {}, None),
+        "resumed": (lego, {}, None),
+        "no_batching": (lego, dict(no_batching=True, precrop_iters=20), None),
+        "mega": (lego, {}, dict(use_fused_mlp=True, use_mega=True, compute_dtype=torch.bfloat16)),
+        "ndc": (fern, dict(white_bkgd=False), None),
+    }
+    launches = {}
+    with tempfile.TemporaryDirectory() as base:
+        for name, ((scene, test_scene), kw, trainer_kwargs) in routes.items():
+            cfg = loop_config(base, name, **kw)
+            exp = os.path.join(base, name)
+            if name == "resumed":
+                os.makedirs(os.path.join(exp, "checkpoints"))
+                saved = os.path.join(exp, "checkpoints", f"{30:09d}.pt")
+                shutil.copy(os.path.join(base, "batching", "checkpoints", f"{30:09d}.pt"), saved)
+            torch.cuda.reset_peak_memory_stats(dev)
+            ft.fused_train_level.launches = 0
+            t0 = time.perf_counter()
+            trainer, state = loop.train(cfg, max_iters=LOOP_STEPS, scene=scene, test_scene=test_scene,
+                                        trainer_kwargs=trainer_kwargs, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[name] = ft.fused_train_level.launches
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            tag = f"train_nerf_loop {name}"
+            if trainer_kwargs:
+                # the route's step at the loop's levels (S 64 and 192) against
+                # the host's plain path, perturb off, on pool rays drawn from a seed
+                check = loop_config(base, "check", perturb=0.0, **kw)
+                on_card = loop.make_trainer(check, scene, trainer_kwargs, dev)
+                if not (on_card.use_fused_mlp and on_card.use_mega):
+                    raise AssertionError(f"{tag}: a kernel gate refused the loop's configuration")
+                pool, pool_rgb = loop._build_ray_pool(scene, dev)
+                pick = torch.randperm(pool_rgb.shape[0], generator=torch.Generator().manual_seed(SEED + 31))
+                pick = pick[:CHECK_RAYS].to(dev)
+                hold_step(f"{tag}: one step of {CHECK_RAYS} rays (S {LOOP_COARSE} + {LOOP_FINE})", on_card,
+                          loop.make_trainer(check, scene, trainer_kwargs, "cpu"), pool.map(lambda t: t[pick]),
+                          pool_rgb[pick])
+                del on_card, pool, pool_rgb
+            log_rows = read_jsonl(os.path.join(exp, "training_log.jsonl"))
+            losses = [r["loss"] for r in log_rows]
+            steps = [r["step"] for r in log_rows]
+            want_steps = [40, 60] if name == "resumed" else [20, 40, 60]
+            if steps != want_steps or state.step != LOOP_STEPS:
+                raise AssertionError(f"{tag}: logged steps {steps}, state at {state.step}")
+            if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+                raise AssertionError(f"{tag}: the loss is not finite or did not fall: {losses}")
+            files = ["training_log.jsonl", "training_log.csv", "metrics_log.json",
+                     f"checkpoints/{60:09d}.pt", f"testset_{60:06d}/metrics.json"]
+            files += [] if name == "resumed" else [f"checkpoints/{30:09d}.pt"]
+            missing = [p for p in files if not os.path.exists(os.path.join(exp, p))]
+            if missing:
+                raise AssertionError(f"{tag}: missing {missing}")
+            if name == "resumed":
+                ckpt = torch.load(saved, map_location="cpu", weights_only=True)
+                restored = loop.load_checkpoint(saved, trainer.init_state(0))
+                got, want = restored.optimizer.state_dict()["state"], ckpt["optimizer"]["state"]
+                same = (restored.step == ckpt["step"] == 30
+                        and all(torch.equal(v.cpu(), sd[k]) for model, sd in zip(restored.params, ckpt["models"])
+                                for k, v in model.state_dict().items())
+                        and sorted(got) == sorted(want) and len(want) > 0
+                        and all(torch.equal(got[k][m].cpu(), v[m]) for k, v in want.items()
+                                for m in ("step", "exp_avg", "exp_avg_sq"))
+                        and torch.equal(restored.generator.get_state(), ckpt["generator"]))
+                log(f"{tag}: started at 30 (logged steps {steps}); restored models, Adam moments and generator "
+                    f"equal to the checkpoint: {same}")
+                if not same:
+                    raise AssertionError(f"{tag}: the restored state is not the checkpoint's")
+            # the testset metrics against a direct render of the final state
+            with open(os.path.join(exp, f"testset_{60:06d}", "metrics.json")) as f:
+                psnr = json.load(f)["per_image"][0]["psnr"]
+            H, W = test_scene.height, test_scene.width
+            rays = camera_rays(H, W, test_scene.intrinsics, test_scene.poses[0], device=dev)
+            if test_scene.ndc:
+                o, d = ndc_rays(H, W, test_scene.focal, 1.0, rays.origins, rays.directions)
+                rays = Rays(o, d, rays.viewdirs)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            direct = compute_metrics(trainer.render_image(state.params, rays)["rgb"], test_scene.images[0])["psnr"]
+            eval_s = time.perf_counter() - t1
+            if not abs(psnr - direct) <= PSNR_TOL_DB:
+                raise AssertionError(f"{tag}: metrics.json PSNR {psnr} against a direct render's {direct}")
+            # scan_steps on the same configuration, from a fresh state
+            pool, pool_rgb = loop._build_ray_pool(scene, dev)
+            fresh = trainer.init_state(0)
+            trainer.scan_steps(fresh, pool, pool_rgb, 2, batch_size=TRAIN_RAYS)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            trainer.scan_steps(fresh, pool, pool_rgb, LOOP_SCAN_STEPS, batch_size=TRAIN_RAYS)
+            torch.cuda.synchronize()
+            scan = LOOP_SCAN_STEPS * TRAIN_RAYS / (time.perf_counter() - t1)
+            log(f"{tag} on {card}: {LOOP_STEPS - (30 if name == 'resumed' else 0)} steps in {wall:.3f} s "
+                f"(eval and checkpoints included); loop {log_rows[-1]['rays_per_sec']:.1f} rays/s over steps "
+                f"{steps[-2]}-60 beside scan_steps {scan:.1f} rays/s; loss {losses[0]:.6f} -> {losses[-1]:.6f}; "
+                f"testset PSNR {psnr:.4f} dB (direct {direct:.4f}); eval {eval_s:.3f} s a {H}x{W} view; "
+                f"peak allocated {peak:.3f} GB; K2 launches {launches[name]}")
+            if name == "batching":
+                draws = [(loop.make_draw(cfg, scene, dev), False)]
+                nb = loop_config(base, "waits", no_batching=True, precrop_iters=20)
+                draws += [(loop.make_draw(nb, scene, dev), True), (loop.make_draw(nb, scene, dev), False)]
+                gen = torch.Generator(device=dev).manual_seed(1)
+                for i, (draw, in_precrop) in enumerate(draws):
+                    check_waits(f"train_nerf_loop: one loop step, draw {i}",
+                                lambda: trainer.train_step(state, *draw(gen, in_precrop)), 0)
+            del trainer, state, fresh, pool, pool_rgb
+    if launches["mega"] != 2 * LOOP_STEPS or any(v for k, v in launches.items() if k != "mega"):
+        raise AssertionError(f"train_nerf_loop: K2 launches {launches} (2 a step on the mega route only)")
+    return {"fused_train_level": launches["mega"]}
+
+
+def phase_train_nerf_sh_cli(dev, card: str) -> dict:
+    """``cli/train_nerf_sh.py::train_main`` at sh_deg 3, full width (8x256),
+    64 + 128 samples, 1,024 rays a step and use_fused_trunk, on
+    make_dataset(n_views=4, image_size=128) for LOOP_STEPS steps (print
+    20, save 30, render 60); then ``cli/eval_nerf_sh.py::evaluate`` from
+    checkpoint.pt with flags.json restoring the model, save_output off.
+    The loss falls (the logged batch losses are printed; the step-60
+    render's MSE of view 0, free of batch noise, is held below the initial
+    model's), K5f and K5b launch (counters zeroed just before train_main,
+    read after each call), the three JSON files are written, and each
+    view's PSNR is render_image_sh's of the trained model."""
+    import tempfile
+
+    from nerf_projects_tpu_torch.cli.eval_nerf_sh import evaluate
+    from nerf_projects_tpu_torch.cli.nerf_sh_flags import NeRFSHFlags
+    from nerf_projects_tpu_torch.cli.train_nerf_sh import render_image_sh, train_main
+    from nerf_projects_tpu_torch.data.base import SceneData
+    from nerf_projects_tpu_torch.data.synthetic import make_dataset
+    from nerf_projects_tpu_torch.obs.metrics import compute_metrics
+    from nerf_projects_tpu_torch.ops.kernels import fused_sh_mlp as fsm
+
+    ds = make_dataset(n_views=4, image_size=128, seed=SEED, device=dev)
+    scene = SceneData(images=ds["images"].cpu().numpy(), poses=ds["poses"], intrinsics=ds["intrinsics"],
+                      near=ds["near"], far=ds["far"], white_bkgd=True)
+    with tempfile.TemporaryDirectory() as run:
+        flags = NeRFSHFlags(train_dir=run, sh_deg=SH_DEG, use_viewdirs=False, use_fused_trunk=True,
+                            batch_size=TRAIN_RAYS, print_every=20, save_every=30, render_every=LOOP_STEPS)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fsm.fused_sh_fwd.launches = fsm.fused_sh_bwd.launches = 0
+        t0 = time.perf_counter()
+        trainer, state, _, _ = train_main(flags, scene=scene, test_scene=scene, max_steps=LOOP_STEPS, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        train_counts = (fsm.fused_sh_fwd.launches, fsm.fused_sh_bwd.launches)
+        with open(os.path.join(run, "metrics_log.json")) as f:
+            entries = json.load(f)
+        rows = [e for e in entries if e["phase"] == "training"]
+        losses = [e["metrics"]["loss"] for e in rows]
+        mse = [e["metrics"]["mse"] for e in entries if e["phase"] == "evaluation"]
+        init = trainer.init_state(20200823).model  # train_main's seed
+        mse.insert(0, compute_metrics(render_image_sh(trainer, init, scene, 0, chunk=flags.chunk, device=dev),
+                                      scene.images[0])["mse"])
+        del init
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        fsm.fused_sh_fwd.launches = 0
+        summary = evaluate(NeRFSHFlags(train_dir=run, save_output=False), scene=scene, device=dev)
+        eval_fwd = fsm.fused_sh_fwd.launches
+        files = ["checkpoint.pt", "flags.json", "timings.txt", "nerf_evaluation_steps.json",
+                 "nerf_evaluation_summary.json", "nerf_evaluation_final.json"]
+        missing = [p for p in files if not os.path.exists(os.path.join(run, p))]
+        with open(os.path.join(run, "nerf_evaluation_steps.json")) as f:
+            per_image = json.load(f)
+    tag = "train_nerf_sh_cli"
+    log(f"{tag} on {card}: {LOOP_STEPS} steps in {wall:.3f} s (render and checkpoints included), "
+        f"{rows[-1]['additional_info']['timing']['rays_per_sec']:.1f} rays/s over steps 40-60; loss "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f} (steps 20, 60); view 0's MSE {mse[0]:.6f} at init -> "
+        f"{mse[-1]:.6f} at step 60; peak allocated {peak:.3f} GB; K5f, K5b launches {train_counts}; "
+        f"evaluate: {summary['n_images']} views of {scene.height}x{scene.width} at {summary['rays_per_sec']:.1f} rays/s, PSNR "
+        f"{summary['psnr']:.4f} dB, {eval_fwd} K5f launches")
+    if missing:
+        raise AssertionError(f"{tag}: missing {missing}")
+    if min(train_counts) <= 0 or eval_fwd <= 0:
+        raise AssertionError(f"{tag}: K5f / K5b launches {train_counts}, {eval_fwd} in evaluate")
+    if not all(np.isfinite(losses + mse)) or len(mse) != 2 or not mse[1] < mse[0]:
+        raise AssertionError(f"{tag}: the loss is not finite or did not fall: {losses}, view 0's MSE {mse}")
+    if summary["n_images"] != 4:
+        raise AssertionError(f"{tag}: evaluate scored {summary['n_images']} views")
+    for m in per_image:
+        v = m["image_index"]
+        want = compute_metrics(render_image_sh(trainer, state.model, scene, v, chunk=flags.chunk, device=dev),
+                               scene.images[v])["psnr"]
+        if not abs(m["psnr"] - want) <= PSNR_TOL_DB:
+            raise AssertionError(f"{tag}: view {v} PSNR {m['psnr']} against render_image_sh's {want}")
+    return {"fused_sh_fwd": train_counts[0] + eval_fwd, "fused_sh_bwd": train_counts[1]}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -3518,6 +3830,8 @@ def main() -> int:
     sh_counts = phase_train_nerf_sh(dev, card)
     sh_fwd["launches"] = sh_serve + sh_counts["fused_sh_fwd"]
     sh_bwd["launches"] = sh_counts["fused_sh_bwd"]
+    loop_counts = phase_train_nerf_loop(dev, card)
+    cli_counts = phase_train_nerf_sh_cli(dev, card)
     kernels += [sh_fwd, sh_bwd, raw_fwd, raw_bwd]
 
     def levels(serving, training):  # each request or step launches a coarse and a fine level
@@ -3528,7 +3842,8 @@ def main() -> int:
     rule2({
         "fused_mlp_fwd": levels(kernels[0]["launches"], launches["fused_mlp_fwd"]),
         "fused_mlp_bwd": levels(0, kernels[1]["launches"]),
-        "fused_train_level": {"training step": kernels[2]["launches"] / 2},
+        "fused_train_level": {"training step": kernels[2]["launches"] / 2,
+                              "loop step": loop_counts["fused_train_level"] / 2},
         "tile_march_fwd": {**frame_launches, **train_launches["tile_march_fwd"]},
         "tile_march_bwd": train_launches["tile_march_bwd"],
         "fused_sh_fwd": levels(sh_serve, sh_counts["fused_sh_fwd"]),
@@ -3537,6 +3852,12 @@ def main() -> int:
                                     raw_counts["fused_mlp_raw_fwd"]),
         "fused_mlp_raw_bwd": levels(0, raw_bwd["launches"]),
     })
+    # the loop's and the NeRF-SH CLI's launches join the kernels line (rule 2
+    # above reads K2's loop launches at the loop's levels; the CLI's K5
+    # launches mix its training steps and renders, so they stay out of it)
+    kernels[2]["launches"] += loop_counts["fused_train_level"]
+    sh_fwd["launches"] += cli_counts["fused_sh_fwd"]
+    sh_bwd["launches"] += cli_counts["fused_sh_bwd"]
     log(f"chip_smoke: wall {time.perf_counter() - t0:.1f} s, build {build_s:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

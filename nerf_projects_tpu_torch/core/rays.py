@@ -93,6 +93,34 @@ def camera_rays_opencv(
     return Rays(origins=origins, directions=directions, viewdirs=directions)
 
 
+def ndc_rays(
+    height: int,
+    width: int,
+    focal: float,
+    near: float,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+):
+    """Shift rays to the near plane and warp them into OpenGL NDC space
+    (reference nerf/nerf_helpers.py:311-369, the jaxnerf variant
+    plenoctree/nerf_sh/nerf/datasets.py:40-60): forward-facing (LLFF)
+    scenes, rays with negative z in camera space, fx == fy == focal."""
+    t = -(near + origins[..., 2]) / directions[..., 2]
+    origins = origins + t[..., None] * directions
+
+    ox, oy, oz = origins[..., 0], origins[..., 1], origins[..., 2]
+    dx, dy, dz = directions[..., 0], directions[..., 1], directions[..., 2]
+
+    o0 = -1.0 / (width / (2.0 * focal)) * ox / oz
+    o1 = -1.0 / (height / (2.0 * focal)) * oy / oz
+    o2 = 1.0 + 2.0 * near / oz
+    d0 = -1.0 / (width / (2.0 * focal)) * (dx / dz - ox / oz)
+    d1 = -1.0 / (height / (2.0 * focal)) * (dy / dz - oy / oz)
+    d2 = -2.0 * near / oz
+
+    return torch.stack([o0, o1, o2], dim=-1), torch.stack([d0, d1, d2], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Pose path helpers (host-side numpy)
 # ---------------------------------------------------------------------------

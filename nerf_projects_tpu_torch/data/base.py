@@ -1,10 +1,9 @@
 """Dataset container and auto-detection (port of
 ``nerf_projects_tpu/data/base.py``).
 
-Host-side numpy throughout. The port loads Blender scenes
-(``data/blender.py``); ``detect_dataset_type`` recognises every format
-the JAX package does, and ``load_scene`` raises NotImplementedError for
-the ones not ported yet (llff, nsvf, deepvoxels, linemod).
+Host-side numpy throughout: ``load_scene`` dispatches to the Blender,
+LLFF, NSVF, DeepVoxels and LINEMOD loaders (``data/*.py``) by
+``detect_dataset_type``.
 """
 from __future__ import annotations
 
@@ -73,10 +72,26 @@ def detect_dataset_type(root: str) -> str:
 
 
 def load_scene(root: str, split: str = "train", **kwargs) -> SceneData:
-    """Load a scene by auto-detection; only Blender is ported."""
+    """Load any supported dataset by auto-detection."""
     kind = detect_dataset_type(root)
     if kind == "blender":
         from nerf_projects_tpu_torch.data.blender import load_blender
 
         return load_blender(root, split, **kwargs)
-    raise NotImplementedError(f"the {kind} loader is not ported yet (ROADMAP, Queue 1)")
+    if kind == "llff":
+        from nerf_projects_tpu_torch.data.llff import load_llff
+
+        return load_llff(root, split, **kwargs)
+    if kind == "nsvf":
+        from nerf_projects_tpu_torch.data.nsvf import load_nsvf
+
+        return load_nsvf(root, split, **kwargs)
+    if kind == "deepvoxels":
+        from nerf_projects_tpu_torch.data.deepvoxels import load_deepvoxels
+
+        return load_deepvoxels(root, split, **kwargs)
+    if kind == "linemod":
+        from nerf_projects_tpu_torch.data.linemod import load_linemod
+
+        return load_linemod(root, split, **kwargs)
+    raise ValueError(kind)

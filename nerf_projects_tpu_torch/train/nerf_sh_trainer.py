@@ -42,6 +42,10 @@ class SHTrainState:
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
 
+    @property
+    def models(self) -> tuple:  # what a checkpoint holds (train/checkpoint.py)
+        return (self.model,)
+
 
 def _psnr(mse: torch.Tensor) -> torch.Tensor:
     return -10.0 * torch.log(mse) / math.log(10.0)

@@ -62,6 +62,10 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
 
+    @property
+    def models(self) -> Params:  # what a checkpoint holds (train/checkpoint.py)
+        return self.params
+
 
 def _module_apply(model: NeRFMLP, pts_enc, views_enc=None):
     return model(pts_enc, views_enc)

@@ -105,3 +105,31 @@ def test_eval_and_background_phases_are_callable_and_import_only_the_port(name):
         for used in ("train_step_bg", "train_step_with_basis", "check_waits", "build_neighbor_links",
                      "ReferenceBackground", "timed_steps"):
             assert used in src, used
+
+
+@pytest.mark.parametrize("name,used", [
+    ("phase_train_nerf_loop", ("loop.train", "trainer_kwargs", "use_mega", "fern", "load_checkpoint",
+                               "make_draw", "check_waits", "scan_steps", "compute_metrics", "render_image",
+                               "hold_step", "make_trainer")),
+    ("phase_train_nerf_sh_cli", ("train_main", "evaluate", "use_fused_trunk=True", "save_output=False",
+                                 "render_image_sh", "fused_sh_fwd.launches", "fused_sh_bwd.launches")),
+])
+def test_loop_and_sh_cli_phases_are_callable_and_import_only_the_port(name, used):
+    """The training loop's phase and the NeRF-SH CLIs' phase exist with the
+    other phases' signature, chip_mutants.py runs each, a mutant must fail
+    each, and neither imports anything of the JAX package."""
+    fn = getattr(chip_smoke, name)
+    assert callable(fn) and list(inspect.signature(fn).parameters) == ["dev", "card"]
+    phase = name[len("phase_"):]
+    assert phase in {n for n, _ in PHASES}
+    assert any(m[3] == (phase,) for m in chip_mutants.MUTANTS.values())
+    src = inspect.getsource(fn)
+    for node in ast.walk(ast.parse(src)):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+        for mod in names:
+            assert not mod.startswith("jax") and (not mod.startswith("nerf_projects_tpu")
+                                                  or mod.startswith("nerf_projects_tpu_torch")), mod
+    for u in used:
+        assert u in src, u
+    assert name + "(dev, card)" in inspect.getsource(chip_smoke.main)

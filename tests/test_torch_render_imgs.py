@@ -23,6 +23,7 @@ from nerf_projects_tpu_torch.core.rays import pose_spherical
 from nerf_projects_tpu_torch.data.base import detect_dataset_type, load_scene
 from nerf_projects_tpu_torch.models.sparse_grid import SparseGrid
 from nerf_projects_tpu_torch.ops.grid import GridRenderOptions
+from tests.test_data import llff_root  # noqa: F401
 
 SIZE = 24
 
@@ -58,7 +59,7 @@ def scene_and_grid(tmp_path_factory):
     return root, ckpt
 
 
-def test_blender_loader_matches_jax(scene_and_grid):
+def test_blender_loader_matches_jax(scene_and_grid, llff_root):
     root, _ = scene_and_grid
     assert detect_dataset_type(root) == jax_detect(root) == "blender"
     for split in ("train", "test"):
@@ -70,10 +71,12 @@ def test_blender_loader_matches_jax(scene_and_grid):
         assert (got.near, got.far, got.white_bkgd, got.meta) == (want.near, want.far, want.white_bkgd, want.meta)
         np.testing.assert_array_equal(tri._to_opencv_pose(got.poses[0], got),
                                       jax_to_opencv_pose(want.poses[0], want))
-    os.makedirs(os.path.join(root, "llff"), exist_ok=True)
-    np.save(os.path.join(root, "llff", "poses_bounds.npy"), np.zeros((1, 17)))
-    with pytest.raises(NotImplementedError, match="llff"):
-        load_scene(os.path.join(root, "llff"))
+    # load_scene dispatches beyond Blender: an LLFF root loads as the JAX package loads it
+    assert detect_dataset_type(llff_root) == jax_detect(llff_root) == "llff"
+    got, want = load_scene(llff_root, factor=1), jax_load_scene(llff_root, factor=1)
+    for name in ("images", "poses", "intrinsics", "render_poses"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name), err_msg=name)
+    assert (got.near, got.far, got.ndc) == (want.near, want.far, want.ndc) == (0.0, 1.0, True)
 
 
 def test_exact_route_matches_the_jax_render(scene_and_grid):
