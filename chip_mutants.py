@@ -18,6 +18,9 @@ keeping the smallest weights (plain torch, ops/grid.py; the
 render_plenoxels_eval phase); the training loop's checkpoint restore
 without Adam's state and the NeRF-SH evaluate scoring every view against
 view 0 (plain torch; the train_nerf_loop and train_nerf_sh_cli phases);
+the PlenOctree march's early stop dropping a ray's last active sample and
+extraction keeping a leaf's first sample's sigma instead of the mean
+(plain torch; the plenoctree phase, on a fresh train_nerf_sh_cli run);
 the wgmma core's (mlp_sm90.cuh: K1f, K1b, K1rf, K1rb, K2, K5f
 and K5b) include the concat, the relu mask, the stage ring, the dW jobs
 (K1's and K5b's), the view encoder, the encoding stash, K1rb's, K1b's and
@@ -233,6 +236,18 @@ MUTANTS = {
         "m = compute_metrics(img, scene.images[0])",
         ("train_nerf_sh_cli",),
     ),
+    "the octree march's early stop drops each ray's last active sample (ops/octree_render.py)": (
+        "nerf_projects_tpu_torch/ops/octree_render.py",
+        "active = T > opts.stop_thresh  # a prefix of each ray's samples",
+        "active = T * torch.exp(-tau) > opts.stop_thresh  # a prefix of each ray's samples",
+        ("plenoctree",),
+    ),
+    "extraction's step 2 averages the coefficients but keeps the first sample's sigma (pipeline/extraction.py)": (
+        "nerf_projects_tpu_torch/pipeline/extraction.py",
+        "rgba = _mean_over_samples(torch.cat([coeffs, sigma], -1))",
+        "rgba = torch.cat([_mean_over_samples(coeffs), sigma[:, 0]], -1)",
+        ("plenoctree",),
+    ),
     "the transmittance's backward without its division by the factor": (
         "nerf_projects_tpu_torch/ops/render.py",
         "return torch.flip(torch.cumsum(torch.flip(g * c, (-1,)), dim=-1), (-1,)) / f",
@@ -261,7 +276,8 @@ phases = {"kernel": lambda: c.phase_kernel(dev, fine_rows=65536),
           "render_plenoxels_eval": lambda: c.phase_render_plenoxels_eval(dev, c.nvidia_smi()),
           "train_plenoxels_bg": lambda: c.phase_train_plenoxels_bg(dev, c.nvidia_smi()),
           "train_nerf_loop": lambda: c.phase_train_nerf_loop(dev, c.nvidia_smi()),
-          "train_nerf_sh_cli": lambda: c.phase_train_nerf_sh_cli(dev, c.nvidia_smi())}
+          "train_nerf_sh_cli": lambda: c.phase_train_nerf_sh_cli(dev, c.nvidia_smi()),
+          "plenoctree": lambda: c.phase_plenoctree_on_a_run(dev, c.nvidia_smi())}
 for name in sys.argv[1:]:
     fn = phases[name]
     try:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's vanilla-NeRF, Plenoxels and NeRF-SH serving and
-training paths on one CUDA card.
+training paths and its PlenOctree pipeline on one CUDA card.
 
 Run from the repository root, with no arguments:
 
@@ -264,6 +264,27 @@ Phases, each of which raises (exit code 1) on failure:
           checkpoint.pt with flags.json restoring the model: K5f and K5b
           launches, view 0's MSE below the initial model's, the three
           JSON files, each view's PSNR against render_image_sh's.
+  plenoctree
+          the PlenOctree pipeline on train_nerf_sh_cli's run directory
+          (main keeps it for both phases): train_main resumed to 500
+          steps without the learning rate's delay, so that the density
+          passes the extraction's threshold; the masked share of the
+          autoscaled 512^3 cells (K5f on 134,217,728 rows) and the
+          depth-8 tree's size from them; octree_tools extract --autoscale
+          at depth 7 (OCTREE_EXTRACT_DEPTH says why; K5f at 65,536 rows
+          a launch), 4,096 finest
+          leaves held against the mean of their sample points through
+          K5f's plain version; evaluate (the exact octree march, 1,024
+          rays held against a step-at-a-time march on the host within
+          1e-4) and evaluate --fast; finetune_fast for one epoch (K3 +
+          K4; the baked grid's val PSNR must not fall); one
+          OctreeFinetuner SGD step on 1,024 rays against the host's step,
+          as updates; compress and compressed_eval (at most n_colors
+          palette entries a basis, PSNR within 0.5 dB of evaluate's);
+          gen_mesh --kind nerf_sh --reso 256 --iso 10; to_octree of
+          render_plenoxels' 512^3 shell grid, then octree_to_grid, every
+          occupied cell's density and SH back. The wall and peak of each
+          step are printed.
 
 Each MLP kernel is also timed at every level size its main paths launch
 it at (a serving request's and a training step's coarse and fine
@@ -278,6 +299,8 @@ WATCHDOG_S seconds.
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
 import copy
 import dataclasses
 import faulthandler
@@ -286,6 +309,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -3703,7 +3727,7 @@ def phase_train_nerf_loop(dev, card: str) -> dict:
     return {"fused_train_level": launches["mega"]}
 
 
-def phase_train_nerf_sh_cli(dev, card: str) -> dict:
+def phase_train_nerf_sh_cli(dev, card: str, run_dir=None) -> dict:
     """``cli/train_nerf_sh.py::train_main`` at sh_deg 3, full width (8x256),
     64 + 128 samples, 1,024 rays a step and use_fused_trunk, on
     make_dataset(n_views=4, image_size=128) for LOOP_STEPS steps (print
@@ -3713,9 +3737,8 @@ def phase_train_nerf_sh_cli(dev, card: str) -> dict:
     render's MSE of view 0, free of batch noise, is held below the initial
     model's), K5f and K5b launch (counters zeroed just before train_main,
     read after each call), the three JSON files are written, and each
-    view's PSNR is render_image_sh's of the trained model."""
-    import tempfile
-
+    view's PSNR is render_image_sh's of the trained model. ``run_dir``: the
+    run directory, kept by the caller (a temporary one when None)."""
     from nerf_projects_tpu_torch.cli.eval_nerf_sh import evaluate
     from nerf_projects_tpu_torch.cli.nerf_sh_flags import NeRFSHFlags
     from nerf_projects_tpu_torch.cli.train_nerf_sh import render_image_sh, train_main
@@ -3727,7 +3750,7 @@ def phase_train_nerf_sh_cli(dev, card: str) -> dict:
     ds = make_dataset(n_views=4, image_size=128, seed=SEED, device=dev)
     scene = SceneData(images=ds["images"].cpu().numpy(), poses=ds["poses"], intrinsics=ds["intrinsics"],
                       near=ds["near"], far=ds["far"], white_bkgd=True)
-    with tempfile.TemporaryDirectory() as run:
+    with contextlib.nullcontext(run_dir) if run_dir else tempfile.TemporaryDirectory() as run:
         flags = NeRFSHFlags(train_dir=run, sh_deg=SH_DEG, use_viewdirs=False, use_fused_trunk=True,
                             batch_size=TRAIN_RAYS, print_every=20, save_every=30, render_every=LOOP_STEPS)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3777,6 +3800,332 @@ def phase_train_nerf_sh_cli(dev, card: str) -> dict:
         if not abs(m["psnr"] - want) <= PSNR_TOL_DB:
             raise AssertionError(f"{tag}: view {v} PSNR {m['psnr']} against render_image_sh's {want}")
     return {"fused_sh_fwd": train_counts[0] + eval_fwd, "fused_sh_bwd": train_counts[1]}
+
+
+OCTREE_STEPS = 500          # the run's steps before extraction: train_nerf_sh_cli's 60, then 440 more
+OCTREE_DEPTH = 8            # octree_tools extract's --init_grid_depth default (a 512^3 step-1 grid)
+# The phase extracts at depth 7. At depth 8 the tree of this run (1,201,323
+# nodes, 1.884 GB of float32 data: under the 4 GB that would call for depth
+# 7 by size) took the phase ~300 s on the card's host (PERF.md §6, the
+# PlenOctree slice's first run): ~30 s of zlib for each save of its 0.9 GB
+# of float16 data, and ~170 s to compress it (15 median cuts over 9.6M
+# cells, then the files), which with the earlier phases' ~430 s passes the
+# 600 s watchdog.
+OCTREE_EXTRACT_DEPTH = 7
+OCTREE_HELD_LEAVES = 4096   # finest leaves held against K5f's plain version
+OCTREE_RAYS = 1024          # rays of the exact march's hold and of the SGD step's
+OCTREE_MARCH_TOL = 1e-4     # the sliced march against the step-at-a-time march: float32 sums in another order
+OCTREE_UPDATE_TOL = 1e-4    # SGD updates, card against host, of the largest update
+COMPRESS_PSNR_DB = 0.5      # compressed_eval's PSNR against evaluate's
+MESH_RESO = 256             # gen_mesh --reso default
+MESH_ISO = 10.0             # gen_mesh's default iso (25) is above this run's densities after 500 steps (largest 13.6)
+
+
+def octree_nodes(idx: torch.Tensor, reso: int, depth: int) -> int:
+    """The nodes of the tree that extraction refines ``depth`` times
+    around the flat C-order cells ``idx`` of its reso^3 step-1 grid: the
+    root and, at each depth m, the distinct blocks of 2^(depth + 1 - m)
+    cells a side that hold a masked cell."""
+    ijk = torch.stack([idx // (reso * reso), (idx // reso) % reso, idx % reso], -1)
+    n = 1
+    for s in range(1, depth + 1):
+        b = ijk >> s
+        side = reso >> s
+        n += int(torch.unique((b[:, 0] * side + b[:, 1]) * side + b[:, 2]).numel())
+    return n
+
+
+def octree_march_steps(tree, rays, opts):
+    """The exact octree march in numpy on the host, one step at a time
+    over all rays, the transmittance carried sample by sample (the JAX
+    package's scan), with its own descent of the tree: the independent
+    reference of ops/octree_render.py's sliced march. -> (rgb, acc)."""
+    from nerf_projects_tpu_torch.ops.octree_render import default_max_steps, infer_sh_deg
+    from nerf_projects_tpu_torch.ops.sh import eval_sh_bases
+
+    B = (infer_sh_deg(tree.data_dim) + 1) ** 2
+    child = tree.child_host.reshape(-1)
+    data = tree.data.detach().cpu().numpy().reshape(-1, tree.data_dim)
+    inv, off = tree.invradius, tree.offset
+    origins, dirs = (t.cpu().numpy() for t in (rays.origins, rays.directions))
+    basis = eval_sh_bases(B, rays.viewdirs.cpu()).numpy()
+
+    def cell(node, pos):  # node * 8 + the octant of pos in [0, 1)^3
+        bit = pos >= 0.5
+        return node * 8 + bit[:, 0] * 4 + bit[:, 1] * 2 + bit[:, 2], bit
+
+    def query(p):
+        t = p * inv + off
+        inside = np.all((t >= 0.0) & (t < 1.0), axis=-1)
+        pos = np.clip(t, 0.0, np.float32(1.0 - 1e-7))
+        node = np.zeros(len(p), np.int64)
+        for _ in range(tree.depth_limit):
+            flat, bit = cell(node, pos)
+            rel = child[flat]
+            pos = np.where((rel == 0)[:, None], pos, pos * 2 - bit)
+            node = node + rel
+        return np.where(inside[:, None], data[cell(node, pos)[0]], 0.0)
+
+    o, d = origins * inv + off, dirs * inv
+    world_len = np.linalg.norm(dirs, axis=-1)
+    dt = opts.step_size / np.maximum(np.linalg.norm(d, axis=-1), 1e-12)
+    inv_d = 1.0 / np.where(np.abs(d) < 1e-12, 1e-12, d)
+    t_lo, t_hi = -o * inv_d, (1.0 - o) * inv_d
+    t0 = np.maximum(np.max(np.minimum(t_lo, t_hi), -1), 0.0)
+    t1 = np.min(np.maximum(t_lo, t_hi), -1)
+    n = len(o)
+    log_T, rgb, acc = np.zeros(n, np.float32), np.zeros((n, 3), np.float32), np.zeros(n, np.float32)
+    for k in range(default_max_steps(opts.step_size)):
+        t = t0 + np.float32(k) * dt
+        if (t >= t1).all():
+            break  # every ray is past its exit: nothing is left to add
+        valid = (t < t1) & (t1 > t0)
+        vals = query((o + t[:, None] * d - off) / inv)
+        sigma = np.maximum(vals[:, -1], 0.0)
+        sigma = np.where(valid & (sigma > opts.sigma_thresh), sigma, 0.0)
+        c = 1.0 / (1.0 + np.exp(-np.einsum("rcb,rb->rc", vals[:, : 3 * B].reshape(n, 3, B), basis)))
+        T = np.exp(log_T)
+        active = T > opts.stop_thresh
+        tau = sigma * dt * world_len
+        w = np.where(active, T * (1.0 - np.exp(-tau)), 0.0)
+        rgb, acc = rgb + w[:, None] * c, acc + w
+        log_T = log_T - np.where(active, tau, 0.0)
+    return (torch.from_numpy(np.float32(rgb + (1.0 - acc[:, None]) * opts.background_brightness)),
+            torch.from_numpy(np.float32(acc)))
+
+
+class step_clock:
+    """Wall seconds, the card's peak allocated GB and the process's peak
+    resident GB so far of a block of steps, logged as one line."""
+
+    def __init__(self, tag: str, dev):
+        self.tag, self.dev = tag, dev
+
+    def __enter__(self):
+        torch.cuda.synchronize(self.dev)
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize(self.dev)
+        self.wall = time.perf_counter() - self.t0
+        if exc[0] is None:
+            log(f"plenoctree: {self.tag}: {self.wall:.3f} s, peak allocated "
+                f"{torch.cuda.max_memory_allocated(self.dev) / 1e9:.3f} GB, host peak {host_peak_gb():.3f} GB")
+
+
+def phase_plenoctree(dev, card: str, run_dir: str) -> dict:
+    """The PlenOctree pipeline through the port's CLIs on the NeRF-SH run
+    in ``run_dir`` (train_nerf_sh_cli's): the steps of the module
+    docstring's ``plenoctree``. Returns this phase's K5f, K5b, K3 and K4
+    launches (counters zeroed just before its first step, read after its
+    last)."""
+    from nerf_projects_tpu_torch.cli import gen_mesh, octree_tools
+    from nerf_projects_tpu_torch.cli.nerf_sh_flags import NeRFSHFlags
+    from nerf_projects_tpu_torch.cli.train_nerf_sh import train_main
+    from nerf_projects_tpu_torch.core.rays import camera_rays
+    from nerf_projects_tpu_torch.data.base import SceneData
+    from nerf_projects_tpu_torch.data.synthetic import make_dataset
+    from nerf_projects_tpu_torch.models import grid_lifecycle as gl
+    from nerf_projects_tpu_torch.models.octree import PlenOctree
+    from nerf_projects_tpu_torch.ops.kernels import fused_sh_mlp as fsm
+    from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
+    from nerf_projects_tpu_torch.ops.octree_render import OctreeRenderOptions, volume_render_octree
+    from nerf_projects_tpu_torch.pipeline.extraction import auto_scale, sigma_grid
+    from nerf_projects_tpu_torch.pipeline.optimization import OctreeFinetuner, finetune_fast
+
+    tag = "plenoctree"
+    ds = make_dataset(n_views=4, image_size=128, seed=SEED, device=dev)
+    scene = SceneData(images=ds["images"].cpu().numpy(), poses=ds["poses"], intrinsics=ds["intrinsics"],
+                      near=ds["near"], far=ds["far"], white_bkgd=True)
+    del ds
+    parse = octree_tools.build_parser().parse_args
+    tree_path, comp_path = os.path.join(run_dir, "octree.npz"), os.path.join(run_dir, "octree_compressed.npz")
+    fsm.fused_sh_fwd.launches = fsm.fused_sh_bwd.launches = 0
+    tm.tile_march_fwd.launches = tm.tile_march_bwd.launches = 0
+    t_phase = time.perf_counter()
+
+    # (0) the run trained on, without the schedule's 2,500-step delay
+    with step_clock(f"train_main resumed to step {OCTREE_STEPS}", dev):
+        flags = NeRFSHFlags(train_dir=run_dir, sh_deg=SH_DEG, use_viewdirs=False, use_fused_trunk=True,
+                            batch_size=TRAIN_RAYS, lr_delay_steps=0, print_every=100, save_every=OCTREE_STEPS,
+                            render_every=0)
+        train_main(flags, scene=scene, test_scene=scene, max_steps=OCTREE_STEPS, device=dev)
+    _, model = octree_tools._load_model(argparse.Namespace(train_dir=run_dir, data_dir=None, config=None), dev)
+
+    # (1) the masked share at 512^3 and the depth-8 tree's size
+    with step_clock("autoscale at 256^3 and sigma at 512^3 (the depth probe)", dev):
+        center, radius = auto_scale(model.eval_points_raw, (0.0, 0.0, 0.0), (1.5,) * 3, init_grid_depth=8,
+                                    device=dev)
+        probe = PlenOctree.create(1, center=center, radius=[r * 1.05 for r in radius], device=dev)
+        reso = 2 ** (OCTREE_DEPTH + 1)
+        sigma, _ = sigma_grid(model.eval_points_raw, reso, probe.invradius, probe.offset, 65536, dev)
+        idx = torch.nonzero(sigma >= float(-np.log(1.0 - 0.01) / (2.0 / reso)))[:, 0]
+        sigma_max = float(sigma.max())
+        above_iso = float((sigma >= MESH_ISO).float().mean())
+        del sigma
+        nodes = octree_nodes(idx, reso, OCTREE_DEPTH)
+        share = idx.numel() / reso**3
+        del idx
+    data_bytes = nodes * 8 * (3 * (SH_DEG + 1) ** 2 + 1) * 4
+    depth = OCTREE_EXTRACT_DEPTH
+    log(f"{tag}: box center {np.round(center, 4).tolist()} radius {np.round(radius, 4).tolist()} (x1.05); "
+        f"masked share of the 512^3 cells {share:.6f}, largest sigma {sigma_max:.3f}, share >= {MESH_ISO} "
+        f"{above_iso:.6f}; the depth-8 tree: {nodes} nodes, {data_bytes / 1e9:.3f} GB of float32 data; "
+        f"extraction at depth {depth} (the watchdog, above)")
+    if share <= 0:
+        raise AssertionError(f"{tag}: no cell of the run's field passes the extraction threshold")
+
+    # (2) extract through the CLI, then 4,096 finest leaves against K5f's plain version
+    stats = {}
+    with step_clock(f"octree_tools extract --autoscale --init_grid_depth {depth}", dev):
+        tree = octree_tools.cmd_extract(parse(["extract", "--train_dir", run_dir, "--output", tree_path,
+                                               "--autoscale", "--init_grid_depth", str(depth)]),
+                                        device=dev, stats=stats)
+    log(f"{tag}: extract: {tree.n_nodes} nodes, {tree.n_leaves} leaves, {stats['finest_leaves']} finest, masked "
+        f"share of the {2 ** (depth + 1)}^3 step-1 cells {stats['masked_share']:.6f}; "
+        f"{os.path.getsize(tree_path) / 1e6:.1f} MB written")
+    clk = step_clock("the leaves' hold", dev).__enter__()
+    flat, depths, corners, sizes = tree.leaf_geometry()
+    finest = np.nonzero(depths == depths.max())[0][:OCTREE_HELD_LEAVES]
+    offs = np.random.default_rng(0).random((len(finest), 8, 3)).astype(np.float32)  # extract_octree's seed 0
+    unit = corners[finest][:, None, :] + offs.astype(np.float64) * sizes[finest][:, None, None]
+    world = torch.from_numpy(((unit - tree.offset) / tree.invradius).astype(np.float32).reshape(-1, 3)).to(dev)
+    with plain_sh(), torch.inference_mode():
+        coeffs, sig = model.eval_points_raw(world)
+    want = torch.cat([coeffs, sig], -1).reshape(len(finest), 8, -1).mean(1)
+    want[:, -1] = torch.relu(want[:, -1])
+    got = tree.data.reshape(-1, tree.data_dim)[torch.from_numpy(flat[finest]).to(dev)]
+    err = float((got - want).abs().max()) / (float(want.abs().mean()) + 1.0)
+    clk.__exit__(None, None, None)
+    log(f"{tag}: {len(finest)} finest leaves against the mean of their samples through K5f's plain version: "
+        f"max |err| / (mean |plain| + 1) {err:.3e} (tol {KERNEL_TOL})")
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"{tag}: extracted leaves {err:.3e} from K5f's plain version")
+
+    # (3) evaluate: the exact march (1,024 rays against the host's step-at-a-time march), then --fast
+    opts = OctreeRenderOptions()
+    ev = ["evaluate", "--input", tree_path, "--data_dir", "unused", "--train_dir", run_dir]
+    with step_clock("evaluate (exact octree march, 4 views of 128^2)", dev) as clk:
+        exact = octree_tools.cmd_evaluate(parse(ev), scene=scene, device=dev)
+    exact_ms = clk.wall * 1e3 / 4
+    saved = PlenOctree.load(tree_path, device=dev)  # the file evaluate read (float16 data)
+    rays = camera_rays(scene.height, scene.width, scene.intrinsics, scene.poses[1], device=dev)
+    rays = rays.map(lambda x: x.reshape(-1, 3))
+    with torch.inference_mode():
+        view_acc = torch.cat([volume_render_octree(saved, rays.map(lambda x: x[i:i + 8192]), opts)["acc"]
+                              for i in range(0, rays.origins.shape[0], 8192)]).cpu()
+    # rays that reach the density first (a ray through empty space checks little), in a seeded order
+    order = torch.randperm(view_acc.numel(), generator=torch.Generator().manual_seed(SEED))
+    sel = torch.cat([order[view_acc[order] > 0.05], order[view_acc[order] <= 0.05]])[:OCTREE_RAYS]
+    rays = rays.map(lambda x: x[sel.to(dev)])
+    with torch.inference_mode():
+        on_card = volume_render_octree(saved, rays, opts)
+    with step_clock(f"the host's step-at-a-time march of {OCTREE_RAYS} rays", dev):
+        ref_rgb, ref_acc = octree_march_steps(saved.to("cpu"), rays.map(lambda x: x.cpu()), opts)
+    march_err = max(float((on_card["rgb"].cpu() - ref_rgb).abs().max()),
+                    float((on_card["acc"].cpu() - ref_acc).abs().max()))
+    log(f"{tag}: evaluate: PSNR {exact['mean']['psnr']:.4f} dB, {exact_ms:.1f} ms a view; {OCTREE_RAYS} rays "
+        f"against the host's step-at-a-time march: max |err| {march_err:.3e} (tol {OCTREE_MARCH_TOL}), "
+        f"acc mean {float(ref_acc.mean()):.4f}")
+    if not march_err <= OCTREE_MARCH_TOL:
+        raise AssertionError(f"{tag}: the exact octree march is {march_err:.3e} from the step-at-a-time march")
+    with step_clock("evaluate --fast (bake, then the fast grid route)", dev) as clk:
+        fast = octree_tools.cmd_evaluate(parse(ev + ["--fast"]), scene=scene, device=dev)
+    log(f"{tag}: evaluate --fast: PSNR {fast['mean']['psnr']:.4f} dB, {clk.wall * 1e3 / 4:.1f} ms a view "
+        f"(the bake included)")
+
+    # (4) finetune_fast for one epoch (K3 + K4), then one SGD step against the host's
+    ft_stats = {}
+    k3, k4 = tm.tile_march_fwd.launches, tm.tile_march_bwd.launches
+    with step_clock("finetune_fast, 1 epoch", dev):
+        tuned = finetune_fast(saved, scene, scene, n_epochs=1, val_interval=1, stats=ft_stats)
+    k3, k4 = tm.tile_march_fwd.launches - k3, tm.tile_march_bwd.launches - k4
+    log(f"{tag}: finetune_fast: the baked grid's val PSNR {ft_stats['initial_val_psnr']:.4f} -> "
+        f"{ft_stats['val_psnr'][-1]:.4f} dB; K3, K4 launches {k3}, {k4}")
+    if not ft_stats["val_psnr"][-1] >= ft_stats["initial_val_psnr"] or min(k3, k4) <= 0:
+        raise AssertionError(f"{tag}: finetune_fast: val PSNR {ft_stats}, K3 / K4 launches {k3}, {k4}")
+    ft = OctreeFinetuner(opts, lr=1e7, chunk=OCTREE_RAYS)
+    target = torch.from_numpy(scene.images[1].reshape(-1, 3))[sel]
+    with step_clock(f"one SGD step on {OCTREE_RAYS} rays, card and host", dev):
+        new_card, _, mse_card = ft.step(tuned, tuned.data, None, rays, target.to(dev))
+        host = tuned.to("cpu")
+        new_host, _, mse_host = ft.step(host, host.data, None, rays.map(lambda x: x.cpu()), target)
+    du, dw = (new_card - tuned.data).cpu(), new_host - host.data
+    scale = float(dw.abs().max())
+    upd_err = float((du - dw).abs().max()) / max(scale, 1e-30)
+    log(f"{tag}: SGD step at lr 1e7 on {OCTREE_RAYS} rays: MSE {float(mse_card):.6f} (host {float(mse_host):.6f}); "
+        f"updates against the host's: max |err| / max |update| {upd_err:.3e} (tol {OCTREE_UPDATE_TOL}), "
+        f"max |update| {scale:.4e}")
+    if not (scale > 0 and upd_err <= OCTREE_UPDATE_TOL):
+        raise AssertionError(f"{tag}: the SGD step's updates are {upd_err:.3e} from the host's")
+    del new_card, new_host, host, du, dw, tuned
+
+    # (5) compress, then evaluate the compressed tree
+    with step_clock("compress (median cut, 65,536 colours a basis)", dev):
+        comp = octree_tools.cmd_compress(parse(["compress", "--input", tree_path, "--output", comp_path]),
+                                         device=dev)
+    z = np.load(comp_path)
+    palettes = [len(z[k]) for k in z.files if k.startswith("palette_")]
+    with step_clock("compressed_eval", dev):
+        cev = octree_tools.cmd_compressed_eval(parse(["compressed_eval", "--input", comp_path, "--data_dir", "unused"]),
+                                               scene=scene, device=dev)
+    log(f"{tag}: compress: ratio {comp['compression_ratio']:.3f} ({comp['compressed_bytes'] / 1e6:.1f} MB), "
+        f"palettes {min(palettes)}-{max(palettes)} entries over {len(palettes)} bases; compressed_eval PSNR "
+        f"{cev['mean']['psnr']:.4f} dB against evaluate's {exact['mean']['psnr']:.4f}")
+    if max(palettes) > 65536 or not abs(cev["mean"]["psnr"] - exact["mean"]["psnr"]) <= COMPRESS_PSNR_DB:
+        raise AssertionError(f"{tag}: compression: palettes up to {max(palettes)}, PSNR "
+                             f"{cev['mean']['psnr']} against {exact['mean']['psnr']}")
+
+    # (6) the mesh
+    obj = os.path.join(run_dir, "mesh.obj")
+    with step_clock(f"gen_mesh --kind nerf_sh --reso {MESH_RESO} --iso {MESH_ISO}", dev):
+        verts, tris = gen_mesh.main([run_dir, "--out", obj, "--kind", "nerf_sh", "--reso", str(MESH_RESO),
+                                     "--iso", str(MESH_ISO)])
+    log(f"{tag}: gen_mesh: {len(verts)} vertices, {len(tris)} triangles, {os.path.getsize(obj) / 1e6:.1f} MB OBJ")
+    if not (len(tris) > 0 and os.path.getsize(obj) > 0):
+        raise AssertionError(f"{tag}: gen_mesh wrote no surface")
+    counts = {"fused_sh_fwd": fsm.fused_sh_fwd.launches, "fused_sh_bwd": fsm.fused_sh_bwd.launches,
+              "tile_march_fwd": tm.tile_march_fwd.launches, "tile_march_bwd": tm.tile_march_bwd.launches}
+    del saved, tree, model
+
+    # (7) the grid -> octree -> grid round trip on the shell (svox2's to_svox1)
+    with step_clock("to_octree of the 512^3 shell, then octree_to_grid", dev):
+        grid = scene_sparse_grid(dev, shell=True)
+        rt = gl.to_octree(grid)
+        back = gl.octree_to_grid(rt, dilate=0)
+    occ = grid.links.reshape(-1) >= 0
+    rows, rows_back = grid.links.reshape(-1)[occ].long(), back.links.reshape(-1)[occ].long()
+    dens = grid.density_data[rows]
+    kept = dens[:, 0] > 0  # the bake keeps sigma > 0
+    lost = int((rows_back[kept] < 0).sum())
+    rb = rows_back[kept]
+    d_err = float((back.density_data[rb] - dens[kept]).abs().max())
+    s_err = float((back.sh_data[rb] - grid.sh_data[rows[kept]]).abs().max())
+    log(f"{tag}: round trip: {int(occ.sum())} occupied cells ({int(kept.sum())} with density > 0), tree "
+        f"{rt.n_nodes} nodes; lost {lost}; max |err| density {d_err:.3e}, SH {s_err:.3e}")
+    if lost or d_err > 0 or s_err > 0:
+        raise AssertionError(f"{tag}: the round trip lost {lost} cells, density off by {d_err}, SH by {s_err}")
+    del grid, rt, back
+    torch.cuda.empty_cache()
+    log(f"{tag} on {card}: phase wall {time.perf_counter() - t_phase:.1f} s; launches {counts}")
+    return counts
+
+
+def phase_plenoctree_on_a_run(dev, card: str) -> dict:
+    """train_nerf_sh_cli's run in a temporary directory, then the
+    plenoctree phase on it (as main runs them)."""
+    with tempfile.TemporaryDirectory() as run:
+        phase_train_nerf_sh_cli(dev, card, run_dir=run)
+        return phase_plenoctree(dev, card, run)
+
+
+def host_peak_gb() -> float:
+    """This process's peak resident memory (ru_maxrss), GB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
 
 
 def main() -> int:
@@ -3831,7 +4180,9 @@ def main() -> int:
     sh_fwd["launches"] = sh_serve + sh_counts["fused_sh_fwd"]
     sh_bwd["launches"] = sh_counts["fused_sh_bwd"]
     loop_counts = phase_train_nerf_loop(dev, card)
-    cli_counts = phase_train_nerf_sh_cli(dev, card)
+    with tempfile.TemporaryDirectory() as sh_run:  # the NeRF-SH run, kept for the PlenOctree phase
+        cli_counts = phase_train_nerf_sh_cli(dev, card, run_dir=sh_run)
+        octree_counts = phase_plenoctree(dev, card, sh_run)
     kernels += [sh_fwd, sh_bwd, raw_fwd, raw_bwd]
 
     def levels(serving, training):  # each request or step launches a coarse and a fine level
@@ -3852,12 +4203,16 @@ def main() -> int:
                                     raw_counts["fused_mlp_raw_fwd"]),
         "fused_mlp_raw_bwd": levels(0, raw_bwd["launches"]),
     })
-    # the loop's and the NeRF-SH CLI's launches join the kernels line (rule 2
-    # above reads K2's loop launches at the loop's levels; the CLI's K5
-    # launches mix its training steps and renders, so they stay out of it)
+    # the loop's, the NeRF-SH CLI's and the PlenOctree pipeline's launches
+    # join the kernels line (rule 2 above reads K2's loop launches at the
+    # loop's levels; the CLIs' K5 launches mix training steps, renders and
+    # extraction, and the pipeline's K3 / K4 launches finetuning's batches,
+    # so they stay out of it)
     kernels[2]["launches"] += loop_counts["fused_train_level"]
-    sh_fwd["launches"] += cli_counts["fused_sh_fwd"]
-    sh_bwd["launches"] += cli_counts["fused_sh_bwd"]
+    sh_fwd["launches"] += cli_counts["fused_sh_fwd"] + octree_counts["fused_sh_fwd"]
+    sh_bwd["launches"] += cli_counts["fused_sh_bwd"] + octree_counts["fused_sh_bwd"]
+    march["launches"] += octree_counts["tile_march_fwd"]
+    march_bwd["launches"] += octree_counts["tile_march_bwd"]
     log(f"chip_smoke: wall {time.perf_counter() - t0:.1f} s, build {build_s:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -17,8 +17,9 @@ These are host-staged events between training epochs, as the reference
 schedules them (opt.py:855-887): the masks and links are numpy and scipy
 (on both machines); the resampling runs on the grid's device.
 ``sparsify_background`` prunes a background MSI's texels (svox2.py:1426-1449).
-Not ported yet: ``to_octree`` and ``octree_to_grid`` (ROADMAP Queue 1 item
-12, the PlenOctree pipeline); each raises NotImplementedError.
+``to_octree`` exports the grid to a PlenOctree (svox2's ``to_svox1``) and
+``octree_to_grid`` bakes a tree into a grid at its finest resolution,
+both on the device of their input.
 """
 from __future__ import annotations
 
@@ -158,12 +159,115 @@ def resize(grid: SparseGrid, basis_dim: int) -> SparseGrid:
 
 
 def to_octree(grid: SparseGrid, *, depth: Optional[int] = None, sigma_thresh: float = 0.0):
-    raise NotImplementedError("to_octree needs the PlenOctree model, not ported yet (ROADMAP Queue 1 item 12)")
+    """Export the grid to a PlenOctree (svox2 ``to_svox1``, svox2.py:1630)
+    on the grid's device: a tree whose finest leaves align with the
+    occupied cells (density >= ``sigma_thresh`` when it is > 0), filled by
+    sampling the grid at those leaves' centres."""
+    from nerf_projects_tpu_torch.models.octree import PlenOctree, refine_at_points
+    from nerf_projects_tpu_torch.ops.grid import sample_grid
+
+    reso = grid.reso
+    if depth is None:
+        depth = int(np.ceil(np.log2(max(reso)))) - 1
+    dev = grid.device
+    tree = PlenOctree.create(3 * grid.basis_dim + 1, center=tuple(grid.center.tolist()),
+                             radius=tuple(grid.radius.tolist()), depth_limit=depth + 2, device=dev)
+    links = grid.links.reshape(-1)
+    occ = links >= 0
+    if sigma_thresh > 0:
+        dens = grid.density_data[torch.clamp(links, min=0).long(), 0]
+        occ = occ & (dens >= sigma_thresh)
+    X, Y, Z = reso
+    act = torch.nonzero(occ)[:, 0]
+    if act.numel() == 0:
+        return tree
+    act = torch.stack([act // (Y * Z), (act // Z) % Y, act % Z], dim=-1)
+    # the cell centres in the unit cube, then in the world, in float64 (the
+    # JAX package's numpy), handed to the descent as float32
+    unit = (act.double() + 0.5) / torch.tensor(reso, dtype=torch.float64, device=dev)
+    world = ((unit - torch.from_numpy(tree.offset.astype(np.float64)).to(dev))
+             / torch.from_numpy(tree.invradius.astype(np.float64)).to(dev)).float()
+    tree = refine_at_points(tree, world, depth)
+    return _fill_finest(tree, lambda pts: _grid_payload(grid, pts, sample_grid))
+
+
+def _grid_payload(grid: SparseGrid, pts: torch.Tensor, sample_grid) -> torch.Tensor:
+    density, sh = sample_grid(grid, pts)
+    return torch.cat([sh, torch.relu(density)], dim=-1)
+
+
+def _leaf_centres_world(tree, corners: np.ndarray, sizes: np.ndarray) -> np.ndarray:
+    """World float32 [L, 3] of the leaves' centres (float64 on the host, as
+    the JAX package computes them)."""
+    centres = corners + sizes[:, None] * 0.5
+    return ((centres - tree.offset) / tree.invradius).astype(np.float32)
+
+
+def _fill_finest(tree, payload_fn, batch: int = 262144):
+    """The tree with its finest leaves' data set to ``payload_fn`` (world
+    points [B, 3] on the tree's device -> [B, D]) at their centres."""
+    flat, depths, corners, sizes = tree.leaf_geometry()
+    finest = depths == depths.max()
+    world = _leaf_centres_world(tree, corners[finest], sizes[finest])
+    flat = torch.from_numpy(flat[finest]).to(tree.device)
+    data = tree.data.reshape(-1, tree.data_dim).clone()
+    for i in range(0, len(world), batch):
+        pts = torch.from_numpy(world[i:i + batch]).to(tree.device)
+        data[flat[i:i + batch]] = payload_fn(pts)
+    return tree.replace(data=data.reshape(tree.data.shape))
+
+
+def _axis_centres(reso: int, tree) -> list:
+    """Per axis, the world float32 coordinates of the reso cell centres:
+    ((i + 0.5) / reso - offset) / invradius in float64, as the JAX
+    package's meshgrid computes them."""
+    unit = (np.arange(reso) + 0.5) / reso
+    return [((unit - tree.offset[a]) / tree.invradius[a]).astype(np.float32) for a in range(3)]
 
 
 def octree_to_grid(tree, *, reso: Optional[int] = None, sigma_thresh: float = 0.0, dilate: int = 1,
-                   batch: int = 262144):
-    raise NotImplementedError("octree_to_grid needs the PlenOctree model, not ported yet (ROADMAP Queue 1 item 12)")
+                   batch: int = 262144) -> SparseGrid:
+    """Bake a PlenOctree into a SparseGrid at its finest resolution on the
+    tree's device: the tree queried at the cell centres, cells with relu'd
+    sigma > ``sigma_thresh`` kept, the mask dilated by ``dilate`` cells
+    (26-neighbourhood: a rim that keeps boundary trilerps' colours, as
+    resample dilates, svox2.py:1360), links in C order over the kept cells.
+    The JAX package's result, without its dense [reso^3, D] host array:
+    sigma first (reso^3 floats on the device), then the mask, its dilation
+    and the links, last the values of the kept cells only."""
+    if reso is None:
+        reso = int(2 ** tree.max_depth())
+    basis_dim = (tree.data_dim - 1) // 3
+    dev = tree.device
+    radius = (0.5 / tree.invradius).astype(np.float32)
+    center = ((0.5 - tree.offset) / tree.invradius).astype(np.float32)
+    axes = [torch.from_numpy(a).to(dev) for a in _axis_centres(reso, tree)]
+    n = reso ** 3
+
+    def points(idx):  # flat C-order cell indices -> world points
+        return torch.stack([axes[0][idx // (reso * reso)], axes[1][(idx // reso) % reso], axes[2][idx % reso]], -1)
+
+    sigma = torch.empty(n, dtype=torch.float32, device=dev)
+    for i in range(0, n, batch):
+        idx = torch.arange(i, min(i + batch, n), device=dev)
+        sigma[i:i + batch] = torch.relu(tree.query(points(idx), column=tree.data_dim - 1))
+    mask = sigma > sigma_thresh
+    if dilate > 0:
+        # 26-neighbourhood dilation (dilate_mask's) as a 3^3 max filter
+        m = mask.reshape(1, 1, reso, reso, reso).to(torch.float16)
+        for _ in range(dilate):
+            m = torch.nn.functional.max_pool3d(m, 3, stride=1, padding=1)
+        mask = m.reshape(-1) > 0
+    act = torch.nonzero(mask)[:, 0]
+    if act.numel() == 0:
+        act = torch.argmax(sigma).reshape(1)
+    links = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    links[act] = torch.arange(act.numel(), dtype=torch.int32, device=dev)
+    sh = torch.empty((act.numel(), 3 * basis_dim), dtype=torch.float32, device=dev)
+    for i in range(0, act.numel(), batch):
+        sh[i:i + batch] = tree.query(points(act[i:i + batch]))[:, : 3 * basis_dim]
+    return SparseGrid(links=links.reshape(reso, reso, reso), density_data=sigma[act][:, None], sh_data=sh,
+                      radius=radius, center=center, basis_dim=basis_dim)
 
 
 def sparsify_background(msi, sigma_thresh: float = 1.0, dilate: int = 1):

@@ -1,5 +1,6 @@
 """Real spherical-harmonic basis evaluation, degrees 0-4 (port of
-``nerf_projects_tpu/ops/sh.py``: ``eval_sh_bases`` and ``eval_sh``).
+``nerf_projects_tpu/ops/sh.py``: ``eval_sh_bases``, ``eval_sh`` and the SH
+projections of a view-dependent function).
 
 The constants are the standard real-SH normalisation factors that the
 reference's three SH implementations hardcode (svox2/svox2/utils.py
@@ -95,3 +96,37 @@ def eval_sh(deg: int, sh_coeffs: torch.Tensor, dirs: torch.Tensor) -> torch.Tens
         )
     basis = eval_sh_bases(basis_dim, dirs)
     return torch.sum(sh_coeffs * basis[..., None, :], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# SH projection of a view-dependent radiance function
+# (parity: octree/nerf/sh_proj.py:241-346)
+# ---------------------------------------------------------------------------
+
+def spherical_uniform_dirs(n: int, generator: torch.Generator, device=None) -> torch.Tensor:
+    """n area-uniform unit directions [n, 3], drawn from ``generator`` on
+    ``device`` (the generator's device when None)."""
+    dev = generator.device if device is None else torch.device(device)
+    u = torch.rand((n, 2), generator=generator, device=dev)
+    z = 1.0 - 2.0 * u[:, 0]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * torch.pi * u[:, 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def project_function_sh(fn_vals: torch.Tensor, dirs: torch.Tensor, deg: int) -> torch.Tensor:
+    """Monte-Carlo SH projection: function samples [N_pts, N_dirs, C] at
+    uniform unit directions [N_dirs, 3] -> coefficients [N_pts, C,
+    (deg+1)^2], with the 4 pi / N_dirs weight (sh_proj.py:278-306)."""
+    basis = eval_sh_bases((deg + 1) ** 2, dirs)  # [D, B]
+    weight = 4.0 * torch.pi / dirs.shape[0]
+    return weight * torch.einsum("ndc,db->ncb", fn_vals, basis)
+
+
+def project_function_sh_lstsq(fn_vals: torch.Tensor, dirs: torch.Tensor, deg: int) -> torch.Tensor:
+    """Least-squares SH projection (sh_proj.py:308-346 variant): the
+    coefficients that fit basis @ coeffs to the samples per point and
+    channel, through the pseudo-inverse of the Gram matrix."""
+    basis = eval_sh_bases((deg + 1) ** 2, dirs)  # [D, B]
+    gram_inv = torch.linalg.pinv(basis.T @ basis)  # [B, B]
+    return torch.einsum("ndc,db,be->nce", fn_vals, basis, gram_inv)

@@ -3,7 +3,8 @@
 package on the same seeded grids: dilation and the skip grid exactly,
 resample on both mask paths with equal links and data within 1e-5, the
 largest-ray-weight render within 1e-5 with its ties at the threshold
-counted."""
+counted, and the PlenOctree export and bake (``to_octree``,
+``octree_to_grid``)."""
 import numpy as np
 import pytest
 import torch
@@ -106,12 +107,56 @@ def test_resize_matches_jax(basis_dim):
         tgl.resize(tg, 5)
 
 
-def test_unported_exports_name_their_roadmap_item():
-    _, tg = random_grids(8, 1, seed=9)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tgl.to_octree(tg)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tgl.octree_to_grid(None)
+@pytest.fixture(scope="module")
+def exported():
+    """A 16^3 grid (basis 4) exported by both packages' to_octree, once
+    for the tests below (JAX compiles its descent at every refine)."""
+    jg, tg = random_grids(16, 4, seed=10)
+    return jg, tg, jgl.to_octree(jg), tgl.to_octree(tg)
+
+
+@pytest.mark.parametrize("sigma_thresh,depth", [(0.0, None), (3.0, 3)])
+def test_to_octree_matches_jax(exported, sigma_thresh, depth):
+    """svox2's to_svox1 on a 16^3 grid (every occupied cell, or those with
+    density >= 3, at the default depth or one coarser): the same topology
+    bits, the finest leaves' payload within 1e-6."""
+    jg, tg, want, got = exported
+    if sigma_thresh or depth is not None:
+        want = jgl.to_octree(jg, depth=depth, sigma_thresh=sigma_thresh)
+        got = tgl.to_octree(tg, depth=depth, sigma_thresh=sigma_thresh)
+    np.testing.assert_array_equal(got.child_host, np.asarray(want.child))
+    np.testing.assert_array_equal(got.offset, want.offset)
+    assert got.depth_limit == want.depth_limit and got.n_nodes > 100
+    np.testing.assert_allclose(np_(got.data), np.asarray(want.data), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dilate", [0, 1, 2])
+def test_octree_to_grid_matches_jax(exported, dilate):
+    """The bake at the tree's finest resolution, the mask (sigma above 2)
+    dilated 0-2 cells: the same links and the same data bits; then the
+    round trip of to_octree: every occupied cell's density and SH back
+    equal."""
+    jg, tg, jt, tt = exported
+    want = jgl.octree_to_grid(jt, sigma_thresh=2.0, dilate=dilate)
+    got = tgl.octree_to_grid(tt, sigma_thresh=2.0, dilate=dilate, batch=1000)
+    assert got.reso == want.reso == (16, 16, 16) and got.basis_dim == 4
+    np.testing.assert_array_equal(got.radius, want.radius)
+    np.testing.assert_array_equal(got.center, want.center)
+    np.testing.assert_array_equal(np_(got.links), np.asarray(want.links))
+    np.testing.assert_array_equal(np_(got.density_data), np.asarray(want.density_data))
+    np.testing.assert_array_equal(np_(got.sh_data), np.asarray(want.sh_data))
+    back = tgl.octree_to_grid(tt, dilate=0)
+    occ = np_(tg.links) >= 0
+    rows, rows_back = np_(tg.links)[occ], np_(back.links)[occ]
+    assert (rows_back >= 0).all()
+    np.testing.assert_array_equal(np_(back.density_data)[rows_back], np_(tg.density_data)[rows])
+    np.testing.assert_array_equal(np_(back.sh_data)[rows_back], np_(tg.sh_data)[rows])
+    if dilate == 0:  # a threshold no cell passes keeps the densest one, as JAX's
+        lone = tgl.octree_to_grid(tt, sigma_thresh=1e9, dilate=0)
+        assert lone.capacity == jgl.octree_to_grid(jt, sigma_thresh=1e9, dilate=0).capacity == 1
+
+
+def test_sparsify_background_is_exported():
     # sparsify_background (item 4) is ported: tests/test_torch_background.py holds it to JAX's
     from nerf_projects_tpu_torch.ops.background import BackgroundMSI
 
