@@ -21,6 +21,9 @@ view 0 (plain torch; the train_nerf_loop and train_nerf_sh_cli phases);
 the PlenOctree march's early stop dropping a ray's last active sample and
 extraction keeping a leaf's first sample's sigma instead of the mean
 (plain torch; the plenoctree phase, on a fresh train_nerf_sh_cli run);
+the NeRF trainer's mesh route handing K2 the shard's ray count as
+n_rays_total and the row-sharded Plenoxels step skipping the all_gather
+of its rewritten cell rows (the parallel phase: two ranks on the card);
 the wgmma core's (mlp_sm90.cuh: K1f, K1b, K1rf, K1rb, K2, K5f
 and K5b) include the concat, the relu mask, the stage ring, the dW jobs
 (K1's and K5b's), the view encoder, the encoding stash, K1rb's, K1b's and
@@ -254,6 +257,18 @@ MUTANTS = {
         "return torch.flip(torch.cumsum(torch.flip(g * c, (-1,)), dim=-1), (-1,))",
         ("train_raw",),
     ),
+    "K2 handed the shard's ray count as n_rays_total on the trainer's mesh route": (
+        "nerf_projects_tpu_torch/train/nerf_trainer.py",
+        "n_total = n_rays if rows is None else rows[2]",
+        "n_total = n_rays",
+        ("parallel",),
+    ),
+    "the row-sharded touched step without the all_gather of its rewritten cell rows": (
+        "nerf_projects_tpu_torch/train/plenoxels_sparse.py",
+        "st.cells[rows] = shard.from_owners(new.to(st.cells.dtype), rows)",
+        "st.cells[rows] = new.to(st.cells.dtype)",
+        ("parallel",),
+    ),
 }
 
 PHASES = r'''
@@ -277,7 +292,8 @@ phases = {"kernel": lambda: c.phase_kernel(dev, fine_rows=65536),
           "train_plenoxels_bg": lambda: c.phase_train_plenoxels_bg(dev, c.nvidia_smi()),
           "train_nerf_loop": lambda: c.phase_train_nerf_loop(dev, c.nvidia_smi()),
           "train_nerf_sh_cli": lambda: c.phase_train_nerf_sh_cli(dev, c.nvidia_smi()),
-          "plenoctree": lambda: c.phase_plenoctree_on_a_run(dev, c.nvidia_smi())}
+          "plenoctree": lambda: c.phase_plenoctree_on_a_run(dev, c.nvidia_smi()),
+          "parallel": lambda: c.phase_parallel(dev, c.nvidia_smi())}
 for name in sys.argv[1:]:
     fn = phases[name]
     try:

@@ -283,8 +283,27 @@ Phases, each of which raises (exit code 1) on failure:
           palette entries a basis, PSNR within 0.5 dB of evaluate's);
           gen_mesh --kind nerf_sh --reso 256 --iso 10; to_octree of
           render_plenoxels' 512^3 shell grid, then octree_to_grid, every
-          occupied cell's density and SH back. The wall and peak of each
-          step are printed.
+          occupied cell's density and SH back; gen_video's renderers
+          (make_renderer) of a 64^3 grid npz, the extracted tree and the
+          run, 4 poses at 128^2 each: finite frames, the grid's equal to
+          render_grid_image's. The wall and peak of each step are printed.
+  parallel: data parallelism (parallel/, NeRFTrainer(mesh=), the
+          row-sharded Plenoxels state). (a) A one-rank NCCL group in this
+          process: 20 steps of the mega route (K2) and of the fused-MLP
+          route (K1f + K1b) through mesh= against the same steps without a
+          group, the same bits, step ms of both, a step of each under
+          set_sync_debug_mode. (b) Ranks in processes of their own
+          (parallel/launch.py, parallel_rank): NCCL over every card when
+          there are two or more, else two ranks sharing the card over gloo:
+          5 steps of each route against one process on the same global
+          batches (perturb on; each step's loss within 1e-5 and its
+          gradients by the trainer's bounds at that step's parameters; the
+          ranks' parameters the same bits after every step; K2 runs with
+          n_rays_total twice its rows), a 4,096-ray request through
+          render_rays_sharded against render_image, and 3 touched steps at
+          fog 256^3 on a state row-sharded over the ranks against the
+          one-process step, each rank's cells equal to the owners'
+          masters, the float32 bytes a rank holds beside one process's.
 
 Each MLP kernel is also timed at every level size its main paths launch
 it at (a serving request's and a training step's coarse and fine
@@ -3819,6 +3838,8 @@ OCTREE_UPDATE_TOL = 1e-4    # SGD updates, card against host, of the largest upd
 COMPRESS_PSNR_DB = 0.5      # compressed_eval's PSNR against evaluate's
 MESH_RESO = 256             # gen_mesh --reso default
 MESH_ISO = 10.0             # gen_mesh's default iso (25) is above this run's densities after 500 steps (largest 13.6)
+VIDEO_POSES, VIDEO_SIZE = 4, 128  # gen_video's renderers: poses of the path, frame side
+VIDEO_GRID_RESO = 64        # the grid gen_video renders (written to an npz, then loaded by its renderer)
 
 
 def octree_nodes(idx: torch.Tensor, reso: int, depth: int) -> int:
@@ -3921,14 +3942,17 @@ def phase_plenoctree(dev, card: str, run_dir: str) -> dict:
     docstring's ``plenoctree``. Returns this phase's K5f, K5b, K3 and K4
     launches (counters zeroed just before its first step, read after its
     last)."""
-    from nerf_projects_tpu_torch.cli import gen_mesh, octree_tools
+    from nerf_projects_tpu_torch.cli import gen_mesh, gen_video, octree_tools
     from nerf_projects_tpu_torch.cli.nerf_sh_flags import NeRFSHFlags
+    from nerf_projects_tpu_torch.cli.render_imgs import render_grid_image
     from nerf_projects_tpu_torch.cli.train_nerf_sh import train_main
     from nerf_projects_tpu_torch.core.rays import camera_rays
     from nerf_projects_tpu_torch.data.base import SceneData
     from nerf_projects_tpu_torch.data.synthetic import make_dataset
     from nerf_projects_tpu_torch.models import grid_lifecycle as gl
     from nerf_projects_tpu_torch.models.octree import PlenOctree
+    from nerf_projects_tpu_torch.models.sparse_grid import SparseGrid
+    from nerf_projects_tpu_torch.ops.grid import GridRenderOptions
     from nerf_projects_tpu_torch.ops.kernels import fused_sh_mlp as fsm
     from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
     from nerf_projects_tpu_torch.ops.octree_render import OctreeRenderOptions, volume_render_octree
@@ -4086,6 +4110,34 @@ def phase_plenoctree(dev, card: str, run_dir: str) -> dict:
     log(f"{tag}: gen_mesh: {len(verts)} vertices, {len(tris)} triangles, {os.path.getsize(obj) / 1e6:.1f} MB OBJ")
     if not (len(tris) > 0 and os.path.getsize(obj) > 0):
         raise AssertionError(f"{tag}: gen_mesh wrote no surface")
+    # (6b) gen_video's renderers: a grid, the tree and the run
+    grid_path = os.path.join(run_dir, "grid.npz")
+    g = SparseGrid.create(VIDEO_GRID_RESO, basis_dim=GRID_BASIS, use_sphere_bound=True, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    g.density_data.copy_(torch.rand(g.density_data.shape, generator=gen, device=dev) * 2.0)
+    g.sh_data.copy_(torch.randn(g.sh_data.shape, generator=gen, device=dev) * 0.2)
+    g.save(grid_path)
+    video = ["--out_dir", "unused", "--n_poses", str(VIDEO_POSES), "--width", str(VIDEO_SIZE), "--height",
+             str(VIDEO_SIZE)]
+    frames = {}
+    with step_clock(f"gen_video make_renderer: 3 kinds x {VIDEO_POSES} poses at {VIDEO_SIZE}^2", dev):
+        for kind, ckpt in (("grid", grid_path), ("octree", tree_path), ("nerf_sh", run_dir)):
+            args = gen_video.build_parser().parse_args([ckpt, "--kind", kind] + video)
+            render = gen_video.make_renderer(args, dev)
+            frames[kind] = torch.stack([render(pose) for pose in gen_video.poses(args)])
+    loaded = SparseGrid.load(grid_path, device=dev)
+    same = all(torch.equal(frames["grid"][i], render_grid_image(
+        loaded, SceneData(images=np.zeros((1, VIDEO_SIZE, VIDEO_SIZE, 3), np.float32), poses=np.asarray([pose]),
+                          intrinsics=gen_video.intrinsics(args), near=0.1, far=10.0), 0,
+        GridRenderOptions(step_size=args.step_size), args.chunk)) for i, pose in enumerate(gen_video.poses(args)))
+    log(f"{tag}: gen_video: frames {[tuple(f.shape) for f in frames.values()]}, finite "
+        f"{[bool(torch.isfinite(f).all()) for f in frames.values()]}, mean "
+        f"{[round(float(f.mean()), 4) for f in frames.values()]} (grid, octree, nerf_sh); the grid's frames equal "
+        f"render_grid_image's: {same}")
+    if not (same and all(f.shape == (VIDEO_POSES, VIDEO_SIZE, VIDEO_SIZE, 3) and bool(torch.isfinite(f).all())
+                         for f in frames.values())):
+        raise AssertionError(f"{tag}: gen_video's frames are not finite, or the grid's are not render_grid_image's")
+    del frames, g, loaded
     counts = {"fused_sh_fwd": fsm.fused_sh_fwd.launches, "fused_sh_bwd": fsm.fused_sh_bwd.launches,
               "tile_march_fwd": tm.tile_march_fwd.launches, "tile_march_bwd": tm.tile_march_bwd.launches}
     del saved, tree, model
@@ -4119,6 +4171,345 @@ def phase_plenoctree_on_a_run(dev, card: str) -> dict:
     with tempfile.TemporaryDirectory() as run:
         phase_train_nerf_sh_cli(dev, card, run_dir=run)
         return phase_plenoctree(dev, card, run)
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism: the trainer's mesh routes, the sharded render and the
+# row-sharded Plenoxels state (parallel/, train/nerf_trainer.py's mesh=)
+# ---------------------------------------------------------------------------
+
+DP_NCCL_STEPS = 20          # steps of each route with the one-rank NCCL group and without a group
+DP_RANK_STEPS = 5           # steps of each route on the ranks that share the card
+DP_LOSS_RTOL = 1e-5         # a step's loss on W ranks against one process on the same global batch
+DP_NCCL_LOSS_RTOL = 1e-6    # the one-rank group's loss: its sum / global count against torch.mean
+DP_RENDER_RAYS = 4096       # the sharded request
+DP_RENDER_ATOL = 1e-6       # the sharded request against one process, where its bits differ
+DP_PLENOXEL_STEPS = 3       # row-sharded touched steps at fog 256^3
+
+
+def dp_trainer(mega: bool, dev, mesh=None, perturb: bool = True):
+    """phase_train's flagship NeRFTrainer (96 + 192 samples, 8x256, bf16
+    products), over ``mesh`` when given."""
+    from nerf_projects_tpu_torch.models.pipeline import NeRFRenderConfig
+    from nerf_projects_tpu_torch.train import NeRFTrainer
+
+    cfg = NeRFRenderConfig(num_coarse_samples=COARSE, num_fine_samples=FINE, multires=10, multires_views=4,
+                           use_viewdirs=True, white_bkgd=True, perturb=perturb, raw_noise_std=0.0,
+                           resample_sorted=False)
+    tr = NeRFTrainer(cfg, depth=8, width=256, near=2.0, far=6.0, lrate=5e-4, lrate_decay=250,
+                     compute_dtype=torch.bfloat16, use_fused_mlp=True, use_mega=mega, mega_rc=MEGA_RC,
+                     mega_rf=MEGA_RF, mesh=mesh, device=dev)
+    if not (tr.use_fused_mlp and tr.use_mega == mega):
+        raise AssertionError("parallel: a kernel gate refused the flagship configuration")
+    return tr
+
+
+def params_digest(params) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for m in params:
+        if m is not None:
+            for v in m.state_dict().values():
+                h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def kernel_counters():
+    from nerf_projects_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerf_projects_tpu_torch.ops.kernels import fused_train as ft
+    from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
+
+    return {"fused_mlp_fwd": fm.fused_mlp_fwd, "fused_mlp_bwd": fm.fused_mlp_bwd,
+            "fused_train_level": ft.fused_train_level, "tile_march_fwd": tm.tile_march_fwd,
+            "tile_march_bwd": tm.tile_march_bwd}
+
+
+def zero_counts() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in kernel_counters().items()}
+
+
+def add_counts(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + more.get(k, 0) for k in set(total) | set(more)}
+
+
+def grad_bounds(got, want) -> dict:
+    """The worst relative Frobenius error and the worst entry's error over
+    the largest entry, over every tensor of two (coarse, fine) gradient
+    dicts."""
+    worst = {"fro": 0.0, "max": 0.0}
+    for gg, gw in zip(got, want):
+        if gw is None:
+            continue
+        for name, w in gw.items():
+            w, g = w.float().cpu(), gg[name].float().cpu()
+            worst["fro"] = max(worst["fro"], float((g - w).norm() / w.norm().clamp_min(1e-30)))
+            worst["max"] = max(worst["max"], float((g - w).abs().max() / w.abs().max().clamp_min(1e-30)))
+    return worst
+
+
+def parallel_rank() -> dict:
+    """What each rank of the phase's group runs (in its own process, its
+    group set up by parallel/launch.py): DP_RANK_STEPS scan_steps of the
+    mega and the fused-MLP routes over the mesh, recording each step's
+    parameters before it, its all-reduced gradients and a digest of the
+    parameters after it; one DP_RENDER_RAYS request through
+    render_rays_sharded; DP_PLENOXEL_STEPS touched steps on the fog
+    256^3 state row-sharded over the ranks, held on each rank against the
+    one-process step (this rank's rows) and the cells against the owners'
+    masters. Returns the records and the kernels' launches on the mesh."""
+    import torch.distributed as dist
+
+    from nerf_projects_tpu_torch.data.synthetic import make_dataset
+    from nerf_projects_tpu_torch.ops.grid import GridRenderOptions
+    from nerf_projects_tpu_torch.parallel import make_mesh
+    from nerf_projects_tpu_torch.parallel.render import render_rays_sharded
+    from nerf_projects_tpu_torch.train import PlenoxelsTrainer
+    from nerf_projects_tpu_torch.train import plenoxels_sparse as ps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())  # the launcher's init_distributed made it current
+    mesh = make_mesh()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    ds = make_dataset(n_views=2, image_size=128, device=dev)
+    out, counts = {"routes": {}}, {}
+    for mega in (True, False):
+        tr = dp_trainer(mega, dev, mesh)
+        state = tr.init_state(SEED)
+        steps, apply = [], tr.apply_grads
+
+        def record(st, grads, apply=apply, steps=steps):
+            before = [{k: v.detach().cpu().clone() for k, v in m.state_dict().items()} for m in st.params]
+            g = [{k: v.detach().cpu().clone() for k, v in gm.items()} for gm in grads]
+            st = apply(st, grads)
+            steps.append({"params": before, "grads": g, "after": params_digest(st.params)})
+            return st
+
+        tr.apply_grads = record
+        zero_counts()
+        state, stats = tr.scan_steps(state, ds["rays"], ds["pixels"], DP_RANK_STEPS, batch_size=TRAIN_RAYS)
+        counts = add_counts(counts, read_counts())
+        out["routes"][mega] = {"steps": steps, "loss": stats["loss"].tolist()}
+
+    serve = dp_trainer(False, dev, perturb=False)
+    params = tuple(random_biases(m, torch.Generator().manual_seed(SEED + 40 + i))
+                   for i, m in enumerate(serve.init_params(SEED)))
+    rays = ds["rays"].map(lambda t: t[:DP_RENDER_RAYS])
+    zero_counts()
+    out["render"] = render_rays_sharded(mesh, lambda r: serve.render_step(params, r, use_kernel=True), rays)
+    counts = add_counts(counts, read_counts())
+
+    # the row-sharded touched step at fog 256^3 against the one-process step
+    bg = train_grid(dev, "fog")
+    nb = bg.n_bricks
+    trainer = PlenoxelsTrainer(GridRenderOptions(step_size=0.5), n_iters=128_000, lambda_tv=1e-5,
+                               lambda_tv_sh=1e-3, device=dev)
+    rays = train_tile_rays(SEED + 2, TRAIN_SCENES["fog"][1], dev)
+    target = torch.full(rays.origins.shape, TRAIN_TARGET, device=dev)
+    one = ps.packed_state_from_grid(bg, bf16_cells=True)
+    touched = ps._march(trainer, bg, one.cells, rays, target)[2]
+    w_tv = max(int(trainer.tv_sparsity * nb), 1) + max(int(trainer.tv_sh_sparsity * nb), 1)
+    K = -(-((int(touched.sum()) + 4 * w_tv) * 5 // 4) // 256) * 256  # as phase_train_plenoxels_sparse
+    sharded = ps.shard_state_rows(one, mesh)
+    gen = [torch.Generator(device=dev).manual_seed(SEED + 20 + i) for i in range(DP_PLENOXEL_STEPS)]
+    want = []
+    for i in range(DP_PLENOXEL_STEPS):
+        one, st = ps.train_step_tiles_packed_touched(trainer, bg, one, rays, target, i, gen[i], max_touched=K)
+        want.append(float(st["mse"]))
+    gen = [torch.Generator(device=dev).manual_seed(SEED + 20 + i) for i in range(DP_PLENOXEL_STEPS)]
+    got, overflow = [], []
+    zero_counts()
+    for i in range(DP_PLENOXEL_STEPS):
+        sharded, st = ps.train_step_tiles_packed_touched(trainer, bg, sharded, rays, target, i, gen[i],
+                                                         max_touched=K, mesh=mesh)
+        got.append(float(st["mse"]))
+        overflow.append(float(st["touched_overflow"]))
+    torch.cuda.synchronize()
+    counts = add_counts(counts, read_counts())
+    per = sharded.packed_k.shape[0] - 1
+    lo, hi = rank * per, min((rank + 1) * per, nb + 1)
+    mine = sharded.packed_k[:hi - lo]
+    close = {name: close_share(a, b) for name, a, b in (
+        ("masters", mine, one.packed_k[lo:hi]), ("rms", sharded.rms[:hi - lo], one.rms[lo:hi]))}
+    own_cells = bool(torch.equal(sharded.cells[lo:hi], mine.to(torch.bfloat16)))
+    # every row's cells on every rank: per-row sums of the bf16 bits, gathered
+    rowsum = sharded.cells.view(torch.int16).to(torch.int64).sum((1, 2))
+    parts = [torch.empty_like(rowsum) for _ in range(world)]
+    dist.all_gather(parts, rowsum)
+    out["plenoxels"] = {
+        "nb": nb, "K": K, "mse": got, "want_mse": want, "overflow": overflow, "close": close,
+        "own_cells": own_cells, "cells_agree": all(torch.equal(parts[0], q) for q in parts[1:]),
+        "bytes": ps.state_bytes(sharded), "one_bytes": ps.state_bytes(one)}
+    out["counts"] = counts
+    return out
+
+
+def phase_parallel(dev, card: str) -> dict:
+    """Data parallelism on the card: (a) a one-rank NCCL group in this
+    process: DP_NCCL_STEPS steps of the mega route (K2) and of the
+    fused-MLP route (K1f + K1b) through mesh= against the same steps
+    without a group (the mega route the same bits; the fused-MLP route
+    the same bits or its loss within DP_NCCL_LOSS_RTOL), step ms with and
+    without the group, and a step of each under set_sync_debug_mode (no
+    waits); (b) W ranks in processes of their own (parallel/launch.py):
+    NCCL over every card when the machine has two or more, else two ranks
+    that share card 0 over gloo (which copies through the host, so no
+    wait check there): parallel_rank's steps against one process on the
+    same global batches, perturb on (each step's loss within DP_LOSS_RTOL
+    and its gradients by GRAD_FRO_TOL / GRAD_MAX_TOL, recomputed here at
+    the step's parameters; the ranks' parameters the same bits after every
+    step), K2 run with n_rays_total twice its rows; the sharded request
+    against render_image in one process; the row-sharded touched steps
+    (MSE, tests/test_sparse_step.py's share rule, each rank's cells equal
+    to the owners' masters, the float32 bytes a rank holds beside one
+    process's). Returns the kernels' launches on the mesh paths."""
+    import torch.distributed as dist
+
+    from nerf_projects_tpu_torch.data.synthetic import make_dataset
+    from nerf_projects_tpu_torch.parallel import init_distributed, make_mesh
+    from nerf_projects_tpu_torch.parallel.launch import run_ranks
+
+    tag = "parallel"
+    t_phase = time.perf_counter()
+    ds = make_dataset(n_views=2, image_size=128, device=dev)
+    counts = {}
+
+    # (a) the one-rank NCCL group
+    init_distributed("nccl", dev, rank=0, world_size=1)
+    mesh = make_mesh()
+    try:
+        for mega, route in ((True, "mega (K2)"), (False, "fused MLP (K1f + K1b)")):
+            runs = {}
+            for name, m in (("no group", None), ("1-rank NCCL", mesh)):
+                tr = dp_trainer(mega, dev, m)
+                warm = tr.init_state(SEED)
+                tr.scan_steps(warm, ds["rays"], ds["pixels"], 1, batch_size=TRAIN_RAYS)
+                if m is not None:
+                    check_waits(f"{tag}: (a) one {route} step on the 1-rank NCCL group",
+                                lambda: tr.scan_steps(warm, ds["rays"], ds["pixels"], 1, batch_size=TRAIN_RAYS), 0)
+                state = tr.init_state(SEED)
+                zero_counts()
+                torch.cuda.synchronize()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, stats = tr.scan_steps(state, ds["rays"], ds["pixels"], DP_NCCL_STEPS, batch_size=TRAIN_RAYS)
+                end.record()
+                end.synchronize()
+                if m is not None:
+                    counts = add_counts(counts, read_counts())
+                runs[name] = (state, stats["loss"].cpu(), start.elapsed_time(end) / DP_NCCL_STEPS)
+            (sa, la, ma), (sb, lb, mb) = runs["no group"], runs["1-rank NCCL"]
+            same = all(torch.equal(x, y) for pa, pb in zip(sa.params, sb.params)
+                       for x, y in zip(pa.state_dict().values(), pb.state_dict().values()))
+            rel = float(((la - lb).abs() / la.abs()).max())
+            log(f"{tag}: (a) {route} on {card}: {DP_NCCL_STEPS} steps of {TRAIN_RAYS} rays, step ms {ma:.4f} "
+                f"without a group, {mb:.4f} on the 1-rank NCCL group; parameters after them the same bits: "
+                f"{same}; losses the same bits: {torch.equal(la, lb)}, largest relative difference {rel:.3e} "
+                f"(the group's loss is its sum of squared errors over the global count, not torch.mean)")
+            if not same and not mega:
+                # the fused-MLP route's gradients come through autograd of
+                # sum / count instead of torch.mean: held by the bounds
+                # at the seed's parameters
+                g = []
+                for m in (None, mesh):
+                    tr = dp_trainer(False, dev, m)
+                    st = tr.init_state(SEED)
+                    g.append(tr._value_and_grad(st.params, st.generator, ds["rays"].map(lambda t: t[:TRAIN_RAYS]),
+                                                ds["pixels"][:TRAIN_RAYS])[1])
+                worst = grad_bounds(g[1], g[0])
+                log(f"{tag}: (a) {route}: the parameters' bits moved; one step's gradients at the seed's "
+                    f"parameters: worst relative Frobenius {worst['fro']:.3e} (tol {GRAD_FRO_TOL}), worst entry "
+                    f"{worst['max']:.3e} of scale (tol {GRAD_MAX_TOL})")
+                same = worst["fro"] < GRAD_FRO_TOL and worst["max"] < GRAD_MAX_TOL
+            if not (same and rel <= DP_NCCL_LOSS_RTOL):
+                raise AssertionError(f"{tag}: {route} on the 1-rank NCCL group is not the step without a group")
+    finally:
+        dist.destroy_process_group()
+
+    # (b) W ranks
+    n_cards = torch.cuda.device_count()
+    backend, rank_dev, W = ("nccl", None, n_cards) if n_cards >= 2 else ("gloo", "cuda:0", 2)
+    log(f"{tag}: (b) {W} ranks over {backend} "
+        + ("on every card" if backend == "nccl" else "sharing card 0 (NCCL refuses two ranks on one card; gloo "
+                                                     "copies each collective through the host, so these steps "
+                                                     "are not held to the no-wait check)"))
+    t0 = time.perf_counter()
+    ranks = run_ranks("chip_smoke:parallel_rank", W, backend=backend, device=rank_dev)
+    log(f"{tag}: (b) the ranks ran in {time.perf_counter() - t0:.1f} s (start-up, builds and checks included)")
+    for r in ranks:
+        counts = add_counts(counts, r["counts"])
+
+    names = None
+    for mega, route in ((True, "mega (K2, n_rays_total = 2x its rows)"), (False, "fused MLP (K1f + K1b)")):
+        recs = [r["routes"][mega] for r in ranks]
+        for k in range(DP_RANK_STEPS):
+            digests = {rec["steps"][k]["after"] for rec in recs}
+            if len(digests) != 1:
+                raise AssertionError(f"{tag}: {route}: the ranks' parameters differ after step {k}")
+        one = dp_trainer(mega, dev)
+        state = one.init_state(SEED)
+        worst_loss, worst = 0.0, {"fro": 0.0, "max": 0.0}
+        for k in range(DP_RANK_STEPS):
+            step = recs[0]["steps"][k]
+            with torch.no_grad():
+                for m, sd in zip(state.params, step["params"]):
+                    m.load_state_dict(sd)
+            idx = torch.randint(0, ds["pixels"].shape[0], (TRAIN_RAYS,), generator=state.generator, device=dev)
+            (loss, _), grads = one._value_and_grad(state.params, state.generator, ds["rays"].map(lambda t: t[idx]),
+                                                   ds["pixels"][idx])
+            worst_loss = max(worst_loss, abs(recs[0]["loss"][k] - float(loss)) / abs(float(loss)))
+            b = grad_bounds(step["grads"], grads)
+            worst = {key: max(worst[key], b[key]) for key in worst}
+        log(f"{tag}: (b) {route}: {DP_RANK_STEPS} steps of {TRAIN_RAYS} rays on {W} ranks against one process on "
+            f"the same global batches at each step's parameters: losses {np.round(recs[0]['loss'], 6).tolist()}, "
+            f"largest relative difference {worst_loss:.3e} (tol {DP_LOSS_RTOL}); gradients worst relative "
+            f"Frobenius {worst['fro']:.3e} (tol {GRAD_FRO_TOL}), worst entry {worst['max']:.3e} of scale "
+            f"(tol {GRAD_MAX_TOL}); the ranks' parameters the same bits after every step")
+        if not (worst_loss <= DP_LOSS_RTOL and worst["fro"] < GRAD_FRO_TOL and worst["max"] < GRAD_MAX_TOL):
+            raise AssertionError(f"{tag}: {route} on {W} ranks is not one process's step")
+
+    serve = dp_trainer(False, dev, perturb=False)
+    params = tuple(random_biases(m, torch.Generator().manual_seed(SEED + 40 + i))
+                   for i, m in enumerate(serve.init_params(SEED)))
+    want = serve.render_image(params, ds["rays"].map(lambda t: t[:DP_RENDER_RAYS]), use_kernel=True)
+    for r in ranks:
+        got = r["render"]
+        names = sorted(got)
+        diff = max(float(np.abs(got[k] - want[k].cpu().numpy()).max()) for k in names)
+        bits = all(np.array_equal(got[k], want[k].cpu().numpy()) for k in names)
+        if not (bits or diff <= DP_RENDER_ATOL):
+            raise AssertionError(f"{tag}: the sharded request is {diff:.3e} from one process's")
+    log(f"{tag}: (b) one {DP_RENDER_RAYS}-ray request through render_rays_sharded on {W} ranks (K1f) against "
+        f"render_image in one process: the same bits {bits} ({', '.join(names)}; max |err| {diff:.3e}"
+        + ("" if bits else f"; the plain torch around K1f ran on {DP_RENDER_RAYS // W} rows a call, not "
+                            f"{DP_RENDER_RAYS}, tolerance {DP_RENDER_ATOL}") + ")")
+
+    p0 = ranks[0]["plenoxels"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(p0["mse"], p0["want_mse"])]
+    shares = {k: min(r["plenoxels"]["close"][k] for r in ranks) for k in p0["close"]}
+    log(f"{tag}: (b) the touched step at fog 256^3 ({p0['nb']} bricks, max_touched {p0['K']}) on {W} ranks, the "
+        f"float32 state row-sharded: {DP_PLENOXEL_STEPS} steps against the one-process step: MSE "
+        f"{np.round(p0['mse'], 7).tolist()}, relative differences " + ", ".join(f"{x:.3e}" for x in rel)
+        + " (tolerances 1e-5, then 1e-4: K4's atomics); each rank's rows close: "
+        + ", ".join(f"{k} {v:.6f}" for k, v in shares.items()) + f" (more than {SPARSE_FRAC} needed); cells equal "
+        f"to the owners' masters on every rank: {all(r['plenoxels']['own_cells'] for r in ranks)}, the same on "
+        f"every rank: {all(r['plenoxels']['cells_agree'] for r in ranks)}; float32 state bytes a rank "
+        f"{[r['plenoxels']['bytes'] for r in ranks]} against {p0['one_bytes']} in one process")
+    if not (rel[0] <= 1e-5 and all(x <= 1e-4 for x in rel[1:]) and min(shares.values()) > SPARSE_FRAC
+            and all(r["plenoxels"]["own_cells"] and r["plenoxels"]["cells_agree"] for r in ranks)
+            and max(max(r["plenoxels"]["overflow"]) for r in ranks) == 0
+            and max(r["plenoxels"]["bytes"] for r in ranks) < 0.55 * p0["one_bytes"]):
+        raise AssertionError(f"{tag}: the row-sharded touched step disagrees with the one-process step")
+    need = ("fused_mlp_fwd", "fused_mlp_bwd", "fused_train_level", "tile_march_fwd", "tile_march_bwd")
+    if any(counts.get(k, 0) <= 0 for k in need):
+        raise AssertionError(f"{tag}: a kernel of the mesh paths never launched: {counts}")
+    log(f"{tag} on {card}: phase wall {time.perf_counter() - t_phase:.1f} s; launches on the mesh paths {counts}")
+    return counts
 
 
 def host_peak_gb() -> float:
@@ -4213,6 +4604,11 @@ def main() -> int:
     sh_bwd["launches"] += cli_counts["fused_sh_bwd"] + octree_counts["fused_sh_bwd"]
     march["launches"] += octree_counts["tile_march_fwd"]
     march_bwd["launches"] += octree_counts["tile_march_bwd"]
+    # the mesh paths (the one-rank NCCL group and the ranks' processes)
+    dp = phase_parallel(dev, card)
+    for entry, name in ((kernels[0], "fused_mlp_fwd"), (kernels[1], "fused_mlp_bwd"),
+                        (kernels[2], "fused_train_level"), (march, "tile_march_fwd"), (march_bwd, "tile_march_bwd")):
+        entry["launches"] += dp[name]
     log(f"chip_smoke: wall {time.perf_counter() - t0:.1f} s, build {build_s:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

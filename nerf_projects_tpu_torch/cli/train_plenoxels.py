@@ -141,7 +141,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--log_advanced_metrics", action="store_true", default=False)
     g.add_argument("--log_fdr", action="store_true", default=False)
     g.add_argument("--log_floater_viz", action="store_true", default=False,
-                   help="log floater slices/overlays to TensorBoard (not ported yet)")
+                   help="log floater slices/overlays to TensorBoard")
     g.add_argument("--floater_viz_slices", type=int, default=3)
     g.add_argument("--fdr_density_threshold", type=float, default=0.01)
     g.add_argument("--profile_dir", type=str, default=None,
@@ -198,9 +198,6 @@ def resolve_schedule(args):
 def run(args, *, scene=None, test_scene=None, max_iters=None):
     """Train as opt.py does; returns (grid, trainer, result dict(psnr,
     time_mins, capacity[, MCQ and FDR keys]))."""
-    if args.log_floater_viz:
-        raise NotImplementedError("--log_floater_viz needs obs/floater_viz.py, not ported yet (ROADMAP Queue 1, "
-                                  "The rest)")
     args = resolve_schedule(args)
     dev = resolve_device(args.device)
     if scene is None:
@@ -384,6 +381,16 @@ def run(args, *, scene=None, test_scene=None, max_iters=None):
     if tile_mode:
         grid = materialize_grid()
     psnr = eval_step(trainer, grid, test_scene or scene)
+    if args.log_floater_viz:
+        from nerf_projects_tpu_torch.cli.render_imgs import _to_opencv_pose
+        from nerf_projects_tpu_torch.obs.floater_viz import log_floater_visualizations
+
+        ts = test_scene or scene
+        cams = [(_to_opencv_pose(ts.poses[v], ts), np.asarray(ts.intrinsics), ts.height, ts.width)
+                for v in range(min(2, ts.images.shape[0]))]
+        log_floater_visualizations(tb, grid, n_iters, cameras=cams,
+                                   gt_images=[np.asarray(ts.images[v]) for v in range(len(cams))],
+                                   threshold=args.fdr_density_threshold, n_slices=args.floater_viz_slices)
     grid.save(os.path.join(args.train_dir, "ckpt.npz"))
     mins = (time.time() - t_start) / 60.0
     with open(os.path.join(args.train_dir, "time_mins.txt"), "w") as f:

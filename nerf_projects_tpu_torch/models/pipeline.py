@@ -20,6 +20,7 @@ from nerf_projects_tpu_torch.ops.posenc import posenc
 from nerf_projects_tpu_torch.ops.render import volumetric_rendering
 from nerf_projects_tpu_torch.ops.sampling import (
     cast_rays,
+    global_draw,
     merge_sorted,
     piecewise_constant_pdf,
     stratified_sample,
@@ -68,14 +69,14 @@ def _query_mlp(apply_fn, params, pts, viewdirs, cfg: NeRFRenderConfig):
     return raw.reshape(r, n, raw.shape[-1])
 
 
-def _raw_to_outputs(generator, raw, z_vals, dirs, cfg: NeRFRenderConfig, randomized):
+def _raw_to_outputs(generator, raw, z_vals, dirs, cfg: NeRFRenderConfig, randomized, rows=None):
     """Activate raw outputs and composite (notebook cell 9 semantics)."""
     rgb = torch.sigmoid(raw[..., :3])
     sigma_logit = raw[..., 3]
     if cfg.raw_noise_std > 0.0 and randomized:
-        noise = torch.randn(
-            sigma_logit.shape, generator=generator, dtype=sigma_logit.dtype,
-            device=sigma_logit.device,
+        noise = global_draw(
+            lambda s: torch.randn(s, generator=generator, dtype=sigma_logit.dtype, device=sigma_logit.device),
+            sigma_logit.shape, rows,
         )
         sigma_logit = sigma_logit + noise * cfg.raw_noise_std
     sigma = torch.relu(sigma_logit)
@@ -95,6 +96,7 @@ def render_rays(
     cfg: NeRFRenderConfig,
     *,
     randomized: bool = True,
+    rows=None,
 ):
     """Render a [R] ray batch; ``apply_fn(params, pts_enc, views_enc)``
     evaluates the MLP, or ``apply_fn(params, pts, viewdirs)`` on raw
@@ -105,7 +107,10 @@ def render_rays(
 
     ``randomized=False`` is the serving path: linspace depths, linspace
     pdf uniforms and no sigma noise. ``randomized=True`` draws all three
-    from ``generator``, which lives on the rays' device.
+    from ``generator``, which lives on the rays' device; with ``rows =
+    (start, stop, n_total)`` the batch is rows [start, stop) of an n_total
+    batch split over data-parallel ranks, and each draw is made at the
+    global batch and cut to these rows (``ops/sampling.py::global_draw``).
     """
     if randomized and generator is None and (cfg.perturb or cfg.raw_noise_std > 0):
         raise ValueError("randomized rendering requires a generator")
@@ -113,11 +118,11 @@ def render_rays(
     device = rays.origins.device
     z_vals = stratified_sample(
         generator, cfg.num_coarse_samples, near, far, (n_rays,),
-        lindisp=cfg.lindisp, randomized=randomized and cfg.perturb, device=device,
+        lindisp=cfg.lindisp, randomized=randomized and cfg.perturb, device=device, rows=rows,
     )
     pts = cast_rays(z_vals, rays.origins, rays.directions)
     raw = _query_mlp(apply_fn, params_coarse, pts, rays.viewdirs, cfg)
-    coarse = _raw_to_outputs(generator, raw, z_vals, rays.directions, cfg, randomized)
+    coarse = _raw_to_outputs(generator, raw, z_vals, rays.directions, cfg, randomized, rows)
     out = {
         "rgb": coarse.rgb,
         "disp": coarse.disp,
@@ -130,7 +135,7 @@ def render_rays(
         z_samples = piecewise_constant_pdf(
             generator, z_mids, coarse.weights[..., 1:-1], cfg.num_fine_samples,
             randomized=randomized and cfg.perturb, mode=cfg.pdf_mode,
-            sorted_u=cfg.resample_sorted,
+            sorted_u=cfg.resample_sorted, rows=rows,
         )
         if cfg.resample_sorted:
             z_combined = merge_sorted(z_vals, z_samples)
@@ -139,7 +144,7 @@ def render_rays(
         pts_fine = cast_rays(z_combined, rays.origins, rays.directions)
         params_f = params_fine if params_fine is not None else params_coarse
         raw_fine = _query_mlp(apply_fn, params_f, pts_fine, rays.viewdirs, cfg)
-        fine = _raw_to_outputs(generator, raw_fine, z_combined, rays.directions, cfg, randomized)
+        fine = _raw_to_outputs(generator, raw_fine, z_combined, rays.directions, cfg, randomized, rows)
         out.update(
             rgb0=coarse.rgb,
             disp0=coarse.disp,

@@ -641,8 +641,15 @@ def check_tensor(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def current_stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+@contextlib.contextmanager
+def launch_stream(device: torch.device):
+    """The context of every launch: ``device`` made the current CUDA device
+    while it lasts, and the handle of its current stream. The C side sets
+    no device and launches on the runtime's current one, so without it a
+    wrapper whose tensors lie on cuda:1 in a process whose current device
+    is cuda:0 would launch on the wrong card, on a stream of another."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
 
 
 def _launch_fwd(launcher, wk, x, v, x_cols: int, v_cols: int) -> torch.Tensor:
@@ -660,8 +667,8 @@ def _launch_fwd(launcher, wk, x, v, x_cols: int, v_cols: int) -> torch.Tensor:
     out = torch.empty((n, 8), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    with torch.cuda.device(dev):
-        rc = getattr(lib, name)(x.data_ptr(), v.data_ptr(), wk.data_ptr(), out.data_ptr(), n, current_stream(dev))
+    with launch_stream(dev) as stream:
+        rc = getattr(lib, name)(x.data_ptr(), v.data_ptr(), wk.data_ptr(), out.data_ptr(), n, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {getattr(lib, f'{name}_error_string')(rc).decode()}")
     launcher.launches += 1
@@ -686,9 +693,9 @@ def _launch_bwd(launcher, wk, wkt, x, v, g, x_cols: int, v_cols: int) -> FusedML
     if n == 0:
         return split_grads(grads.zero_())
     ws = torch.empty(getattr(lib, f"{name}_workspace_bytes")(n), dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
+    with launch_stream(dev) as stream:
         rc = getattr(lib, name)(x.data_ptr(), v.data_ptr(), g.data_ptr(), wk.data_ptr(), wkt.data_ptr(),
-                                grads.data_ptr(), n, ws.data_ptr(), current_stream(dev))
+                                grads.data_ptr(), n, ws.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {getattr(lib, f'{name}_error_string')(rc).decode()}")
     launcher.launches += 1

@@ -387,9 +387,8 @@ def fused_sh_fwd(wk: torch.Tensor, x: torch.Tensor, num_rgb: int):
     sig = torch.empty((n, 1), dtype=torch.float32, device=dev)
     if n == 0:
         return rgb, sig
-    with torch.cuda.device(dev):
-        rc = lib.fused_sh_fwd(x.data_ptr(), wk.data_ptr(), rgb.data_ptr(), sig.data_ptr(), n, num_rgb,
-                              fm.current_stream(dev))
+    with fm.launch_stream(dev) as stream:
+        rc = lib.fused_sh_fwd(x.data_ptr(), wk.data_ptr(), rgb.data_ptr(), sig.data_ptr(), n, num_rgb, stream)
     if rc != 0:
         raise RuntimeError(f"fused_sh_fwd launch failed: {lib.fused_sh_fwd_error_string(rc).decode()}")
     fused_sh_fwd.launches += 1
@@ -421,9 +420,9 @@ def fused_sh_bwd(wk: torch.Tensor, wkt: torch.Tensor, x: torch.Tensor, g_rgb: to
     if n == 0:
         return split_kernel_grads(grads.zero_())
     ws = torch.empty(lib.fused_sh_bwd_workspace_bytes(n), dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
+    with fm.launch_stream(dev) as stream:
         rc = lib.fused_sh_bwd(x.data_ptr(), g_rgb.data_ptr(), g_sig.data_ptr(), wk.data_ptr(), wkt.data_ptr(),
-                              grads.data_ptr(), n, num_rgb, ws.data_ptr(), fm.current_stream(dev))
+                              grads.data_ptr(), n, num_rgb, ws.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fused_sh_bwd launch failed: {lib.fused_sh_bwd_error_string(rc).decode()}")
     fused_sh_bwd.launches += 1

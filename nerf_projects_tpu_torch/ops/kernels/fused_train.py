@@ -35,7 +35,7 @@ from nerf_projects_tpu_torch.ops.kernels.fused_mlp import (
     _full_fp32_matmul,
     _fwd_tile,
     check_tensor,
-    current_stream,
+    launch_stream,
     kernel_weights_sm90,
     kernel_weights_sm90_bwd,
     load_library,
@@ -167,12 +167,11 @@ def fused_train_level(
     if n == 0:
         return rgb, acc, weights, split_grads(grads.zero_())
     ws = torch.empty(lib.fused_train_workspace_bytes(n), dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
+    with launch_stream(dev) as stream:
         rc = lib.fused_train_level(
             x.data_ptr(), vt.data_ptr(), wk.data_ptr(), wkt.data_ptr(), n_rays, S, R,
             int(raw_inputs), n_rays_total, float(bkgd), rgb.data_ptr(), acc.data_ptr(),
-            weights.data_ptr() if want_weights else None, grads.data_ptr(), ws.data_ptr(),
-            current_stream(dev),
+            weights.data_ptr() if want_weights else None, grads.data_ptr(), ws.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_train_level launch failed: {lib.fused_train_error_string(rc).decode()}")

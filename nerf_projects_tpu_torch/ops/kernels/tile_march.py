@@ -58,7 +58,7 @@ from nerf_projects_tpu_torch.ops.kernels.fused_mlp import (
     _LL,
     _VP,
     check_tensor,
-    current_stream,
+    launch_stream,
     load_library,
 )
 from nerf_projects_tpu_torch.ops.sh import eval_sh_bases
@@ -666,11 +666,11 @@ def _fwd_launch(cells, brick_links, reso, pack, basis, out, *, max_steps, color_
     args = (cells.data_ptr(), brick_links.data_ptr(), pack.data_ptr(), basis.data_ptr(), out.data_ptr(), T * r, r,
             X, Y, Z, BY, BZ, B, int(max_steps), float(sigma_thresh), float(stop_thresh),
             int(color_mode == "sigmoid"), int(early_stop))
-    with torch.cuda.device(dev):
+    with launch_stream(dev) as stream:
         if probe is None:
-            rc = lib.tile_march_fwd(*args, current_stream(dev))
+            rc = lib.tile_march_fwd(*args, stream)
         else:
-            rc = lib.tile_march_fwd_probe(*args, int(probe), current_stream(dev))
+            rc = lib.tile_march_fwd_probe(*args, int(probe), stream)
     if rc != 0:
         raise RuntimeError(f"tile_march_fwd launch failed: {lib.tile_march_fwd_error_string(rc).decode()}")
     return True
@@ -755,13 +755,12 @@ def _bwd_launch(cells, brick_links, reso, pack, basis, grad_rgb, s_total, outs, 
     if T * r == 0:
         return
     fn = lib.tile_march_bwd_probe if probe else lib.tile_march_bwd
-    with torch.cuda.device(dev):
+    with launch_stream(dev) as stream:
         rc = fn(
             cells.data_ptr(), brick_links.data_ptr(), pack.data_ptr(), basis.data_ptr(), grad_rgb.data_ptr(),
             s_total.data_ptr(), *(None if o is None else o.data_ptr() for o in outs), T * r, r, X, Y, Z, BY, BZ, B,
             int(max_steps),
-            float(sigma_thresh), float(stop_thresh), float(sparsity_scale), int(color_mode == "sigmoid"),
-            current_stream(dev),
+            float(sigma_thresh), float(stop_thresh), float(sparsity_scale), int(color_mode == "sigmoid"), stream,
         )
     if rc != 0:
         raise RuntimeError(f"tile_march_bwd launch failed: {lib.tile_march_bwd_error_string(rc).decode()}")

@@ -21,8 +21,23 @@ def cast_rays(z_vals: torch.Tensor, origins: torch.Tensor, directions: torch.Ten
     return origins[..., None, :] + z_vals[..., None] * directions[..., None, :]
 
 
-def _uniform(generator: torch.Generator, shape, dtype, device) -> torch.Tensor:
-    return torch.rand(shape, generator=generator, dtype=dtype, device=device)
+def global_draw(draw, shape, rows):
+    """``draw(shape)``, or with ``rows = (start, stop, n_total)`` the rows
+    [start, stop) of ``draw`` at the global shape (n_total,) + shape[1:]:
+    a data-parallel rank draws the randoms of the whole batch from its
+    generator, seeded as every rank's, and keeps its own rows. So a ray's
+    samples do not depend on how the batch is split, as under JAX's one
+    jit over a sharded batch."""
+    if rows is None:
+        return draw(tuple(shape))
+    start, stop, total = rows
+    if shape[0] != stop - start:
+        raise ValueError(f"rows {rows} do not match a leading size of {shape[0]}")
+    return draw((total,) + tuple(shape[1:]))[start:stop]
+
+
+def _uniform(generator: torch.Generator, shape, dtype, device, rows=None) -> torch.Tensor:
+    return global_draw(lambda s: torch.rand(s, generator=generator, dtype=dtype, device=device), shape, rows)
 
 
 def stratified_sample(
@@ -36,10 +51,12 @@ def stratified_sample(
     randomized: bool = True,
     dtype=torch.float32,
     device=None,
+    rows=None,
 ):
     """Stratified depths in [near, far], shaped batch_shape + [num_samples].
 
     near/far are scalars or tensors broadcastable to batch_shape.
+    ``rows``: draw at the global batch and keep these rows (``global_draw``).
     """
     if torch.is_tensor(near):
         device = near.device
@@ -65,16 +82,16 @@ def stratified_sample(
         mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
         upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
         lower = torch.cat([z_vals[..., :1], mids], dim=-1)
-        t_rand = _uniform(generator, z_vals.shape, dtype, device)
+        t_rand = _uniform(generator, z_vals.shape, dtype, device, rows)
         z_vals = lower + (upper - lower) * t_rand
     return z_vals
 
 
-def sorted_uniform(generator: torch.Generator, shape, dtype=torch.float32, device=None):
+def sorted_uniform(generator: torch.Generator, shape, dtype=torch.float32, device=None, rows=None):
     """IID Uniform(0,1) order statistics, drawn already sorted along the
     last axis (exponential spacings: U_(i) = (E_1+..+E_i)/(E_1+..+E_{n+1}))."""
     n = shape[-1]
-    e = -torch.log1p(-_uniform(generator, tuple(shape[:-1]) + (n + 1,), dtype, device))
+    e = -torch.log1p(-_uniform(generator, tuple(shape[:-1]) + (n + 1,), dtype, device, rows))
     cs = torch.cumsum(e, dim=-1)
     return cs[..., :n] / cs[..., -1:]
 
@@ -114,6 +131,7 @@ def piecewise_constant_pdf(
     mode: str = "nerf",
     sorted_u: bool = False,
     u: Optional[torch.Tensor] = None,
+    rows=None,
 ):
     """Importance samples from the piecewise-constant PDF over `bins`.
 
@@ -127,7 +145,8 @@ def piecewise_constant_pdf(
 
     ``u`` overrides the uniforms (shape [..., num_samples]); otherwise
     they are linspace(0, 1) (jaxnerf: to 1 - eps) when not randomized,
-    else drawn from ``generator`` (as order statistics when ``sorted_u``).
+    else drawn from ``generator`` (as order statistics when ``sorted_u``;
+    at the global batch when ``rows`` is given, ``global_draw``).
     """
     if mode == "nerf":
         weights = weights + 1e-5
@@ -152,7 +171,7 @@ def piecewise_constant_pdf(
             if generator is None:
                 raise ValueError("randomized pdf sampling requires a generator")
             draw = sorted_uniform if sorted_u else _uniform
-            u = draw(generator, shape, cdf.dtype, cdf.device)
+            u = draw(generator, shape, cdf.dtype, cdf.device, rows)
         else:
             u = torch.linspace(0.0, u_max, num_samples, dtype=cdf.dtype, device=cdf.device)
             u = u.expand(shape)

@@ -16,6 +16,8 @@ misses that one inward boundary term.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 from nerf_projects_tpu_torch.ops.brick_grid import BRICK, BrickGrid
@@ -41,23 +43,24 @@ def _neighbor_rows(bg: BrickGrid, rows: torch.Tensor, axis: int) -> torch.Tensor
     return torch.where(oob, -1, nbr).to(torch.int32)
 
 
-def tv_grad_brick_blocks(bg: BrickGrid, data, rows: torch.Tensor, *, scale: float, ignore_edge: bool):
+def tv_grad_brick_blocks(bg: BrickGrid, fetch: Callable[[torch.Tensor], torch.Tensor], rows: torch.Tensor, *,
+                         scale: float, ignore_edge: bool):
     """Block form of ``tv_grad_bricks``: (rows4 [4w], vals4 [4w, 512, C]),
     rows4 -1 where there is no neighbour (its vals are zero). Rows repeat;
     contributions add.
 
-    data: [nb, 512] (density) or [nb, 512, C] (SH). rows: sampled brick
-    rows [w]. ignore_edge as the reference's flag (False for density,
-    True for SH: differences to empty neighbours are zeroed)."""
-    if data.dim() == 2:
-        data = data[..., None]
+    fetch: brick rows int64 [n] -> their data [n, 512, C] (``x.__getitem__``
+    of a [nb, 512, C] tensor; the window's rows and their neighbours are
+    all it reads). rows: sampled brick rows [w]. ignore_edge as the
+    reference's flag (False for density, True for SH: differences to
+    empty neighbours are zeroed)."""
     w = rows.shape[0]
     B = BRICK
 
     def brick_vals(r):
         r = r.long()
         safe = torch.clamp(r, min=0)
-        vals = data[safe]
+        vals = fetch(safe)
         C = vals.shape[-1]
         vals = torch.where((r >= 0)[:, None, None], vals, 0.0)
         mask = (r >= 0)[:, None] & bg.cell_mask[safe]
@@ -127,7 +130,8 @@ def tv_grad_bricks(bg: BrickGrid, data: torch.Tensor, rows: torch.Tensor, *, sca
     """The TV gradient, scatter-added into zeros_like(data); see
     ``tv_grad_brick_blocks`` for the arguments."""
     squeeze = data.dim() == 2
-    rows4, vals4 = tv_grad_brick_blocks(bg, data, rows, scale=scale, ignore_edge=ignore_edge)
+    rows4, vals4 = tv_grad_brick_blocks(bg, (data[..., None] if squeeze else data).__getitem__, rows, scale=scale,
+                                        ignore_edge=ignore_edge)
     grad = torch.zeros(data.shape + ((1,) if squeeze else ()), dtype=data.dtype, device=data.device)
     grad.index_add_(0, torch.clamp(rows4, min=0).long(), vals4)
     return grad[..., 0] if squeeze else grad

@@ -55,6 +55,24 @@ touched-row step writes its rows into the state's tensors in place (JAX's
 jitted steps donate their state) and returns the state; a dense step
 returns new tensors. The TV over bricks is ``ops/tv_bricks.py``.
 
+Row-sharded state (``mesh=`` on ``train_step_tiles_sparse`` and
+``train_step_tiles_packed_touched``; JAX's tests/test_parallel.py:84-226
+and ``dryrun_multichip``, where GSPMD partitions the same steps): over a
+mesh's "rays" axis of W ranks, each rank's float32 masters, RMSprop
+arrays and ``last_step`` hold only its contiguous rows [r N / W, (r + 1)
+N / W) of the state padded to N rows (``pad_state_rows``), plus one spare
+row at the end; every rank keeps the whole march copy ``cells`` and
+marches the whole ray batch (JAX replicates the rays). Each rank updates
+only the touched rows it owns, writing the slots it does not own into its
+spare row; then the ranks ``all_gather`` the rewritten rows and every
+rank takes each row from its owner, so the cells stay the same on every
+rank. Only a row's owner writes it: K4's atomic sums vary in their last
+bits from run to run, so replicas that wrote their own copies would
+drift. The TV window's reads fetch each row from its owner the same way.
+``shard_state_rows`` makes such a state and ``gather_state_rows``
+reassembles it. The float32 state per rank is about 1/W of one
+process's.
+
 Unsupported here (use the dense step): ``lambda_l2_sh`` and
 ``lambda_tv_lumisphere`` touch every cell every step by definition.
 
@@ -69,6 +87,7 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from nerf_projects_tpu_torch.core.rays import Rays
 from nerf_projects_tpu_torch.ops.brick_grid import BRICK, BrickGrid
@@ -82,6 +101,7 @@ from nerf_projects_tpu_torch.ops.kernels.tile_march import (
     march_reference,
 )
 from nerf_projects_tpu_torch.ops.tv_bricks import sample_brick_window, tv_grad_brick_blocks
+from nerf_projects_tpu_torch.parallel.mesh import RAY_AXIS, all_gather_rows, axis_info
 
 CELLS = BRICK**3
 
@@ -226,6 +246,106 @@ def grid_from_packed_state(bg: BrickGrid, st: PackedState) -> BrickGrid:
 
 
 # ---------------------------------------------------------------------------
+# The row-sharded state (module docstring)
+# ---------------------------------------------------------------------------
+
+class _Shard(NamedTuple):
+    """Where this rank's rows lie: rows [lo, lo + per) of the padded
+    state, local index i of global row lo + i, the spare row at local
+    index per."""
+
+    lo: int
+    per: int
+    group: object
+
+    def local_index(self, rows: torch.Tensor) -> torch.Tensor:
+        """Global rows -> local indices, the spare row where not owned."""
+        owned = (rows >= self.lo) & (rows < self.lo + self.per)
+        return torch.where(owned, rows - self.lo, self.per)
+
+    def owns(self, row: int) -> bool:
+        return self.lo <= row < self.lo + self.per
+
+    def from_owners(self, vals: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        """``vals`` [K, ...] (each rank's values for the slots of ``rows``,
+        right only where it owns the row) -> the owners' values on every
+        rank, exact: one ``all_gather`` and a pick per slot."""
+        w = dist.get_world_size(self.group)
+        parts = [torch.empty_like(vals) for _ in range(w)]
+        dist.all_gather(parts, vals.contiguous(), group=self.group)
+        owner = torch.div(rows, self.per, rounding_mode="floor")
+        return torch.stack(parts)[owner, torch.arange(rows.shape[0], device=rows.device)]
+
+    def rows_of(self, local: torch.Tensor):
+        """The row fetch (global rows -> their values, from their owners)
+        of a row-sharded array whose rows here are ``local``."""
+        return lambda rows: self.from_owners(local[self.local_index(rows)], rows)
+
+
+def _shard_of(mesh, cells: torch.Tensor) -> _Shard:
+    r, w, group = axis_info(mesh, RAY_AXIS)
+    n = cells.shape[0]
+    if n % w:
+        raise ValueError(f"a row-sharded state needs its {n} rows padded to a multiple of {w}")
+    return _Shard(lo=r * (n // w), per=n // w, group=group)
+
+
+def _step_shard(mesh, st, masters: torch.Tensor) -> Optional[_Shard]:
+    """A step's shard of ``st`` (None without a mesh), checked."""
+    if mesh is None:
+        return None
+    shard = None if st.cells is None else _shard_of(mesh, st.cells)
+    if shard is None or masters.shape[0] != shard.per + 1:
+        raise ValueError("mesh= needs a state from shard_state_rows (its rows and the whole cells)")
+    return shard
+
+
+def shard_state_rows(st, mesh):
+    """The row-sharded state of a SparseBrickState or PackedState for this
+    rank of ``mesh``'s "rays" axis: padded to a multiple of W rows, its
+    float32 masters, RMSprop arrays and ``last_step`` cut to this rank's
+    rows plus a spare row, and ``cells`` whole (a float32 copy of the
+    masters when the state had none: what the host's one-process step
+    marches)."""
+    w = axis_info(mesh, RAY_AXIS)[1]
+    packed = isinstance(st, PackedState)
+    st = pad_packed_state_rows(st, w) if packed else pad_state_rows(st, w)
+    if st.cells is not None:
+        cells = st.cells.clone()
+    else:
+        cells = st.packed_k.clone() if packed else _pack(st.density_k, st.sh_k)
+    shard = _shard_of(mesh, cells)
+
+    def mine(x, fill=0):
+        return _pad_rows(x[shard.lo: shard.lo + shard.per].clone(), 1, fill)
+
+    if packed:
+        return PackedState(packed_k=mine(st.packed_k), rms=mine(st.rms), last_step=mine(st.last_step, -1),
+                           cells=cells)
+    return SparseBrickState(density_k=mine(st.density_k), sh_k=mine(st.sh_k), cells=cells,
+                            rms_density=mine(st.rms_density), rms_sh=mine(st.rms_sh),
+                            last_step=mine(st.last_step, -1))
+
+
+def gather_state_rows(st, mesh):
+    """A row-sharded state (``shard_state_rows``) reassembled on every rank:
+    the ranks' rows, spare rows dropped, gathered into the padded whole
+    (``grid_from_*_state`` cuts the padding)."""
+    group = _shard_of(mesh, st.cells).group
+
+    def whole(x):
+        return all_gather_rows(x[:-1], group)
+
+    return type(st)(**{k: (v if k == "cells" else whole(v)) for k, v in st._asdict().items()})
+
+
+def state_bytes(st) -> int:
+    """The bytes of a state's float32 masters, RMSprop arrays and
+    ``last_step`` on this rank (the march copy ``cells`` not counted)."""
+    return sum(v.numel() * v.element_size() for k, v in st._asdict().items() if k != "cells" and v is not None)
+
+
+# ---------------------------------------------------------------------------
 # The shared skeleton: march, TV blocks, compaction, optimizers
 # ---------------------------------------------------------------------------
 
@@ -261,15 +381,16 @@ def _tv_parts(trainer, bg: BrickGrid, density, sh, generator: torch.Generator):
     """The sampled TV in block form: [(kind "d" | "s", rows int64 [4w]
     (nb where there is no neighbour), vals [4w, 512, 1 | 3B])], the
     windows drawn from ``generator`` in the order density, SH (as the
-    dense step draws them). ``density`` [nb(+1), 512] and ``sh`` [nb(+1),
-    512, 3B] are the masters (views are fine: only the window's rows are
-    read)."""
+    dense step draws them). ``density`` and ``sh`` fetch the masters' rows
+    (brick rows [n] -> [n, 512, 1] and [n, 512, 3B]: ``x.__getitem__`` of
+    a whole array, ``_Shard.rows_of`` of a row-sharded one); only the
+    window's rows are read."""
     nb, parts = bg.n_bricks, []
-    for kind, lam, frac, data, edge in (("d", trainer.lambda_tv, trainer.tv_sparsity, density, False),
-                                        ("s", trainer.lambda_tv_sh, trainer.tv_sh_sparsity, sh, True)):
+    for kind, lam, frac, fetch, edge in (("d", trainer.lambda_tv, trainer.tv_sparsity, density, False),
+                                         ("s", trainer.lambda_tv_sh, trainer.tv_sh_sparsity, sh, True)):
         if lam > 0:
             rows = sample_brick_window(generator, nb, max(int(frac * nb), 1)).to(bg.device)
-            r4, v4 = tv_grad_brick_blocks(bg, data, rows, scale=lam, ignore_edge=edge)
+            r4, v4 = tv_grad_brick_blocks(bg, fetch, rows, scale=lam, ignore_edge=edge)
             parts.append((kind, torch.where(r4 < 0, nb, r4).long(), v4))
     return parts
 
@@ -409,6 +530,7 @@ def train_step_tiles_sparse(
     use_occupancy: bool = False,
     compact_chunks: Optional[int] = None,
     n_chunks: Optional[int] = None,
+    mesh=None,
 ):
     """One row-sparse step on a SparseBrickState, with the lazy b^D
     optimizer (per visit under ``trainer.rms_pervisit``). ``bg`` supplies
@@ -420,13 +542,17 @@ def train_step_tiles_sparse(
     touches (default the TPU plan's contribution count, T * C * 8 corner
     rows plus the TV's, capped at nb + 1). Rows beyond it are dropped and
     reported in stats["touched_overflow"] (the share of flagged rows
-    dropped). ``compact_chunks`` is a TPU knob, accepted and ignored."""
+    dropped). ``compact_chunks`` is a TPU knob, accepted and ignored.
+    ``mesh``: ``st`` is row-sharded over its "rays" axis
+    (``shard_state_rows``; module docstring)."""
     del compact_chunks
     _check_regularizers(trainer, "sparse step")
     nb, B = bg.n_bricks, st.basis_dim
+    shard = _step_shard(mesh, st, st.density_k)
     mse, (gd, gsh), touched, aux = _march(trainer, bg, _sparse_cells(st), rays, target,
                                           use_occupancy=use_occupancy, n_chunks=n_chunks)
-    tv = _tv_parts(trainer, bg, st.density_k, st.sh_k, generator)
+    fetch = (lambda x: x.__getitem__) if shard is None else shard.rows_of
+    tv = _tv_parts(trainer, bg, fetch(st.density_k[..., None]), fetch(st.sh_k), generator)
     if max_touched is None:
         C = n_chunks or (active_chunk_bound(bg, trainer.opts.step_size) if use_occupancy
                          else default_chunks_for(bg, trainer.opts))
@@ -447,34 +573,41 @@ def train_step_tiles_sparse(
     m = _row_mask(bg, rows)
     acc_d, acc_sh = acc_d[:K] * m, acc_sh[:K] * m[..., None]
 
+    # the slots' rows in the state's arrays (sharded: local, the spare row
+    # where another rank owns the row)
+    idx = rows if shard is None else shard.local_index(rows)
     b = trainer.rms_beta
     if getattr(trainer, "rms_pervisit", False):
         decay_d = torch.where(acc_d != 0.0, b, 1.0)
         decay_s = torch.where(acc_sh != 0.0, b, 1.0)
     else:
-        delta = (step - st.last_step[rows]).float()
+        delta = (step - st.last_step[idx]).float()
         rms_on = trainer.sigma_optim == "rmsprop" or trainer.sh_optim == "rmsprop"
         decay = torch.pow(b, delta) if rms_on else torch.ones_like(delta)
         decay_d, decay_s = decay[:, None], decay[:, None, None]
-    new_d, rms_d = _finalize_rms(trainer, trainer.sigma_optim, st.density_k[rows], acc_d,
-                                 st.rms_density[rows].float(), decay_d, trainer.lr_sigma_fn(step),
+    new_d, rms_d = _finalize_rms(trainer, trainer.sigma_optim, st.density_k[idx], acc_d,
+                                 st.rms_density[idx].float(), decay_d, trainer.lr_sigma_fn(step),
                                  minval=trainer.density_minval)
     new_d = new_d * m
-    new_s, rms_s = _finalize_rms(trainer, trainer.sh_optim, st.sh_k[rows], acc_sh, st.rms_sh[rows].float(),
+    new_s, rms_s = _finalize_rms(trainer, trainer.sh_optim, st.sh_k[idx], acc_sh, st.rms_sh[idx].float(),
                                  decay_s, trainer.lr_sh_fn(step))
 
     # scatter back (the slot list's rows are unique but for the sentinel,
-    # whose every slot writes the same zeros)
-    st.density_k[rows] = new_d
-    st.sh_k[rows] = new_s
-    if st.cells is not None:
+    # whose every slot writes the same zeros, and the spare row)
+    st.density_k[idx] = new_d
+    st.sh_k[idx] = new_s
+    if shard is not None:
+        st.cells[rows] = shard.from_owners(_pack(new_d, new_s, st.cells.dtype), rows)
+    elif st.cells is not None:
         st.cells[rows] = _pack(new_d, new_s, torch.bfloat16)
-    st.rms_density[rows] = rms_d.to(st.rms_density.dtype)
-    st.rms_sh[rows] = rms_s.to(st.rms_sh.dtype)
-    st.last_step.index_fill_(0, rows, int(step))
-    for x in (st.density_k, st.sh_k, st.rms_density, st.rms_sh):
-        x[nb].fill_(0.0)
-    st.last_step[nb].fill_(-1)
+    st.rms_density[idx] = rms_d.to(st.rms_density.dtype)
+    st.rms_sh[idx] = rms_s.to(st.rms_sh.dtype)
+    st.last_step.index_fill_(0, idx, int(step))
+    if shard is None or shard.owns(nb):
+        at = nb if shard is None else nb - shard.lo
+        for x in (st.density_k, st.sh_k, st.rms_density, st.rms_sh):
+            x[at].fill_(0.0)
+        st.last_step[at].fill_(-1)
     return st, _stats(mse, aux, touched_overflow=overflow)
 
 
@@ -598,7 +731,8 @@ def train_step_tiles_packed(
     nb, B = bg.n_bricks, st.basis_dim
     mse, (gd, gsh), _touched, aux = _march(trainer, bg, _packed_cells(st), rays, target,
                                            use_occupancy=use_occupancy, n_chunks=n_chunks)
-    tv = _tv_parts(trainer, bg, st.packed_k[..., 0], st.packed_k[..., 1:1 + 3 * B], generator)
+    tv = _tv_parts(trainer, bg, st.packed_k[..., :1].__getitem__, st.packed_k[..., 1:1 + 3 * B].__getitem__,
+                   generator)
     m = _dense_mask(bg.cell_mask)
     g = _dense_packed_acc(st, gd, gsh, tv) * m
     pervisit = getattr(trainer, "rms_pervisit", False)
@@ -661,6 +795,7 @@ def train_step_tiles_packed_touched(
     skip_empty: bool = True,
     flat_windows: Optional[int] = None,
     dense_optim=False,
+    mesh=None,
 ):
     """The touched-row step on the packed state, the fast sparse path:
     ``train_step_tiles_packed``'s math (K3 + K4, sampled TV, RMSprop or
@@ -687,7 +822,10 @@ def train_step_tiles_packed_touched(
     b^D lazy decay needs per-row deltas, so literal RMSprop raises).
     ``dense_optim="defer"`` returns that accumulator and the flags in
     stats ("dense_acc", "touched_flag") with the state unchanged, for
-    ``dense_sweep_apply``: bit-identical to ``dense_optim=True``."""
+    ``dense_sweep_apply``: bit-identical to ``dense_optim=True``.
+
+    ``mesh``: ``st`` is row-sharded over its "rays" axis
+    (``shard_state_rows``; module docstring); not with ``dense_optim``."""
     del compact_chunks, wps, skip_empty
     _check_packed(trainer)
     if st.last_step is None:
@@ -697,10 +835,14 @@ def train_step_tiles_packed_touched(
                          "block structure)")
     nb, B = bg.n_bricks, st.basis_dim
     K = int(max_touched)
+    shard = _step_shard(mesh, st, st.packed_k)
+    if shard is not None and dense_optim:
+        raise ValueError("dense_optim sweeps the whole state; a row-sharded state takes the touched rows")
     mse, (gd, gsh), touched, aux = _march(trainer, bg, _packed_cells(st), rays, target,
                                           use_occupancy=use_occupancy, n_chunks=n_chunks,
                                           flat_windows=flat_windows)
-    tv = _tv_parts(trainer, bg, st.packed_k[..., 0], st.packed_k[..., 1:1 + 3 * B], generator)
+    fetch = (lambda x: x.__getitem__) if shard is None else shard.rows_of
+    tv = _tv_parts(trainer, bg, fetch(st.packed_k[..., :1]), fetch(st.packed_k[..., 1:1 + 3 * B]), generator)
     stats = _stats(mse, aux, touched_overflow=torch.zeros((), device=mse.device),
                    dropped_tile_rows=torch.zeros((), dtype=torch.int32, device=mse.device),
                    dropped_active_chunks=aux["dropped_active_chunks"])
@@ -731,17 +873,21 @@ def train_step_tiles_packed_touched(
     m = _row_mask(bg, rows)[..., None]
     g = acc[:K] * m
 
+    idx = rows if shard is None else shard.local_index(rows)  # as in train_step_tiles_sparse
     pervisit = getattr(trainer, "rms_pervisit", False)
-    decay = None if pervisit else torch.pow(trainer.rms_beta, (step - st.last_step[rows]).float())[:, None, None]
-    new, rms = _packed_update(trainer, st.packed_k[rows], g, st.rms[rows].float(), decay, step)
+    decay = None if pervisit else torch.pow(trainer.rms_beta, (step - st.last_step[idx]).float())[:, None, None]
+    new, rms = _packed_update(trainer, st.packed_k[idx], g, st.rms[idx].float(), decay, step)
     new = new * m  # the sentinel's slots stay exactly zero
 
-    st.packed_k[rows] = new
-    st.rms[rows] = rms.to(st.rms.dtype)
-    if st.cells is not None:
+    st.packed_k[idx] = new
+    st.rms[idx] = rms.to(st.rms.dtype)
+    if shard is not None:
+        st.cells[rows] = shard.from_owners(new.to(st.cells.dtype), rows)
+    elif st.cells is not None:
         st.cells[rows] = new.to(torch.bfloat16)
-    st.last_step.index_fill_(0, rows, int(step))
-    st.last_step[nb].fill_(-1)
+    st.last_step.index_fill_(0, idx, int(step))
+    if shard is None or shard.owns(nb):
+        st.last_step[nb if shard is None else nb - shard.lo].fill_(-1)
     return st, stats
 
 
@@ -775,7 +921,7 @@ def train_step_tiles_dense_k(
                                            use_occupancy=use_occupancy, n_chunks=n_chunks)
     acc_d = _append_row(gd)
     acc_sh = _append_row(gsh)
-    for kind, r4, v4 in _tv_parts(trainer, bg, st.density_k, st.sh_k, generator):
+    for kind, r4, v4 in _tv_parts(trainer, bg, st.density_k[..., None].__getitem__, st.sh_k.__getitem__, generator):
         if kind == "d":
             acc_d.index_add_(0, r4, v4[..., 0])
         else:

@@ -139,3 +139,50 @@ def test_loop_and_sh_cli_phases_are_callable_and_import_only_the_port(name, used
     for u in used:
         assert u in src, u
     assert name + "(dev, card" in inspect.getsource(chip_smoke.main)
+
+
+def _port_imports_only(src):
+    for node in ast.walk(ast.parse(src)):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+        for mod in names:
+            assert not mod.startswith("jax") and (not mod.startswith("nerf_projects_tpu")
+                                                  or mod.startswith("nerf_projects_tpu_torch")), mod
+
+
+@pytest.mark.parametrize("name,used", [
+    ("phase_parallel", ("init_distributed", '"nccl"', "make_mesh", "destroy_process_group", "check_waits",
+                        "run_ranks", "chip_smoke:parallel_rank", '"gloo"', "device_count", "render_image",
+                        "grad_bounds", "own_cells", "cells_agree", "one_bytes")),
+    ("parallel_rank", ("make_mesh", "scan_steps", "apply_grads", "render_rays_sharded", "shard_state_rows",
+                       "train_step_tiles_packed_touched", "mesh=mesh", "state_bytes", "all_gather")),
+])
+def test_parallel_phase_is_callable_and_imports_only_the_port(name, used):
+    """The data-parallel phase and what its ranks run exist, chip_mutants.py
+    runs the phase, both of its mutants (K2's global count, the cells'
+    all_gather) must fail it, main runs it, and neither imports anything of
+    the JAX package."""
+    fn = getattr(chip_smoke, name)
+    assert callable(fn)
+    src = inspect.getsource(fn)
+    _port_imports_only(src)
+    for u in used:
+        assert u in src, u
+    if name == "phase_parallel":
+        assert list(inspect.signature(fn).parameters) == ["dev", "card"]
+        assert "parallel" in {n for n, _ in PHASES}
+        musts = [m for m in chip_mutants.MUTANTS.values() if m[3] == ("parallel",)]
+        assert {m[0] for m in musts} == {"nerf_projects_tpu_torch/train/nerf_trainer.py",
+                                         "nerf_projects_tpu_torch/train/plenoxels_sparse.py"}
+        assert "phase_parallel(dev, card)" in inspect.getsource(chip_smoke.main)
+    else:
+        assert list(inspect.signature(fn).parameters) == []
+
+
+def test_gen_video_step_of_the_plenoctree_phase():
+    """The PlenOctree phase drives gen_video's renderers of all three kinds
+    and holds the grid's frames against render_grid_image."""
+    src = inspect.getsource(chip_smoke.phase_plenoctree)
+    for u in ("gen_video.make_renderer", '("grid", grid_path)', '("octree", tree_path)', '("nerf_sh", run_dir)',
+              "render_grid_image(", "torch.isfinite"):
+        assert u in src, u

@@ -176,10 +176,28 @@ def test_timing_tb_and_yaml_helpers(tmp_path, capsys):
     assert tcfg.load_yaml(str(tmp_path / "c.yaml")) == {"a": 1} and yaml is not None
 
 
-def test_run_refuses_the_host_and_floater_viz(tmp_path, scene):
-    args = cli_args(tmp_path, "--log_floater_viz")
-    with pytest.raises(NotImplementedError, match="The rest"):
-        tcli.run(args, scene=scene, test_scene=scene)
+def test_run_refuses_the_host_and_floater_viz(tmp_path, scene, monkeypatch):
+    """--log_floater_viz logs what JAX's CLI logs of the final grid (JAX's
+    log_floater_visualizations on the saved checkpoint, its cameras built
+    by JAX's pose conversion); without --device cpu and no card, run
+    refuses the host."""
+    import nerf_projects_tpu_torch.obs.tb as ttb
+    from nerf_projects_tpu.obs.floater_viz import log_floater_visualizations
+    from tests.test_torch_video_floaters import Recorder, assert_same_log
+
+    recorders = []
+    monkeypatch.setattr(ttb, "SummaryWriter", lambda *a, **k: recorders.append(Recorder()) or recorders[-1])
+    args = cli_args(tmp_path, "--log_floater_viz", "--fdr_density_threshold", "0.5")
+    tcli.run(args, scene=scene, test_scene=scene)
+    got = [c for c in recorders[0].calls if c[1].startswith("floaters/")]
+    want = Recorder()
+    cams = [(jcli._to_opencv_pose(scene.poses[v], scene), np.asarray(scene.intrinsics), scene.height, scene.width)
+            for v in range(2)]
+    log_floater_visualizations(want, JaxSparseGrid.load(str(tmp_path / "ckpt" / "ckpt.npz")), 4, cameras=cams,
+                               gt_images=[scene.images[v] for v in range(2)], threshold=0.5,
+                               n_slices=args.floater_viz_slices)
+    assert len(got) >= 4 and got[0][1] == "floaters/voxels"
+    assert_same_log(got, want.calls)
     if not torch.cuda.is_available():
         args = tcli.build_parser().parse_args(["--train_dir", str(tmp_path / "c3")])
         with pytest.raises(RuntimeError, match="device='cpu'"):
