@@ -24,6 +24,8 @@ extraction keeping a leaf's first sample's sigma instead of the mean
 the NeRF trainer's mesh route handing K2 the shard's ray count as
 n_rays_total and the row-sharded Plenoxels step skipping the all_gather
 of its rewritten cell rows (the parallel phase: two ranks on the card);
+check_env's "kernel build" row holding K1f's plain version against itself
+and never launching K1f (the tools phase, on a fresh train_nerf_loop run);
 the wgmma core's (mlp_sm90.cuh: K1f, K1b, K1rf, K1rb, K2, K5f
 and K5b) include the concat, the relu mask, the stage ring, the dW jobs
 (K1's and K5b's), the view encoder, the encoding stash, K1rb's, K1b's and
@@ -269,6 +271,12 @@ MUTANTS = {
         "st.cells[rows] = new.to(st.cells.dtype)",
         ("parallel",),
     ),
+    "check_env's kernel build row compares the plain version with itself and never launches K1f": (
+        "nerf_projects_tpu_torch/cli/check_env.py",
+        "got = fm.fused_mlp_fwd(fm.forward_weights(model, raw=False), x, v)",
+        "got = fm.fused_nerf_mlp_reference(W, x, v)",
+        ("tools",),
+    ),
 }
 
 PHASES = r'''
@@ -293,7 +301,8 @@ phases = {"kernel": lambda: c.phase_kernel(dev, fine_rows=65536),
           "train_nerf_loop": lambda: c.phase_train_nerf_loop(dev, c.nvidia_smi()),
           "train_nerf_sh_cli": lambda: c.phase_train_nerf_sh_cli(dev, c.nvidia_smi()),
           "plenoctree": lambda: c.phase_plenoctree_on_a_run(dev, c.nvidia_smi()),
-          "parallel": lambda: c.phase_parallel(dev, c.nvidia_smi())}
+          "parallel": lambda: c.phase_parallel(dev, c.nvidia_smi()),
+          "tools": lambda: c.phase_tools_on_a_run(dev, c.nvidia_smi())}
 for name in sys.argv[1:]:
     fn = phases[name]
     try:

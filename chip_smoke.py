@@ -304,6 +304,24 @@ Phases, each of which raises (exit code 1) on failure:
           fog 256^3 on a state row-sharded over the ranks against the
           one-process step, each rank's cells equal to the owners'
           masters, the float32 bytes a rank holds beside one process's.
+  tools   the tools around the system: cli/check_env.py in a process of
+          its own on the card (every row PASS; its "kernel build" row's one
+          K1f launch at 8x256 on 4,096 rows within KERNEL_TOL of the plain
+          version, counted into K1f's launches; the g++ host ops
+          "compiled"); a TaskManager sweep (build_tasks_from_spec, one lin
+          variable of two noise levels) whose tasks each run
+          cli/data_prep.py extract_metrics in a process of its own over a
+          MetricsLogger log of a noisy image's PSNR computed on the card,
+          the printed PSNRs read back by parse_stdout_metrics, the results
+          file and the leaderboard's order held to them; and the analysis
+          over train_nerf_loop's runs (main keeps their directory):
+          load_training_log, load_metrics_log, experiment_summary (the last
+          step, train PSNR and testset PSNR equal to the loop's own files),
+          extract_pipeline_stages, efficiency_trends, dashboards.leaderboard
+          and results_report. Figures and DataFrames need matplotlib and
+          pandas, which the card's machine lacks (the phase logs which
+          are missing); they are held on the CPU only. The data tools and
+          the analysis import no torch, so each task is a light process.
 
 Each MLP kernel is also timed at every level size its main paths launch
 it at (a serving request's and a training step's coarse and fine
@@ -3610,7 +3628,7 @@ def read_jsonl(path: str) -> list:
         return [json.loads(line) for line in f]
 
 
-def phase_train_nerf_loop(dev, card: str) -> dict:
+def phase_train_nerf_loop(dev, card: str, base=None) -> dict:
     """``train/loop.py::train`` at the lego configuration (a config dict, no
     YAML), LOOP_STEPS steps a route on the card: batching on the autograd
     route (i_print 20, i_weights 30, i_testset 60); the same resumed from
@@ -3623,10 +3641,10 @@ def phase_train_nerf_loop(dev, card: str) -> dict:
     rays/s beside scan_steps' on the same configuration, eval seconds a
     view and peak memory. Then one loop step (draw + train_step) of each
     draw under set_sync_debug_mode: no waits. K2's launch counter is
-    zeroed just before the mega run and read just after. Returns
-    {"fused_train_level": launches}."""
+    zeroed just before the mega run and read just after. The runs go to
+    ``base`` (kept by the caller, for the tools phase) or to a temporary
+    directory. Returns {"fused_train_level": launches}."""
     import shutil
-    import tempfile
 
     from nerf_projects_tpu_torch.core.rays import Rays, camera_rays, ndc_rays
     from nerf_projects_tpu_torch.obs.metrics import compute_metrics
@@ -3643,7 +3661,7 @@ def phase_train_nerf_loop(dev, card: str) -> dict:
         "ndc": (fern, dict(white_bkgd=False), None),
     }
     launches = {}
-    with tempfile.TemporaryDirectory() as base:
+    with contextlib.nullcontext(base) if base else tempfile.TemporaryDirectory() as base:
         for name, ((scene, test_scene), kw, trainer_kwargs) in routes.items():
             cfg = loop_config(base, name, **kw)
             exp = os.path.join(base, name)
@@ -4512,6 +4530,158 @@ def phase_parallel(dev, card: str) -> dict:
     return counts
 
 
+# tools around the system (cli/check_env.py, pipeline/task_manager.py,
+# cli/data_prep.py, obs/analysis.py, obs/dashboards.py)
+TOOLS_ROWS = ["cuda devices", "kernel build", "nerf pipeline", "sparse grid render", "octree render",
+              "native C++ ops", "optional deps"]
+TOOLS_NOISE = "lin(0.05,0.2,2)"  # the sweep's variable: the noise of each task's image
+TOOLS_IMAGE = 400                 # the noisy images are 400x400, half-res lego's size
+TOOLS_SWEEP_S = 15.0              # the sweep's wall, at most
+TOOLS_PHASE_S = 30.0              # the phase's wall, at most
+
+
+def check_env_rows(out: str) -> dict:
+    """cli/check_env.py's ``[PASS] name detail (sec)`` lines -> {name: (ok, detail)}."""
+    rows = {}
+    for line in out.splitlines():
+        m = re.match(r"^\[(PASS|FAIL)\] (.{22}) (.*) \(([0-9.]+)s\)$", line)
+        if m:
+            rows[m.group(2).strip()] = (m.group(1) == "PASS", m.group(3))
+    return rows
+
+
+def phase_tools(dev, card: str, loop_dir: str) -> dict:
+    """(a) cli/check_env.py in a process of its own on the card: exit 0,
+    every row PASS, the "kernel build" row's one K1f launch within
+    KERNEL_TOL of the plain version, the host ops compiled. (b) A
+    TaskManager sweep from a spec of one lin variable (TOOLS_NOISE): for
+    each value a noisy copy of a seeded image, its PSNR and SSIM computed
+    on the card and logged by MetricsLogger; each task runs
+    cli/data_prep.py extract_metrics over its log in a process of its own,
+    and the PSNR it prints, read by parse_stdout_metrics, must be the
+    logged one; the results file and the leaderboard's order are held to
+    them. (c) The analysis over ``loop_dir`` (train_nerf_loop's runs):
+    each run's experiment_summary against its training_log.jsonl and
+    testset metrics.json, extract_pipeline_stages, efficiency_trends,
+    dashboards.leaderboard's order and results_report. Returns
+    {"fused_mlp_fwd": K1f's launches in check_env}."""
+    import importlib.util
+
+    from nerf_projects_tpu_torch.cli import check_env
+    from nerf_projects_tpu_torch.obs import analysis, dashboards
+    from nerf_projects_tpu_torch.obs.json_logger import MetricsLogger
+    from nerf_projects_tpu_torch.obs.metrics import compute_metrics
+    from nerf_projects_tpu_torch.pipeline import task_manager as tm
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    if check_env.KERNEL_TOL != KERNEL_TOL:
+        raise AssertionError(f"tools: check_env holds K1f at {check_env.KERNEL_TOL}, this script at {KERNEL_TOL}")
+    # (a) the environment check
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "nerf_projects_tpu_torch.cli.check_env"], cwd=here,
+                          capture_output=True, text=True, timeout=300)
+    env_s = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"tools: check_env: {line}")
+    rows = check_env_rows(proc.stdout)
+    if proc.returncode != 0 or proc.stdout.splitlines()[-1:] != ['{"all_ok": true}']:
+        failed = {name: detail for name, (ok, detail) in rows.items() if not ok}
+        raise AssertionError(f"tools: check_env exited {proc.returncode}, rows failed: {failed}; "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    if list(rows) != TOOLS_ROWS or not all(ok for ok, _ in rows.values()):
+        raise AssertionError(f"tools: check_env's rows {rows}")
+    kernel = rows["kernel build"][1]
+    m = re.search(r"K1f launches (\d+); max_abs_err ([0-9.e+-]+); err/\(mean\|plain\|\+1\) ([0-9.e+-]+)", kernel)
+    if not m or int(m.group(1)) != 1 or not float(m.group(3)) < KERNEL_TOL:
+        raise AssertionError(f"tools: check_env's kernel build row: {kernel}")
+    if rows["native C++ ops"][1] != "compiled":
+        raise AssertionError(f"tools: check_env's native row: {rows['native C++ ops']}")
+    k1f = int(m.group(1))
+    # (b) the sweep
+    spec = {"data_root": os.path.join(loop_dir, "sweep"), "variables": {"noise": TOOLS_NOISE},
+            "tasks": [{"name": "noisy", "cwd": here,
+                       "cmd": f"{sys.executable} -m nerf_projects_tpu_torch.cli.data_prep extract_metrics "
+                              "{data_root}/noise_{noise}"}]}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    clean = torch.rand((TOOLS_IMAGE, TOOLS_IMAGE, 3), generator=gen, device=dev)
+    logged = {}
+    for var in tm.expand_variables(spec["variables"]):
+        run_dir = tm.substitute("{data_root}/noise_{noise}", {**var, "data_root": spec["data_root"]})
+        noisy = clean + var["noise"] * torch.randn(clean.shape, generator=gen, device=dev)
+        metrics = compute_metrics(noisy, clean)
+        MetricsLogger(run_dir).log_evaluation_step(0, {"psnr": metrics["psnr"], "ssim": metrics["ssim"]})
+        logged[f"noisy_noise={var['noise']:.4g}"] = metrics["psnr"]
+    tasks = tm.build_tasks_from_spec(spec)
+    results_path = os.path.join(loop_dir, "sweep_results.txt")
+    t0 = time.perf_counter()
+    results = tm.TaskManager().run(tasks, results_path=results_path)
+    sweep_s = time.perf_counter() - t0
+    got = {r["name"]: r["metrics"].get("psnr") for r in results}
+    if got != logged or any(r["returncode"] != 0 for r in results):
+        raise AssertionError(f"tools: the sweep's PSNRs {got} against the logged {logged}: {results}")
+    with open(results_path) as f:
+        if [json.loads(line) for line in f] != results:
+            raise AssertionError("tools: the results file is not the sweep's results")
+    board = tm.leaderboard(results)
+    if board != sorted(((v, k) for k, v in logged.items()), reverse=True) or board[0][1] != "noisy_noise=0.05":
+        raise AssertionError(f"tools: the leaderboard {board} against the logged {logged}")
+    log(f"tools: sweep of {len(tasks)} tasks (extract_metrics, {tm.TaskManager().n_workers} worker) in "
+        f"{sweep_s:.3f} s: leaderboard {board}")
+    if not sweep_s <= TOOLS_SWEEP_S:
+        raise AssertionError(f"tools: the sweep took {sweep_s:.1f} s, over {TOOLS_SWEEP_S} s")
+    # (c) the analysis over the loop's runs
+    board = dashboards.leaderboard(loop_dir)
+    names = sorted(r["experiment"] for r in board)
+    if names != ["batching", "mega", "ndc", "no_batching", "resumed"]:
+        raise AssertionError(f"tools: the leaderboard's runs {names}")
+    test_psnrs = {}
+    for name in names:
+        d, tag = os.path.join(loop_dir, name), f"tools: {name}"
+        rows_log = read_jsonl(os.path.join(d, "training_log.jsonl"))
+        with open(os.path.join(d, f"testset_{LOOP_STEPS:06d}", "metrics.json")) as f:
+            test_psnrs[name] = json.load(f)["mean"]["psnr"]
+        summary = analysis.experiment_summary(d)
+        if (analysis.load_training_log(d) != rows_log or not summary["steps"] == rows_log[-1]["step"] == LOOP_STEPS
+                or summary["final_train_psnr"] != rows_log[-1]["psnr"] or summary["test_psnr"] != test_psnrs[name]):
+            raise AssertionError(f"{tag}: summary {summary} against the log's last row {rows_log[-1]} "
+                                 f"and testset PSNR {test_psnrs[name]}")
+        entries = analysis.load_metrics_log(d)
+        stages = dashboards.extract_pipeline_stages(d)
+        train_psnr = [e["metrics"].get("psnr") for e in entries if e.get("phase") == "training"]
+        if not train_psnr or stages["training"]["last_psnr"] != train_psnr[-1] or "evaluation" not in stages:
+            raise AssertionError(f"{tag}: stages {stages} against the metrics log's training PSNRs {train_psnr}")
+        trends = dashboards.efficiency_trends(d)
+        log(f"{tag}: step {summary['steps']}, train PSNR {summary['final_train_psnr']:.4f} dB, testset "
+            f"{summary['test_psnr']:.4f} dB, {summary.get('mean_rays_per_sec', 0):.1f} rays/s; stages "
+            f"{ {k: v['n_entries'] for k, v in stages.items()} }; {len(trends)} efficiency rows")
+    if [r["experiment"] for r in board] != sorted(names, key=lambda n: -test_psnrs[n]):
+        raise AssertionError(f"tools: the leaderboard's order {[r['experiment'] for r in board]} against the "
+                             f"testset PSNRs {test_psnrs}")
+    report = dashboards.results_report(loop_dir)
+    with open(report) as f:
+        html = f.read()
+    if not all(f"<h2>{n}</h2>" in html for n in names):
+        raise AssertionError("tools: results_report lacks a run")
+    log(f"tools: leaderboard {[(r['experiment'], round(r['test_psnr'], 4)) for r in board]}; results_report "
+        f"{len(html)} bytes")
+    missing = [m for m in ("matplotlib", "pandas", "imageio") if importlib.util.find_spec(m) is None]
+    log(f"tools: figures (matplotlib) and DataFrames (pandas) are held on the CPU only; this machine lacks {missing}")
+    wall = time.perf_counter() - t_phase
+    log(f"tools on {card}: phase wall {wall:.1f} s (check_env {env_s:.1f} s, sweep {sweep_s:.1f} s); "
+        f"K1f launches {k1f}")
+    if not wall <= TOOLS_PHASE_S:
+        raise AssertionError(f"tools: the phase took {wall:.1f} s, over {TOOLS_PHASE_S} s")
+    return {"fused_mlp_fwd": k1f}
+
+
+def phase_tools_on_a_run(dev, card: str) -> dict:
+    """phase_tools on the runs of a fresh train_nerf_loop phase."""
+    with tempfile.TemporaryDirectory() as loop_dir:
+        phase_train_nerf_loop(dev, card, loop_dir)
+        return phase_tools(dev, card, loop_dir)
+
+
 def host_peak_gb() -> float:
     """This process's peak resident memory (ru_maxrss), GB."""
     import resource
@@ -4570,7 +4740,8 @@ def main() -> int:
     sh_counts = phase_train_nerf_sh(dev, card)
     sh_fwd["launches"] = sh_serve + sh_counts["fused_sh_fwd"]
     sh_bwd["launches"] = sh_counts["fused_sh_bwd"]
-    loop_counts = phase_train_nerf_loop(dev, card)
+    loop_runs = tempfile.TemporaryDirectory()  # the loop's runs, kept for the tools phase
+    loop_counts = phase_train_nerf_loop(dev, card, loop_runs.name)
     with tempfile.TemporaryDirectory() as sh_run:  # the NeRF-SH run, kept for the PlenOctree phase
         cli_counts = phase_train_nerf_sh_cli(dev, card, run_dir=sh_run)
         octree_counts = phase_plenoctree(dev, card, sh_run)
@@ -4609,6 +4780,10 @@ def main() -> int:
     for entry, name in ((kernels[0], "fused_mlp_fwd"), (kernels[1], "fused_mlp_bwd"),
                         (kernels[2], "fused_train_level"), (march, "tile_march_fwd"), (march_bwd, "tile_march_bwd")):
         entry["launches"] += dp[name]
+    # the tools (check_env's K1f launch) over the loop's runs
+    tools = phase_tools(dev, card, loop_runs.name)
+    loop_runs.cleanup()
+    kernels[0]["launches"] += tools["fused_mlp_fwd"]
     log(f"chip_smoke: wall {time.perf_counter() - t0:.1f} s, build {build_s:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

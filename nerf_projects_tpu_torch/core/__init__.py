@@ -4,6 +4,7 @@ from nerf_projects_tpu_torch.core.rays import (
     Rays,
     camera_rays,
     camera_rays_opencv,
+    ndc_rays,
     pose_spherical,
     spherical_pose_path,
 )
@@ -13,6 +14,7 @@ __all__ = [
     "camera_rays",
     "camera_rays_opencv",
     "chunk_apply",
+    "ndc_rays",
     "pad_to_multiple",
     "pose_spherical",
     "resolve_device",

@@ -14,8 +14,6 @@ from typing import Callable
 
 import torch
 
-from nerf_projects_tpu_torch.core.rays import Rays
-
 
 def pad_to_multiple(x: torch.Tensor, multiple: int, axis: int = 0):
     """Pad ``x`` along ``axis`` to a multiple of ``multiple`` by repeating
@@ -32,21 +30,25 @@ def pad_to_multiple(x: torch.Tensor, multiple: int, axis: int = 0):
 
 
 def tree_map(fn, tree):
-    """``fn`` on every tensor of a tensor, a ``Rays``, or a dict, tuple or
-    list of them (nested), keeping the structure."""
+    """``fn`` on every tensor of a tensor, or of a dict, tuple, list or
+    NamedTuple (a ``Rays``, a ``RenderOutputs``) of them (nested), keeping
+    the structure. A ``None`` leaf stays ``None``, as in a JAX pytree."""
     if torch.is_tensor(tree):
         return fn(tree)
-    if isinstance(tree, Rays):
-        return tree.map(fn)
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_map(fn, v) for v in tree)
     raise TypeError(f"not a tensor tree: {type(tree).__name__}")
 
 
 def tree_leaves(tree) -> list:
-    """The tensors of a tree, in ``tree_map``'s order."""
+    """The tensors of a tree, in ``tree_map``'s order (``None`` leaves
+    skipped, as ``jax.tree_util.tree_leaves`` does)."""
     out = []
     tree_map(out.append, tree)
     return out

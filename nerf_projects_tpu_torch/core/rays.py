@@ -121,6 +121,29 @@ def ndc_rays(
     return torch.stack([o0, o1, o2], dim=-1), torch.stack([d0, d1, d2], dim=-1)
 
 
+def ndc_rays_opencv(origins: torch.Tensor, directions: torch.Tensor, ndc_coeffs: tuple):
+    """The OpenCV-convention NDC warp of the Plenoxels path (reference
+    svox2/svox2/utils.py:576-597): +z forward rays, ndc_coeffs = (2 fx / W,
+    2 fy / H), the near plane at z = 1; unit directions out."""
+    cx, cy = ndc_coeffs
+    t = -(1.0 - origins[..., 2]) / directions[..., 2]
+    origins = origins + t[..., None] * directions
+
+    ox, oy, oz = origins[..., 0], origins[..., 1], origins[..., 2]
+    dx, dy, dz = directions[..., 0], directions[..., 1], directions[..., 2]
+
+    o0 = cx * ox / oz
+    o1 = cy * oy / oz
+    o2 = 1.0 - 2.0 / oz
+    d0 = cx * (dx / dz - ox / oz)
+    d1 = cy * (dy / dz - oy / oz)
+    d2 = 2.0 / oz
+
+    ndc_directions = torch.stack([d0, d1, d2], dim=-1)
+    ndc_directions = ndc_directions / torch.linalg.norm(ndc_directions, dim=-1, keepdim=True)
+    return torch.stack([o0, o1, o2], dim=-1), ndc_directions
+
+
 # ---------------------------------------------------------------------------
 # Pose path helpers (host-side numpy)
 # ---------------------------------------------------------------------------
@@ -161,3 +184,22 @@ def spherical_pose_path(n_poses: int = 40, phi: float = -30.0, radius: float = 4
     """The reference's 40-pose render path (load_blender.py:80-84)."""
     thetas = np.linspace(-180.0, 180.0, n_poses + 1)[:-1]
     return np.stack([pose_spherical(t, phi, radius) for t in thetas], axis=0)
+
+
+def equirect_rays(height: int, width: int, c2w, *, device: Optional[Union[str, torch.device]] = None) -> Rays:
+    """360-degree equirectangular rays shaped [H, W, 3] (reference
+    nerf_sh/nerf/utils.py:591-624): longitude over [-pi, pi) across the
+    width, latitude over (-pi/2, pi/2] down the height, directions rotated
+    by c2w, origins at the camera centre."""
+    dev = resolve_device(device)
+    c2w = torch.as_tensor(np.asarray(c2w), dtype=torch.float32, device=dev)
+    x = torch.arange(width, dtype=torch.float32, device=dev)
+    y = torch.arange(height, dtype=torch.float32, device=dev)
+    y, x = torch.meshgrid(y, x, indexing="ij")
+    lon = (x / width - 0.5) * 2.0 * np.pi
+    lat = -(y / height - 0.5) * np.pi
+    dirs_cam = torch.stack([torch.cos(lat) * torch.sin(lon), torch.sin(lat), -torch.cos(lat) * torch.cos(lon)],
+                           dim=-1)
+    directions = dirs_cam @ c2w[:3, :3].T
+    origins = c2w[:3, -1].expand(directions.shape)
+    return Rays(origins=origins, directions=directions, viewdirs=directions)

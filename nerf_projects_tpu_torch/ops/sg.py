@@ -17,6 +17,23 @@ def spher2cart(r, theta: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y, z], dim=-1)
 
 
+def euler2mat(angle: torch.Tensor) -> torch.Tensor:
+    """Euler angles [..., 3] (x, y, z, radians) -> rotation matrices
+    [..., 3, 3], x @ y @ z."""
+    x, y, z = angle[..., 0], angle[..., 1], angle[..., 2]
+    cz, sz = torch.cos(z), torch.sin(z)
+    cy, sy = torch.cos(y), torch.sin(y)
+    cx, sx = torch.cos(x), torch.sin(x)
+    zeros, ones = torch.zeros_like(z), torch.ones_like(z)
+    zmat = torch.stack([torch.stack([cz, -sz, zeros], -1), torch.stack([sz, cz, zeros], -1),
+                        torch.stack([zeros, zeros, ones], -1)], -1)
+    ymat = torch.stack([torch.stack([cy, zeros, sy], -1), torch.stack([zeros, ones, zeros], -1),
+                        torch.stack([-sy, zeros, cy], -1)], -1)
+    xmat = torch.stack([torch.stack([ones, zeros, zeros], -1), torch.stack([zeros, cx, -sx], -1),
+                        torch.stack([zeros, sx, cx], -1)], -1)
+    return torch.einsum("...ij,...jk,...kq->...iq", xmat, ymat, zmat)
+
+
 def eval_sg(sg_lambda: torch.Tensor, sg_mu: torch.Tensor, sg_coeffs: torch.Tensor,
             dirs: torch.Tensor) -> torch.Tensor:
     """Evaluate a learnable SG basis at unit directions.

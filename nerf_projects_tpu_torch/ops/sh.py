@@ -40,6 +40,8 @@ SH_C4 = (
     0.6258357354491761,
 )
 
+MAX_SH_DEGREE = 4
+
 
 def eval_sh_bases(basis_dim: int, dirs: torch.Tensor) -> torch.Tensor:
     """SH basis values [..., basis_dim] at unit directions [..., 3];

@@ -24,6 +24,8 @@ same deviation).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from nerf_projects_tpu_torch.ops.sh import eval_sh_bases
@@ -149,7 +151,11 @@ def tv_lumisphere_grad_sampled(links: torch.Tensor, sh_data: torch.Tensor, cells
     return _add(grad, lnk000, g0)
 
 
-def l2_color_grad(sh_data: torch.Tensor, *, scale: float) -> torch.Tensor:
+def l2_color_grad(sh_data: torch.Tensor, *, scale: float, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """L2 shrinkage on the SH coefficients (inplace_l2_color_grad,
-    svox2.py:1897-1929): (scale / n_rows) * sh_data over all rows."""
-    return (scale / sh_data.shape[0]) * sh_data
+    svox2.py:1897-1929): (scale / n_rows) * sh_data, n_rows being all rows
+    or, with a bool ``mask`` [rows], the rows it selects (zero elsewhere)."""
+    if mask is None:
+        return (scale / sh_data.shape[0]) * sh_data
+    nz = max(int(mask.sum()), 1)
+    return torch.where(mask[:, None], (scale / nz) * sh_data, torch.zeros_like(sh_data))

@@ -186,3 +186,27 @@ def test_gen_video_step_of_the_plenoctree_phase():
     for u in ("gen_video.make_renderer", '("grid", grid_path)', '("octree", tree_path)', '("nerf_sh", run_dir)',
               "render_grid_image(", "torch.isfinite"):
         assert u in src, u
+
+
+def test_tools_phase_is_callable_and_imports_only_the_port():
+    """The tools phase exists, main runs it after the parallel phase on the
+    loop's runs and counts check_env's K1f launch, chip_mutants.py runs it
+    (on a fresh loop run), its mutant (check_env's kernel row holding the
+    plain version against itself) must fail it, and it imports nothing of
+    the JAX package."""
+    fn = chip_smoke.phase_tools
+    assert list(inspect.signature(fn).parameters) == ["dev", "card", "loop_dir"]
+    src = inspect.getsource(fn)
+    _port_imports_only(src)
+    for used in ("cli.check_env", "KERNEL_TOL", "K1f launches", "build_tasks_from_spec", "TaskManager",
+                 "leaderboard", "extract_metrics", "experiment_summary", "extract_pipeline_stages", "efficiency_trends",
+                 "results_report", "load_training_log", "load_metrics_log", "TOOLS_PHASE_S"):
+        assert used in src, used
+    main = inspect.getsource(chip_smoke.main)
+    assert main.index("phase_parallel(dev, card)") < main.index("phase_tools(dev, card, loop_runs.name)")
+    assert "phase_train_nerf_loop(dev, card, loop_runs.name)" in main
+    assert 'kernels[0]["launches"] += tools["fused_mlp_fwd"]' in main
+    assert ("tools", "phase_tools_on_a_run") in PHASES
+    musts = [m for m in chip_mutants.MUTANTS.values() if m[3] == ("tools",)]
+    assert [m[0] for m in musts] == ["nerf_projects_tpu_torch/cli/check_env.py"]
+    assert "fused_mlp_fwd(" in musts[0][1] and "fused_mlp_fwd(" not in musts[0][2]
