@@ -16,6 +16,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from nerf_projects_tpu_torch.core.rays import Rays
+from nerf_projects_tpu_torch.obs.trace import span
 from nerf_projects_tpu_torch.ops.posenc import posenc
 from nerf_projects_tpu_torch.ops.render import volumetric_rendering
 from nerf_projects_tpu_torch.ops.sampling import (
@@ -59,30 +60,30 @@ def _query_mlp(apply_fn, params, pts, viewdirs, cfg: NeRFRenderConfig):
         vd = viewdirs[:, None, :].expand(r, n, 3).reshape(r * n, 3)
         raw = apply_fn(params, flat_pts, vd)
         return raw.reshape(r, n, raw.shape[-1])
-    pts_enc = posenc(flat_pts, cfg.multires, ordering=cfg.posenc_ordering)
-    if cfg.use_viewdirs:
-        vd = viewdirs[:, None, :].expand(r, n, 3).reshape(r * n, 3)
-        views_enc = posenc(vd, cfg.multires_views, ordering=cfg.posenc_ordering)
-        raw = apply_fn(params, pts_enc, views_enc)
-    else:
-        raw = apply_fn(params, pts_enc)
+    with span("nerf.encode", device=True):
+        enc = (posenc(flat_pts, cfg.multires, ordering=cfg.posenc_ordering),)
+        if cfg.use_viewdirs:
+            vd = viewdirs[:, None, :].expand(r, n, 3).reshape(r * n, 3)
+            enc += (posenc(vd, cfg.multires_views, ordering=cfg.posenc_ordering),)
+    raw = apply_fn(params, *enc)
     return raw.reshape(r, n, raw.shape[-1])
 
 
 def _raw_to_outputs(generator, raw, z_vals, dirs, cfg: NeRFRenderConfig, randomized, rows=None):
     """Activate raw outputs and composite (notebook cell 9 semantics)."""
-    rgb = torch.sigmoid(raw[..., :3])
-    sigma_logit = raw[..., 3]
-    if cfg.raw_noise_std > 0.0 and randomized:
-        noise = global_draw(
-            lambda s: torch.randn(s, generator=generator, dtype=sigma_logit.dtype, device=sigma_logit.device),
-            sigma_logit.shape, rows,
+    with span("nerf.composite", device=True):
+        rgb = torch.sigmoid(raw[..., :3])
+        sigma_logit = raw[..., 3]
+        if cfg.raw_noise_std > 0.0 and randomized:
+            noise = global_draw(
+                lambda s: torch.randn(s, generator=generator, dtype=sigma_logit.dtype, device=sigma_logit.device),
+                sigma_logit.shape, rows,
+            )
+            sigma_logit = sigma_logit + noise * cfg.raw_noise_std
+        sigma = torch.relu(sigma_logit)
+        return volumetric_rendering(
+            rgb, sigma, z_vals, dirs, white_bkgd=cfg.white_bkgd, disp_mode="nerf"
         )
-        sigma_logit = sigma_logit + noise * cfg.raw_noise_std
-    sigma = torch.relu(sigma_logit)
-    return volumetric_rendering(
-        rgb, sigma, z_vals, dirs, white_bkgd=cfg.white_bkgd, disp_mode="nerf"
-    )
 
 
 def render_rays(
@@ -116,11 +117,12 @@ def render_rays(
         raise ValueError("randomized rendering requires a generator")
     n_rays = rays.origins.shape[0]
     device = rays.origins.device
-    z_vals = stratified_sample(
-        generator, cfg.num_coarse_samples, near, far, (n_rays,),
-        lindisp=cfg.lindisp, randomized=randomized and cfg.perturb, device=device, rows=rows,
-    )
-    pts = cast_rays(z_vals, rays.origins, rays.directions)
+    with span("nerf.sample", device=True):
+        z_vals = stratified_sample(
+            generator, cfg.num_coarse_samples, near, far, (n_rays,),
+            lindisp=cfg.lindisp, randomized=randomized and cfg.perturb, device=device, rows=rows,
+        )
+        pts = cast_rays(z_vals, rays.origins, rays.directions)
     raw = _query_mlp(apply_fn, params_coarse, pts, rays.viewdirs, cfg)
     coarse = _raw_to_outputs(generator, raw, z_vals, rays.directions, cfg, randomized, rows)
     out = {
@@ -131,17 +133,18 @@ def render_rays(
         "weights": coarse.weights,
     }
     if cfg.num_fine_samples > 0:
-        z_mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-        z_samples = piecewise_constant_pdf(
-            generator, z_mids, coarse.weights[..., 1:-1], cfg.num_fine_samples,
-            randomized=randomized and cfg.perturb, mode=cfg.pdf_mode,
-            sorted_u=cfg.resample_sorted, rows=rows,
-        )
-        if cfg.resample_sorted:
-            z_combined = merge_sorted(z_vals, z_samples)
-        else:
-            z_combined = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1).values
-        pts_fine = cast_rays(z_combined, rays.origins, rays.directions)
+        with span("nerf.sample", device=True):
+            z_mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+            z_samples = piecewise_constant_pdf(
+                generator, z_mids, coarse.weights[..., 1:-1], cfg.num_fine_samples,
+                randomized=randomized and cfg.perturb, mode=cfg.pdf_mode,
+                sorted_u=cfg.resample_sorted, rows=rows,
+            )
+            if cfg.resample_sorted:
+                z_combined = merge_sorted(z_vals, z_samples)
+            else:
+                z_combined = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1).values
+            pts_fine = cast_rays(z_combined, rays.origins, rays.directions)
         params_f = params_fine if params_fine is not None else params_coarse
         raw_fine = _query_mlp(apply_fn, params_f, pts_fine, rays.viewdirs, cfg)
         fine = _raw_to_outputs(generator, raw_fine, z_combined, rays.directions, cfg, randomized, rows)

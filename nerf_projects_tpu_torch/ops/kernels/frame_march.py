@@ -8,17 +8,20 @@ tile-level all-rays-saturated skip (``early_stop``). A per-ray march
 needs none of that plan: the frame is one launch of the march kernel
 (``tile_march.tile_march_fwd``) over all its tiles, and ``early_stop``
 ends each ray where its transmittance falls below ``opts.stop_thresh``.
-rgb, acc, depth and log_transmit are the same as without early stop;
-the sparsity sum stops counting there, as on the TPU.
+rgb, acc, depth and log_transmit are the same as without early stop.
+The frame's outputs are built from the march's block alone: the TPU
+plan's counters (``render_tiles_pallas``' window_miss, miss_per_ray,
+sparsity_sum, dropped_active_chunks) are not formed.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 from nerf_projects_tpu_torch.core.rays import Rays
+from nerf_projects_tpu_torch.obs.trace import span
 from nerf_projects_tpu_torch.ops.brick_grid import BrickGrid
 from nerf_projects_tpu_torch.ops.grid import GridRenderOptions
-from nerf_projects_tpu_torch.ops.kernels.tile_march import default_chunks_for, render_tiles_pallas
+from nerf_projects_tpu_torch.ops.kernels.tile_march import default_chunks_for, frame_outputs, march, march_inputs
 
 
 def render_frame_pallas(
@@ -51,9 +54,11 @@ def render_frame_pallas(
     del group, term_cull, gather_fetch, wps
     if max_windows is not None:
         raise NotImplementedError("max_windows (a cap on the TPU's window plan) is not ported")
-    out = render_tiles_pallas(
-        bg, rays, opts, n_chunks=n_chunks or default_chunks_for(bg, opts), use_occupancy=use_occupancy,
-        return_depth=return_depth, kernel_arrays=kernel_arrays, early_stop=early_stop,
-    )
-    keep = ("rgb", "acc", "log_transmit", "depth")
-    return {k: v for k, v in out.items() if k in keep}
+    with span("frame"):
+        cells, pack, basis, max_steps = march_inputs(
+            bg, rays, opts, n_chunks=n_chunks or default_chunks_for(bg, opts), use_occupancy=use_occupancy,
+            kernel_arrays=kernel_arrays)
+        out = march(cells, bg.brick_links, bg.reso, pack, basis, max_steps=max_steps, color_mode=opts.color_mode,
+                    sigma_thresh=opts.sigma_thresh, stop_thresh=opts.stop_thresh, early_stop=early_stop)
+        with span("frame.outputs"):
+            return frame_outputs(out, pack, opts, return_depth)

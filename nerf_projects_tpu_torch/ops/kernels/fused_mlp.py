@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from nerf_projects_tpu_torch.models.nerf import NeRFMLP
+from nerf_projects_tpu_torch.obs.trace import span
 from nerf_projects_tpu_torch.ops.kernels import _build
 
 # live multiply-adds per sample (unpadded widths) and bytes of input and
@@ -820,7 +821,12 @@ def fused_apply(model: NeRFMLP, pts_enc: torch.Tensor, views_enc: torch.Tensor):
     """Drop-in for ``model(pts_enc, views_enc)`` on [N, 63] / [N, 27]
     encodings -> [N, 4] (rgb logits, sigma logit), in bf16 products. No
     row padding: the kernel masks the tail."""
-    return _rgb_sigma(fused_nerf_mlp(model, *_pad_inputs(pts_enc, views_enc)))
+    with span("nerf.encode", device=True):
+        x, v = _pad_inputs(pts_enc, views_enc)
+    with span("nerf.mlp", device=True):
+        out = fused_nerf_mlp(model, x, v)
+        del x, v  # a serving chunk's padded encodings go before _rgb_sigma's output comes
+        return _rgb_sigma(out)
 
 
 def fused_apply_reference(W: FusedMLPWeights, pts_enc: torch.Tensor, views_enc: torch.Tensor):

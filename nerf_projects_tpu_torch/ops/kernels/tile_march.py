@@ -51,6 +51,7 @@ import torch
 
 from nerf_projects_tpu_torch.core.device import device_constant
 from nerf_projects_tpu_torch.core.rays import Rays
+from nerf_projects_tpu_torch.obs.trace import span
 from nerf_projects_tpu_torch.ops.brick_grid import BRICK, BrickGrid
 from nerf_projects_tpu_torch.ops.grid import GridRenderOptions, decode_rgb, ray_grid_geometry
 from nerf_projects_tpu_torch.ops.kernels.fused_mlp import (
@@ -682,12 +683,13 @@ def tile_march_fwd(cells: torch.Tensor, brick_links: torch.Tensor, reso, pack: t
     """Launch the CUDA march: cells bf16 [nb, 512, CP], brick_links int32
     [BX, BY, BZ], pack float32 [T, r, PACK], basis float32 [T, B] on one
     card -> out [T, 8, r] as ``march_reference``."""
-    T, r, _ = pack.shape
-    out = torch.empty((T, 8, r), dtype=torch.float32, device=pack.device)
-    if _fwd_launch(cells, brick_links, reso, pack, basis, out, max_steps=max_steps, color_mode=color_mode,
-                   sigma_thresh=sigma_thresh, stop_thresh=stop_thresh, early_stop=early_stop):
-        tile_march_fwd.launches += 1
-    return out
+    with span("k3.launch"):
+        T, r, _ = pack.shape
+        out = torch.empty((T, 8, r), dtype=torch.float32, device=pack.device)
+        if _fwd_launch(cells, brick_links, reso, pack, basis, out, max_steps=max_steps, color_mode=color_mode,
+                       sigma_thresh=sigma_thresh, stop_thresh=stop_thresh, early_stop=early_stop):
+            tile_march_fwd.launches += 1
+        return out
 
 
 tile_march_fwd.launches = 0
@@ -827,30 +829,40 @@ def march_inputs(bg: BrickGrid, rays: Rays, opts: GridRenderOptions, *, n_chunks
     ``build_kernel_arrays(bg)``."""
     if opts.color_mode not in ("bias", "sigmoid"):
         raise NotImplementedError(f"tile march: unknown color mode {opts.color_mode!r}")
-    if n_chunks:
-        C = n_chunks
-    elif use_occupancy:
-        C = active_chunk_bound(bg, opts.step_size)
-    else:
-        C = default_chunks_for(bg, opts)
-    pack, basis = pack_rays(bg, rays, opts, use_occupancy)
-    cells = kernel_arrays if kernel_arrays is not None else build_kernel_arrays(bg)
-    return cells, pack, basis, C * SC
+    with span("march.pack"):
+        if n_chunks:
+            C = n_chunks
+        elif use_occupancy:
+            C = active_chunk_bound(bg, opts.step_size)
+        else:
+            C = default_chunks_for(bg, opts)
+        pack, basis = pack_rays(bg, rays, opts, use_occupancy)
+        cells = kernel_arrays if kernel_arrays is not None else build_kernel_arrays(bg)
+        return cells, pack, basis, C * SC
 
 
-def march_outputs(out: torch.Tensor, pack: torch.Tensor, opts: GridRenderOptions,
-                  return_depth: bool) -> dict:
-    """The march's [T, 8, r] block -> the render dict of
-    ``render_tiles_pallas``."""
+def frame_outputs(out: torch.Tensor, pack: torch.Tensor, opts: GridRenderOptions, return_depth: bool) -> dict:
+    """The march's [T, 8, r] block -> dict(rgb [T, r, 3], acc,
+    log_transmit[, depth])."""
     acc = out[:, 3]
     result = {
         "rgb": out[:, 0:3].transpose(1, 2) + (1.0 - acc[..., None]) * opts.background_brightness,
         "acc": acc,
         "log_transmit": -out[:, 5],
-        "sparsity_sum": out[:, 6],
-        "miss_per_ray": out[:, 7],
-        "window_miss": out[:, 7].sum() / max(1, out.shape[0] * out.shape[-1]),
     }
+    if return_depth:
+        result["depth"] = out[:, 4] * pack[..., 11]
+    return result
+
+
+def march_outputs(out: torch.Tensor, pack: torch.Tensor, opts: GridRenderOptions,
+                  return_depth: bool) -> dict:
+    """The march's [T, 8, r] block -> the render dict of
+    ``render_tiles_pallas``: ``frame_outputs`` and the TPU plan's
+    counters."""
+    result = frame_outputs(out, pack, opts, False)
+    result.update(sparsity_sum=out[:, 6], miss_per_ray=out[:, 7],
+                  window_miss=out[:, 7].sum() / max(1, out.shape[0] * out.shape[-1]))
     if return_depth:
         result["depth"] = out[:, 4] * pack[..., 11]
     return result

@@ -51,6 +51,7 @@ from nerf_projects_tpu_torch.core.device import resolve_device
 from nerf_projects_tpu_torch.core.rays import Rays
 from nerf_projects_tpu_torch.models.nerf import NeRFMLP
 from nerf_projects_tpu_torch.models.pipeline import NeRFRenderConfig, render_rays
+from nerf_projects_tpu_torch.obs.trace import span
 from nerf_projects_tpu_torch.ops.kernels.fused_mlp import fused_apply, unpack_grads
 from nerf_projects_tpu_torch.ops.kernels.fused_train import pack_level_inputs_raw, train_level
 from nerf_projects_tpu_torch.ops.posenc import posenc_dim
@@ -318,10 +319,11 @@ class NeRFTrainer:
         learning rate of update k (k = 0, 1, ...) is schedule(k), as optax
         evaluates it. Returns (state, {"loss", "psnr"}) with the stats as
         device tensors."""
-        (loss, psnr_mse), grads = self._value_and_grad(state.params, state.generator, rays, target)
-        self.apply_grads(state, grads)
-        psnr = -10.0 * torch.log(psnr_mse) / math.log(10.0)
-        return state, {"loss": loss, "psnr": psnr}
+        with span("nerf.step"):
+            (loss, psnr_mse), grads = self._value_and_grad(state.params, state.generator, rays, target)
+            self.apply_grads(state, grads)
+            psnr = -10.0 * torch.log(psnr_mse) / math.log(10.0)
+            return state, {"loss": loss, "psnr": psnr}
 
     def apply_grads(self, state: TrainState, grads: Grads) -> TrainState:
         """One Adam update of the models with ``grads`` at the learning
@@ -382,18 +384,19 @@ class NeRFTrainer:
         """Render rays of any batch shape in chunks of ``chunk`` rays
         through ``render_step`` (``use_kernel`` as there); the last chunk
         is padded by repeating its last ray and cut back."""
-        shape = rays.batch_shape
-        flat = rays.map(lambda t: t.reshape(-1, 3))
-        n = flat.origins.shape[0]
-        outs = []
-        for i in range(0, n, chunk):
-            sl = flat.map(lambda t: t[i : i + chunk])
-            pad = chunk - sl.origins.shape[0]
-            if pad:
-                sl = sl.map(lambda t: F.pad(t[None], (0, 0, 0, pad), mode="replicate")[0])
-            out = self.render_step(params, sl, use_kernel)
-            if pad:
-                out = {k: v[: chunk - pad] for k, v in out.items()}
-            outs.append(out)
-        merged = {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
-        return {k: v.reshape(tuple(shape) + v.shape[1:]) for k, v in merged.items()}
+        with span("view"):
+            shape = rays.batch_shape
+            flat = rays.map(lambda t: t.reshape(-1, 3))
+            n = flat.origins.shape[0]
+            outs = []
+            for i in range(0, n, chunk):
+                sl = flat.map(lambda t: t[i : i + chunk])
+                pad = chunk - sl.origins.shape[0]
+                if pad:
+                    sl = sl.map(lambda t: F.pad(t[None], (0, 0, 0, pad), mode="replicate")[0])
+                out = self.render_step(params, sl, use_kernel)
+                if pad:
+                    out = {k: v[: chunk - pad] for k, v in out.items()}
+                outs.append(out)
+            merged = {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
+            return {k: v.reshape(tuple(shape) + v.shape[1:]) for k, v in merged.items()}

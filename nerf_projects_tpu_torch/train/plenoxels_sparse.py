@@ -90,6 +90,7 @@ import torch
 import torch.distributed as dist
 
 from nerf_projects_tpu_torch.core.rays import Rays
+from nerf_projects_tpu_torch.obs.trace import count, count_device, span
 from nerf_projects_tpu_torch.ops.brick_grid import BRICK, BrickGrid
 from nerf_projects_tpu_torch.ops.kernels.tile_march import (
     BASIS_DIMS,
@@ -827,68 +828,74 @@ def train_step_tiles_packed_touched(
     ``mesh``: ``st`` is row-sharded over its "rays" axis
     (``shard_state_rows``; module docstring); not with ``dense_optim``."""
     del compact_chunks, wps, skip_empty
-    _check_packed(trainer)
-    if st.last_step is None:
-        raise ValueError("touched step needs PackedState.last_step (packed_state_from_grid provides it)")
-    if flat_windows is not None and tile_rows is not None:
-        raise ValueError("flat_windows: tile_rows pre-reduction does not apply (the flat stream has no per-tile "
-                         "block structure)")
-    nb, B = bg.n_bricks, st.basis_dim
-    K = int(max_touched)
-    shard = _step_shard(mesh, st, st.packed_k)
-    if shard is not None and dense_optim:
-        raise ValueError("dense_optim sweeps the whole state; a row-sharded state takes the touched rows")
-    mse, (gd, gsh), touched, aux = _march(trainer, bg, _packed_cells(st), rays, target,
-                                          use_occupancy=use_occupancy, n_chunks=n_chunks,
-                                          flat_windows=flat_windows)
-    fetch = (lambda x: x.__getitem__) if shard is None else shard.rows_of
-    tv = _tv_parts(trainer, bg, fetch(st.packed_k[..., :1]), fetch(st.packed_k[..., 1:1 + 3 * B]), generator)
-    stats = _stats(mse, aux, touched_overflow=torch.zeros((), device=mse.device),
-                   dropped_tile_rows=torch.zeros((), dtype=torch.int32, device=mse.device),
-                   dropped_active_chunks=aux["dropped_active_chunks"])
+    with span("plenoxels.step"):
+        _check_packed(trainer)
+        if st.last_step is None:
+            raise ValueError("touched step needs PackedState.last_step (packed_state_from_grid provides it)")
+        if flat_windows is not None and tile_rows is not None:
+            raise ValueError("flat_windows: tile_rows pre-reduction does not apply (the flat stream has no per-tile "
+                             "block structure)")
+        nb, B = bg.n_bricks, st.basis_dim
+        K = int(max_touched)
+        shard = _step_shard(mesh, st, st.packed_k)
+        if shard is not None and dense_optim:
+            raise ValueError("dense_optim sweeps the whole state; a row-sharded state takes the touched rows")
+        with span("plenoxels.march", device=True):
+            mse, (gd, gsh), touched, aux = _march(trainer, bg, _packed_cells(st), rays, target,
+                                                  use_occupancy=use_occupancy, n_chunks=n_chunks,
+                                                  flat_windows=flat_windows)
+        fetch = (lambda x: x.__getitem__) if shard is None else shard.rows_of
+        tv = _tv_parts(trainer, bg, fetch(st.packed_k[..., :1]), fetch(st.packed_k[..., 1:1 + 3 * B]), generator)
+        stats = _stats(mse, aux, touched_overflow=torch.zeros((), device=mse.device),
+                       dropped_tile_rows=torch.zeros((), dtype=torch.int32, device=mse.device),
+                       dropped_active_chunks=aux["dropped_active_chunks"])
 
-    if dense_optim:
-        if tile_rows is not None:
-            raise ValueError("dense_optim: tile_rows pre-reduction does not apply")
-        if trainer.sigma_optim == "rmsprop" and not getattr(trainer, "rms_pervisit", False):
-            raise ValueError("dense_optim requires rms_pervisit RMSprop (or SGD): the beta^delta lazy decay "
-                             "needs per-row deltas")
-        acc = _dense_packed_acc(st, gd, gsh, tv)
-        flag = touched.clone()
-        for _, r4, _v in tv:
-            flag.index_fill_(0, r4, 1)
-        if dense_optim == "defer":
-            stats["dense_acc"] = acc
-            stats["touched_flag"] = flag
-            return st, stats
-        return _dense_sweep(trainer, bg.cell_mask, st, acc, flag, step), stats
+        if dense_optim:
+            if tile_rows is not None:
+                raise ValueError("dense_optim: tile_rows pre-reduction does not apply")
+            if trainer.sigma_optim == "rmsprop" and not getattr(trainer, "rms_pervisit", False):
+                raise ValueError("dense_optim requires rms_pervisit RMSprop (or SGD): the beta^delta lazy decay "
+                                 "needs per-row deltas")
+            with span("plenoxels.accumulate", device=True):
+                acc = _dense_packed_acc(st, gd, gsh, tv)
+                flag = touched.clone()
+                for _, r4, _v in tv:
+                    flag.index_fill_(0, r4, 1)
+                count_device("plenoxels.rows_flagged", flag.sum)
+            if dense_optim == "defer":
+                stats["dense_acc"] = acc
+                stats["touched_flag"] = flag
+                return st, stats
+            with span("plenoxels.sweep", device=True):
+                count("plenoxels.rows_swept", nb + 1)
+                return _dense_sweep(trainer, bg.cell_mask, st, acc, flag, step), stats
 
-    slot, rows, stats["touched_overflow"] = _compact(_flags(touched, tv, nb), K)
-    rc = rows.clamp(max=nb - 1)
-    acc = torch.zeros((K + 1, CELLS, channels(B)), device=gd.device)
-    acc[:K, :, 0] = gd[rc]
-    acc[:K, :, 1:1 + 3 * B] = gsh[rc]
-    for r4, blk in zip(*pack_tv_blocks(tv, B)):
-        acc.index_add_(0, slot[r4], blk)
-    m = _row_mask(bg, rows)[..., None]
-    g = acc[:K] * m
+        slot, rows, stats["touched_overflow"] = _compact(_flags(touched, tv, nb), K)
+        rc = rows.clamp(max=nb - 1)
+        acc = torch.zeros((K + 1, CELLS, channels(B)), device=gd.device)
+        acc[:K, :, 0] = gd[rc]
+        acc[:K, :, 1:1 + 3 * B] = gsh[rc]
+        for r4, blk in zip(*pack_tv_blocks(tv, B)):
+            acc.index_add_(0, slot[r4], blk)
+        m = _row_mask(bg, rows)[..., None]
+        g = acc[:K] * m
 
-    idx = rows if shard is None else shard.local_index(rows)  # as in train_step_tiles_sparse
-    pervisit = getattr(trainer, "rms_pervisit", False)
-    decay = None if pervisit else torch.pow(trainer.rms_beta, (step - st.last_step[idx]).float())[:, None, None]
-    new, rms = _packed_update(trainer, st.packed_k[idx], g, st.rms[idx].float(), decay, step)
-    new = new * m  # the sentinel's slots stay exactly zero
+        idx = rows if shard is None else shard.local_index(rows)  # as in train_step_tiles_sparse
+        pervisit = getattr(trainer, "rms_pervisit", False)
+        decay = None if pervisit else torch.pow(trainer.rms_beta, (step - st.last_step[idx]).float())[:, None, None]
+        new, rms = _packed_update(trainer, st.packed_k[idx], g, st.rms[idx].float(), decay, step)
+        new = new * m  # the sentinel's slots stay exactly zero
 
-    st.packed_k[idx] = new
-    st.rms[idx] = rms.to(st.rms.dtype)
-    if shard is not None:
-        st.cells[rows] = shard.from_owners(new.to(st.cells.dtype), rows)
-    elif st.cells is not None:
-        st.cells[rows] = new.to(torch.bfloat16)
-    st.last_step.index_fill_(0, idx, int(step))
-    if shard is None or shard.owns(nb):
-        st.last_step[nb if shard is None else nb - shard.lo].fill_(-1)
-    return st, stats
+        st.packed_k[idx] = new
+        st.rms[idx] = rms.to(st.rms.dtype)
+        if shard is not None:
+            st.cells[rows] = shard.from_owners(new.to(st.cells.dtype), rows)
+        elif st.cells is not None:
+            st.cells[rows] = new.to(torch.bfloat16)
+        st.last_step.index_fill_(0, idx, int(step))
+        if shard is None or shard.owns(nb):
+            st.last_step[nb if shard is None else nb - shard.lo].fill_(-1)
+        return st, stats
 
 
 train_step_tiles_packed_touched_jit = train_step_tiles_packed_touched

@@ -13,6 +13,8 @@ import time
 
 import torch
 
+from nerf_projects_tpu_torch.obs import trace
+
 
 class Timing:
     """with Timing("name"): ...  -> prints elapsed ms (device-synced)."""
@@ -48,8 +50,11 @@ def profiler_trace(trace_dir: str | None, *, host_tracer_level: int = 2):
     table of the kernels' times (``key_averages.txt``): the reference's
     nvprof/pyprof capture (svox2/test/prof.py:1-40). A no-op when
     ``trace_dir`` is falsy, so trainers can thread a CLI flag straight
-    through. ``host_tracer_level`` (the TPU tracer's detail) is accepted
-    and ignored."""
+    through. The program's own spans and counters (``obs/trace.py``) are
+    recorded over the same block and summed by name into ``spans.txt``:
+    count, host ms, host self ms and device ms a span, then the counters.
+    ``host_tracer_level`` (the TPU tracer's detail) is accepted and
+    ignored."""
     del host_tracer_level
     if not trace_dir:
         yield
@@ -59,7 +64,13 @@ def profiler_trace(trace_dir: str | None, *, host_tracer_level: int = 2):
     os.makedirs(trace_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
     with profile(activities=activities) as prof:
-        yield
+        trace.start()
+        try:
+            yield
+        finally:
+            recording = trace.stop()
+    with open(os.path.join(trace_dir, "spans.txt"), "w") as f:
+        f.write(recording.table())
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))

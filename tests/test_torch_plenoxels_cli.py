@@ -176,6 +176,25 @@ def test_timing_tb_and_yaml_helpers(tmp_path, capsys):
     assert tcfg.load_yaml(str(tmp_path / "c.yaml")) == {"a": 1} and yaml is not None
 
 
+def test_profiler_trace_writes_the_programs_spans(tmp_path):
+    """--profile_dir: beside the profiler's files, the program's spans and
+    counters recorded over the same block, summed by name."""
+    from nerf_projects_tpu_torch.obs import trace
+
+    with profiler_trace(str(tmp_path / "prof")):
+        with trace.span("plenoxels.step"):
+            with trace.span("plenoxels.sweep"):
+                torch.ones(8).sum()
+            trace.count("plenoxels.rows_swept", 9)
+    assert not trace.recording()
+    files = set(os.listdir(tmp_path / "prof"))
+    assert {"trace.json", "key_averages.txt", "spans.txt"} <= files
+    text = (tmp_path / "prof" / "spans.txt").read_text()
+    rows = {line.split()[0]: line.split()[1:] for line in text.splitlines() if line.strip()}
+    assert rows["plenoxels.step"][0] == "1" and rows["plenoxels.sweep"][0] == "1"
+    assert rows["plenoxels.rows_swept"] == ["9"]
+
+
 def test_run_refuses_the_host_and_floater_viz(tmp_path, scene, monkeypatch):
     """--log_floater_viz logs what JAX's CLI logs of the final grid (JAX's
     log_floater_visualizations on the saved checkpoint, its cameras built
