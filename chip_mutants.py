@@ -26,6 +26,8 @@ n_rays_total and the row-sharded Plenoxels step skipping the all_gather
 of its rewritten cell rows (the parallel phase: two ranks on the card);
 check_env's "kernel build" row holding K1f's plain version against itself
 and never launching K1f (the tools phase, on a fresh train_nerf_loop run);
+the dense sweep overwriting the elements without a gradient and dropping
+its density floor (the kernel_dense_sweep phase);
 the wgmma core's (mlp_sm90.cuh: K1f, K1b, K1rf, K1rb, K2, K5f
 and K5b) include the concat, the relu mask, the stage ring, the dW jobs
 (K1's and K5b's), the view encoder, the encoding stash, K1rb's, K1b's and
@@ -271,6 +273,18 @@ MUTANTS = {
         "st.cells[rows] = new.to(st.cells.dtype)",
         ("parallel",),
     ),
+    "the dense sweep overwrites the elements without a gradient": (
+        "nerf_projects_tpu_torch/csrc/dense_sweep.cu",
+        "out[k] = g == 0.f ? data[q][k] : v;",
+        "out[k] = v;",
+        ("kernel_dense_sweep",),
+    ),
+    "the dense sweep without its density floor": (
+        "nerf_projects_tpu_torch/csrc/dense_sweep.cu",
+        "if (density && p.floor_on && !isnan(v)) v = fmaxf(v, p.minval);",
+        "// the density floor dropped",
+        ("kernel_dense_sweep",),
+    ),
     "check_env's kernel build row compares the plain version with itself and never launches K1f": (
         "nerf_projects_tpu_torch/cli/check_env.py",
         "got = fm.fused_mlp_fwd(fm.forward_weights(model, raw=False), x, v)",
@@ -292,6 +306,7 @@ phases = {"kernel": lambda: c.phase_kernel(dev, fine_rows=65536),
           "fused_train_level": lambda: c.phase_kernel_train(dev),
           "tile_march_fwd": lambda: c.phase_kernel_march(dev),
           "tile_march_bwd": lambda: c.phase_kernel_march_bwd(dev),
+          "kernel_dense_sweep": lambda: c.phase_kernel_dense_sweep(dev),
           "train_plenoxels_sparse": lambda: c.phase_train_plenoxels_sparse(dev, c.nvidia_smi()),
           "kernel_sh": lambda: c.phase_kernel_sh(dev),
           "kernel_raw": lambda: c.phase_kernel_raw(dev, serve_rows=65536, train_rows=65536),

@@ -8,7 +8,7 @@ Run from the repository root, with no arguments:
 
 Phases, each of which raises (exit code 1) on failure:
 
-  build   nvcc compiles the nine kernel libraries for sm_90a, one
+  build   nvcc compiles the ten kernel libraries for sm_90a, one
           process per source, all at once; g++ the host op
           (csrc/native_ops.cpp).
   kernel  each kernel against its plain PyTorch version on the card,
@@ -166,6 +166,19 @@ Phases, each of which raises (exit code 1) on failure:
           visit the samples that K3 visits by the host twin; and the add
           instructions it issues (backward_flushes, host twin) beside the
           first port's scalar adds.
+  kernel_dense_sweep
+          the touched step's dense sweep (csrc/dense_sweep.cu) against
+          its plain PyTorch version on the card, bit for bit, on 4,096
+          bricks with a gradient on 5% of the rows: per-visit RMSprop and
+          SGD, float32 and bf16 rms, a density floor that binds and none,
+          basis 1, 9 and 16, first visits (rms 0), masked cells, padding
+          channels, the sentinel row and TV blocks added into the
+          gradients (its bits against the host's plain version logged);
+          then timed with CUDA events at the 512^3 shell's state (61,296
+          bricks, basis 9) beside its bound (every byte read and written
+          once at 3.35 TB/s) and the plain version; then 4 dense-sweep
+          touched steps under each optimizer on a 64^3 grid, one launch
+          each.
   train_plenoxels
           PlenoxelsTrainer.train_step_tiles_pallas (K3 + K4, sampled TV,
           RMSprop) at bench.py's two training configurations: fog 256^3
@@ -425,7 +438,7 @@ def encodings(n: int, gen: torch.Generator, device) -> tuple:
 
 
 LIBRARIES = ("fused_mlp_fwd", "fused_mlp_bwd", "fused_train", "tile_march_fwd", "tile_march_bwd", "fused_sh_fwd",
-             "fused_sh_bwd", "fused_mlp_raw_fwd", "fused_mlp_raw_bwd")
+             "fused_sh_bwd", "fused_mlp_raw_fwd", "fused_mlp_raw_bwd", "dense_sweep")
 
 
 def phase_build():
@@ -2487,6 +2500,189 @@ def phase_kernel_march_bwd(dev) -> dict:
     }
 
 
+SWEEP_NB, SWEEP_B = 61_296, 9   # the 512^3 shell's bricks and basis (port_bench's plenoxels_syn512)
+SWEEP_CHECK_NB = 4_096          # bricks of the bit-for-bit cases
+SWEEP_FLAGGED = 0.05            # share of the rows with a gradient
+SWEEP_RUN_STEPS = 4             # dense-sweep steps of the short touched run
+
+
+def sweep_inputs(dev, nb: int, B: int, rms_dtype, seed: int) -> tuple:
+    """The dense sweep's inputs on the card: a random packed state with
+    values on its padding channels and sentinel row too, rms zero on a
+    third of its elements (first visits), K4-shaped gradients on
+    SWEEP_FLAGGED of the rows (exact zeros on some of their live cells),
+    then TV blocks added into them with ``_add_tv`` (rows without a
+    neighbour, nb, among them), the mask, the flags (K4's rows and the
+    TV's) and stamps."""
+    from nerf_projects_tpu_torch.ops.kernels.tile_march import channels
+    from nerf_projects_tpu_torch.train import plenoxels_sparse as ps
+
+    g = torch.Generator(device=dev).manual_seed(SEED + seed)
+    cp = channels(B)
+    packed = torch.randn((nb + 1, 512, cp), generator=g, device=dev)
+    rms = (torch.rand((nb + 1, 512, cp), generator=g, device=dev) ** 4).to(rms_dtype)
+    rms[:, ::3] = 0
+    rows = torch.rand(nb, generator=g, device=dev) < SWEEP_FLAGGED
+    gd = torch.randn((nb, 512), generator=g, device=dev) * rows[:, None]
+    gsh = torch.randn((nb, 512, 3 * B), generator=g, device=dev) * rows[:, None, None]
+    gd[:, ::7] = 0
+    gsh[:, ::5] = 0
+    mask = torch.rand((nb, 512), generator=g, device=dev) > 0.2
+    n_tv = max(nb // 100, 4)
+    tv = [(kind, torch.randint(0, nb + 1, (n_tv,), generator=g, device=dev),
+           torch.randn((n_tv, 512, width), generator=g, device=dev)) for kind, width in (("d", 1), ("s", 3 * B))]
+    ps._add_tv(gd, gsh, tv)
+    flag = rows.int()
+    flag = torch.cat([flag, flag.new_zeros(1)])
+    for _, r4, _v in tv:
+        flag.index_fill_(0, r4, 1)
+    last = torch.randint(-1, 1000, (nb + 1,), generator=g, device=dev, dtype=torch.int32)
+    return packed, rms, gd, gsh, mask, flag, last
+
+
+def bits_differ(got, want) -> int:
+    """Elements whose bits differ (NaNs of one pattern compare equal)."""
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.int32: torch.int32}[got.dtype]
+    return int((got.view(view) != want.view(view)).sum())
+
+
+def abs_err(got, want) -> float:
+    """The widest gap between the sweep's float outputs (packed, rms,
+    cells) and the plain version's."""
+    return max(float((a.float() - b.float()).abs().max()) for a, b in zip(got[:3], want[:3]) if a is not None)
+
+
+def sweep_bytes(nb: int, B: int, rms_bytes: int) -> int:
+    """What the sweep reads and writes once: K4's gradients and the mask,
+    the masters and rms read and written, the bf16 cells and the stamps
+    written."""
+    from nerf_projects_tpu_torch.ops.kernels.tile_march import channels
+
+    state = (nb + 1) * 512 * channels(B)
+    return nb * 512 * (4 + 12 * B + 1) + state * (4 + 4 + 2 * rms_bytes + 2) + (nb + 1) * 12
+
+
+def phase_kernel_dense_sweep(dev) -> dict:
+    """The dense sweep (ops/kernels/dense_sweep.py, csrc/dense_sweep.cu)
+    against its plain version on the card, bit for bit: per-visit RMSprop
+    and SGD, float32 and bf16 rms, a density floor that binds and none,
+    basis 1, 9 and 16, on SWEEP_CHECK_NB bricks (sweep_inputs: first
+    visits, masked cells, padding channels, the sentinel row, TV blocks);
+    then timed with CUDA events at the 512^3 shell's size beside its bound
+    and the plain version; then a short touched run whose dense-sweep
+    steps must each launch it once."""
+    from nerf_projects_tpu_torch.ops.brick_grid import create_brick_grid
+    from nerf_projects_tpu_torch.ops.grid import GridRenderOptions
+    from nerf_projects_tpu_torch.ops.kernels import dense_sweep as dsw
+    from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
+    from nerf_projects_tpu_torch.train import PlenoxelsTrainer
+    from nerf_projects_tpu_torch.train import plenoxels_sparse as ps
+
+    cases = [  # (rmsprop, rms dtype, density floor, basis)
+        (True, torch.float32, 0.0, 9), (True, torch.bfloat16, 0.0, 9), (True, torch.float32, -1e9, 9),
+        (False, torch.float32, 0.0, 9), (False, torch.bfloat16, 0.5, 9), (True, torch.float32, 0.0, 1),
+        (True, torch.bfloat16, 0.0, 16),
+    ]
+    max_err = 0.0
+    for i, (rmsprop, rms_dtype, minval, B) in enumerate(cases):
+        tag = (f"kernel_dense_sweep: {'per-visit RMSprop' if rmsprop else 'SGD'}, {str(rms_dtype)[6:]} rms, "
+               f"floor {minval:g}, basis {B}")
+        ins = sweep_inputs(dev, SWEEP_CHECK_NB, B, rms_dtype, 40 + i)
+        packed, rms, gd, gsh, mask, flag, last = ins
+        kw = dict(step=1234, lr_sigma=30.0 * (1 + i), lr_sh=1e-2 / (1 + i), beta=0.95, density_minval=minval,
+                  rmsprop=rmsprop)
+        before = dsw.dense_sweep.launches
+        got = dsw.dense_sweep(*ins, **kw)
+        torch.cuda.synchronize()
+        if dsw.dense_sweep.launches != before + 1:
+            raise AssertionError(f"{tag}: the wrapper did not launch the kernel")
+        want = dsw.dense_sweep_reference(*ins, **kw)
+        host = dsw.dense_sweep_reference(*(x.cpu() for x in ins), **kw)
+        nb = SWEEP_CHECK_NB
+        grad = torch.zeros(packed.shape, device=dev)
+        grad[:nb, :, 0] = gd
+        grad[:nb, :, 1:1 + 3 * B] = gsh
+        grad[:nb] *= mask[..., None]
+        zero = grad == 0
+        cover = {
+            "first visits moved": int(((rms == 0) & ~zero).sum()) if rmsprop else -1,
+            "masked cells with a gradient": int(((gd != 0) & ~mask).sum()),
+            "padding channels": int(zero[:, :, 1 + 3 * B:].numel()),
+            "floor bound": int(((want[0][..., 0] == minval) & (packed[..., 0] != minval)).sum()),
+            "gradients": int((~zero).sum()),
+        }
+        diffs = {name: bits_differ(a, b) for name, a, b in zip(("packed", "rms", "cells", "last_step"), got, want)}
+        max_err = max(max_err, abs_err(got, want))
+        host_diffs = {name: bits_differ(a.cpu(), b) for name, a, b in zip(("packed", "rms", "cells", "last_step"),
+                                                                          got, host)}
+        kept = bits_differ(got[0][zero], packed[zero]) + (bits_differ(got[1][zero], rms[zero]) if rmsprop else 0)
+        log(f"{tag}: {nb} bricks, {cover}; elements differing from the plain version on the card {diffs}, from "
+            f"the plain version on the host {host_diffs} (logged); elements without a gradient changed {kept}")
+        if any(diffs.values()) or kept or cover["gradients"] == 0 or cover["masked cells with a gradient"] == 0:
+            raise AssertionError(f"{tag}: the kernel is not its plain version bit for bit")
+        if (rmsprop and cover["first visits moved"] == 0) or (minval > -1e8 and cover["floor bound"] == 0):
+            raise AssertionError(f"{tag}: the case does not reach the first visits or the floor")
+        if not rmsprop and got[1] is not rms:
+            raise AssertionError(f"{tag}: SGD wrote a new rms")
+        del ins, packed, rms, gd, gsh, mask, flag, last, got, want, host, grad, zero
+        torch.cuda.empty_cache()
+
+    # at the shell's size
+    ins = sweep_inputs(dev, SWEEP_NB, SWEEP_B, torch.float32, 50)
+    kw = dict(step=38_401, lr_sigma=30.0, lr_sh=1e-2, beta=0.95, density_minval=-1e9, rmsprop=True)
+    ms = time_ms(lambda: dsw.dense_sweep(*ins, **kw), iters=10)
+    plain_ms = time_ms(lambda: dsw.dense_sweep_reference(*ins, **kw), iters=3, warmup=1)
+    got, want = dsw.dense_sweep(*ins, **kw), dsw.dense_sweep_reference(*ins, **kw)
+    diffs = {name: bits_differ(a, b) for name, a, b in zip(("packed", "rms", "cells", "last_step"), got, want)}
+    max_err = max(max_err, abs_err(got, want))
+    nbytes = sweep_bytes(SWEEP_NB, SWEEP_B, 4)
+    b = bound(0.0, nbytes)
+    log(f"kernel_dense_sweep: the 512^3 shell's state ({SWEEP_NB} bricks, basis {SWEEP_B}, float32 rms, "
+        f"{SWEEP_FLAGGED:.0%} of the rows with a gradient): {ms:.4f} ms, bound {b[0]:.4f} ms ({nbytes / 1e9:.3f} GB "
+        f"at {H100_HBM_BYTES_S / 1e12:.2f} TB/s), {b[0] / ms:.3f} of bound, {nbytes / ms / 1e9:.3f} TB/s; plain "
+        f"{plain_ms:.4f} ms ({plain_ms / ms:.1f}x); elements differing from the plain version {diffs}")
+    if any(diffs.values()):
+        raise AssertionError("kernel_dense_sweep: at the shell's size the kernel is not its plain version bit for bit")
+    del ins, got, want
+    torch.cuda.empty_cache()
+
+    # a short touched run: one launch a dense-sweep step (the kernels
+    # line counts those of train_plenoxels_sparse's timed windows and CLI)
+    bg = create_brick_grid(64, basis_dim=GRID_BASIS, use_sphere_bound=True, alloc_data=False, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    m = bg.cell_mask.float()
+    bg = dataclasses.replace(bg, density_bricks=torch.rand(m.shape, generator=gen, device=dev) * 2.0 * m,
+                             sh_bricks=torch.randn(m.shape + (3 * bg.basis_dim,), generator=gen, device=dev) * 0.2
+                             * m[..., None])
+    geo = tm.geometry_only(bg)
+    rays = train_tile_rays(SEED + 3, 16, dev)
+    target = torch.full(rays.origins.shape, TRAIN_TARGET, device=dev)
+    runs = {}
+    for name, optim in (("per-visit RMSprop", dict(rms_pervisit=True)),
+                        ("SGD", dict(sigma_optim="sgd", sh_optim="sgd"))):
+        trainer = PlenoxelsTrainer(GridRenderOptions(step_size=0.5), n_iters=1000, lambda_tv=1e-5,
+                                   lambda_tv_sh=1e-3, device=dev, **optim)
+        st = ps.packed_state_from_grid(bg, bf16_cells=True)
+        before, mses = dsw.dense_sweep.launches, []
+        for i in range(SWEEP_RUN_STEPS):
+            st, stats = ps.train_step_tiles_packed_touched(trainer, geo, st, rays, target, i,
+                                                           torch.Generator(device=dev).manual_seed(i),
+                                                           dense_optim=True)
+            mses.append(float(stats["mse"]))
+        runs[name] = dsw.dense_sweep.launches - before
+        log(f"kernel_dense_sweep: a touched run, {name}, {SWEEP_RUN_STEPS} steps on a 64^3 grid ({bg.n_bricks} "
+            f"bricks): {runs[name]} launches; MSE {mses[0]:.6f} -> {mses[-1]:.6f}")
+        if runs[name] != SWEEP_RUN_STEPS or not all(np.isfinite(mses)):
+            raise AssertionError(f"kernel_dense_sweep: {name}: {runs[name]} launches in {SWEEP_RUN_STEPS} steps")
+    return {
+        "name": "dense_sweep", "route": "cuda",
+        "source": "nerf_projects_tpu_torch/csrc/dense_sweep.cu",
+        "replaces": None,
+        "launches": 0, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+    }
+
+
 def phase_train_plenoxels(dev, card: str) -> dict:
     """train_step_tiles_pallas at the fog 256^3 and shell 512^3 training
     configurations: one step against the plain versions, then a timed
@@ -2709,14 +2905,15 @@ def phase_train_plenoxels_sparse(dev, card: str) -> dict:
     each under set_sync_debug_mode (no waits); (d) each timed beside the
     dense step; then (e) the training CLI, cli/train_plenoxels.run with
     --step_mode touched from 128^3 to 256^3 on the synthetic scene.
-    Returns the K3 and K4 launches of the timed windows by batch shape,
-    those of the CLI run, and the CLI's wall."""
+    Returns the K3, K4 and dense-sweep launches of the timed windows by
+    batch shape, those of the CLI run, and the CLI's wall."""
     from nerf_projects_tpu_torch.ops.grid import GridRenderOptions
+    from nerf_projects_tpu_torch.ops.kernels import dense_sweep as dsw
     from nerf_projects_tpu_torch.ops.kernels import tile_march as tm
     from nerf_projects_tpu_torch.train import PlenoxelsTrainer
     from nerf_projects_tpu_torch.train import plenoxels_sparse as ps
 
-    launches = {"tile_march_fwd": {}, "tile_march_bwd": {}}
+    launches = {"tile_march_fwd": {}, "tile_march_bwd": {}, "dense_sweep": {}}
     kw_trainer = dict(n_iters=128_000, lambda_tv=1e-5, lambda_tv_sh=1e-3, device=dev)
     for name, (reso, n_tiles) in TRAIN_SCENES.items():
         tag = f"train_plenoxels_sparse: {name} {reso}^3"
@@ -2799,7 +2996,7 @@ def phase_train_plenoxels_sparse(dev, card: str) -> dict:
             tm.tile_march_fwd.launches = tm.tile_march_bwd.launches = 0
             times[key] = timed_steps(f"{tag}: (d) {key} step", card, run_step, n_rays,
                                      f"Plenoxels {key} step, {name} {reso}^3")
-            for k in launches:
+            for k in ("tile_march_fwd", "tile_march_bwd"):
                 launches[k][f"{name} batch"] = launches[k].get(f"{name} batch", 0) + getattr(tm, k).launches
             op_table(f"{tag}: (d) {key} step", lambda: run_step(SPARSE_TIMED + 3), nb)
             del state, holder, got
@@ -2830,14 +3027,23 @@ def phase_train_plenoxels_sparse(dev, card: str) -> dict:
 
             check_waits(f"{tag}: (c) one {key} step", lambda: step_pv(holder[0], SPARSE_STEPS), most=0)
 
-            def run_step(i, holder=holder, step_pv=step_pv):
-                holder[0] = step_pv(holder[0], SPARSE_STEPS + 1 + i)
+            n_run = [0]
 
-            tm.tile_march_fwd.launches = tm.tile_march_bwd.launches = 0
+            def run_step(i, holder=holder, step_pv=step_pv, n_run=n_run):
+                holder[0] = step_pv(holder[0], SPARSE_STEPS + 1 + i)
+                n_run[0] += 1
+
+            tm.tile_march_fwd.launches = tm.tile_march_bwd.launches = dsw.dense_sweep.launches = 0
             times[key] = timed_steps(f"{tag}: (d) {key} step", card, run_step, n_rays,
                                      f"Plenoxels {key} step, {name} {reso}^3")
-            for k in launches:
+            for k in ("tile_march_fwd", "tile_march_bwd"):
                 launches[k][f"{name} batch"] += getattr(tm, k).launches
+            n_sweep = dsw.dense_sweep.launches
+            log(f"{tag}: (d) {key} step: {n_sweep} dense-sweep launches in {n_run[0]} steps")
+            if n_sweep != (n_run[0] if dense else 0):
+                raise AssertionError(f"{tag}: {key}: {n_sweep} dense-sweep launches in {n_run[0]} steps")
+            if dense:
+                launches["dense_sweep"][f"{name} batch"] = n_sweep
             del holder
             torch.cuda.empty_cache()
         del a, b
@@ -2871,12 +3077,13 @@ def phase_train_plenoxels_sparse(dev, card: str) -> dict:
         args = cli.build_parser().parse_args([
             "--train_dir", d, "--step_mode", "touched", "--reso", CLI_RESO, "--upsamp_every", str(CLI_STEPS // 2),
             "--n_iters", str(CLI_STEPS), "--print_every", "2", "--device", "cuda"])
-        tm.tile_march_fwd.launches = tm.tile_march_bwd.launches = 0
+        tm.tile_march_fwd.launches = tm.tile_march_bwd.launches = dsw.dense_sweep.launches = 0
         t0 = time.perf_counter()
         grid, _, result = cli.run(args, scene=scene, test_scene=scene)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {"tile_march_fwd": tm.tile_march_fwd.launches, "tile_march_bwd": tm.tile_march_bwd.launches}
+        counts = {"tile_march_fwd": tm.tile_march_fwd.launches, "tile_march_bwd": tm.tile_march_bwd.launches,
+                  "dense_sweep": dsw.dense_sweep.launches}
         entries = json.load(open(f"{d}/metrics_log.json"))
         mses = [e["metrics"]["mse"] for e in entries if e["phase"] == "training"]
         ckpt = f"{d}/ckpt.npz"
@@ -2892,6 +3099,9 @@ def phase_train_plenoxels_sparse(dev, card: str) -> dict:
         raise AssertionError("train_plenoxels_sparse: the CLI's loss did not fall")
     if any(v <= 0 for v in counts.values()):
         raise AssertionError(f"train_plenoxels_sparse: the CLI launched no {counts} kernel")
+    if counts["dense_sweep"] != CLI_STEPS:  # the auto rule sweeps under the default per-visit rms
+        raise AssertionError(f"train_plenoxels_sparse: the CLI's {CLI_STEPS} steps launched the dense sweep "
+                             f"{counts['dense_sweep']} times")
     return launches, counts, wall
 
 
@@ -4725,16 +4935,19 @@ def main() -> int:
     frame_launches = phase_render_plenoxels(dev, card)
     phase_render_plenoxels_eval(dev, card)
     march_bwd = phase_kernel_march_bwd(dev)
+    sweep = phase_kernel_dense_sweep(dev)
     train_launches = phase_train_plenoxels(dev, card)
     sparse_launches, cli_launches, _ = phase_train_plenoxels_sparse(dev, card)
     phase_train_plenoxels_bg(dev, card)
     for k, shapes in sparse_launches.items():
         for shape, n in shapes.items():
-            train_launches[k][shape] = train_launches[k].get(shape, 0) + n
+            into = train_launches.setdefault(k, {})
+            into[shape] = into.get(shape, 0) + n
     march["launches"] = (sum(frame_launches.values()) + sum(train_launches["tile_march_fwd"].values())
                          + cli_launches["tile_march_fwd"])
     march_bwd["launches"] = sum(train_launches["tile_march_bwd"].values()) + cli_launches["tile_march_bwd"]
-    kernels += [march, march_bwd]
+    sweep["launches"] = sum(train_launches["dense_sweep"].values()) + cli_launches["dense_sweep"]
+    kernels += [march, march_bwd, sweep]
     sh_fwd, sh_bwd = phase_kernel_sh(dev)
     sh_serve = phase_render_nerf_sh(dev, card)
     sh_counts = phase_train_nerf_sh(dev, card)

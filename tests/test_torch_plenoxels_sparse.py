@@ -33,6 +33,7 @@ from nerf_projects_tpu.train import plenoxels_sparse as jps
 from nerf_projects_tpu.train import plenoxels_trainer as jpt
 from nerf_projects_tpu_torch.ops import brick_grid as tbg
 from nerf_projects_tpu_torch.ops import grid as tgrid
+from nerf_projects_tpu_torch.ops.kernels import dense_sweep as dsw
 from nerf_projects_tpu_torch.ops.kernels import flat_train as tft
 from nerf_projects_tpu_torch.ops.kernels import tile_march as ttm
 from nerf_projects_tpu_torch.train import plenoxels_sparse as ps
@@ -451,6 +452,177 @@ def test_defer_split_is_bit_identical():
         assert float(f["mse"]) == float(s["mse"])
     for a, b in zip(st_f, st_s):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.int32: torch.int32}
+
+
+def same_bits(got, want, what=""):
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    assert torch.equal(got.view(BITS[got.dtype]), want.view(BITS[want.dtype])), what
+
+
+def accumulator_sweep(trainer, bg, st, gd, gsh, tv, flag, step):
+    """The touched step's dense sweep as it was before the one-pass sweep:
+    a dense packed accumulator of K4's arrays and the TV blocks, masked,
+    per-visit RMSprop or SGD over it, where(g == 0) keeping the old bits."""
+    nb, B = bg.n_bricks, st.basis_dim
+    acc = torch.zeros(st.packed_k.shape)
+    acc[:nb, :, 0] = gd
+    acc[:nb, :, 1:1 + 3 * B] = gsh
+    for r4, blk in zip(*ps.pack_tv_blocks(tv, B)):
+        acc.index_add_(0, r4, blk)
+    g = acc * torch.cat([bg.cell_mask.float(), torch.zeros(1, 512)])[..., None]
+    pk, rms_old, b = st.packed_k, st.rms.float(), trainer.rms_beta
+    if trainer.sigma_optim == "rmsprop":
+        rms = torch.where(g == 0.0, rms_old, torch.where(rms_old == 0.0, g * g, b * rms_old + (1.0 - b) * g * g))
+        x = g / (torch.sqrt(rms) + 1e-8)
+    else:
+        rms, x = rms_old, g
+    upd = x * trainer.lr_sh_fn(step)
+    upd[..., 0] = x[..., 0] * trainer.lr_sigma_fn(step)
+    new = pk - upd
+    if trainer.density_minval > -1e8:
+        new[..., 0] = torch.clamp(new[..., 0], min=trainer.density_minval)
+    new = torch.where(g == 0.0, pk, new)
+    last = torch.where(flag == 1, int(step), st.last_step)
+    last[nb] = -1
+    return new, rms.to(st.rms.dtype), new.to(torch.bfloat16), last
+
+
+@pytest.mark.parametrize("optim, rms_dtype", [("pervisit", torch.float32), ("pervisit", torch.bfloat16),
+                                              ("sgd", torch.float32)])
+def test_one_pass_sweep_is_the_accumulator_sweep_bit_for_bit(optim, rms_dtype):
+    """The plain one-pass sweep on K4's arrays with the TV added in place
+    against the accumulator arithmetic it replaced, on a second step (rms
+    zero on the cells first visited now, nonzero on the others), with TV
+    on (rows without a neighbour among its blocks) and a density floor
+    that binds."""
+    trainer = make_trainer(density_minval=1.0, **(dict(sigma_optim="sgd", sh_optim="sgd") if optim == "sgd"
+                                                  else dict(rms_pervisit=True)))
+    bg = port_bg(24, seed=31)
+    nb, B = bg.n_bricks, 9
+    st = ps.packed_state_from_grid(bg, rms_dtype=rms_dtype, bf16_cells=True)
+    rays, target = batch(310)
+    st, _ = ps.train_step_tiles_packed_touched(trainer, bg, st, rays, target, 0, gen(0), dense_optim=True)
+    rays, target = batch(311)
+    _, (gd, gsh), touched, _ = ps._march(trainer, bg, ps._packed_cells(st), rays, target)
+    tv = ps._tv_parts(trainer, bg, st.packed_k[..., :1].__getitem__, st.packed_k[..., 1:1 + 3 * B].__getitem__,
+                      gen(1))
+    assert {k for k, _, _ in tv} == {"d", "s"} and any(bool((r4 == nb).any()) for _, r4, _ in tv)
+    flag = touched.clone()
+    for _, r4, _ in tv:
+        flag.index_fill_(0, r4, 1)
+    want = accumulator_sweep(trainer, bg, st, gd, gsh, tv, flag, 1)
+    gd2, gsh2 = gd.clone(), gsh.clone()
+    ps._add_tv(gd2, gsh2, tv)
+    got = ps.dense_sweep_apply(trainer, bg, st, (gd2, gsh2), flag, 1)
+    for name, a, b in zip(("packed_k", "rms", "cells", "last_step"), (got.packed_k, got.rms, got.cells,
+                                                                       got.last_step), want):
+        same_bits(a, b, name)
+    assert bool(((want[0][:nb, :, 0] == 1.0) & (st.packed_k[:nb, :, 0] != 1.0)).any())  # the floor binds
+    if optim != "sgd":
+        rms = st.rms[:nb, :, :1 + 3 * B][bg.cell_mask]
+        assert bool((rms == 0).any()) and bool((rms != 0).any())
+
+
+def sweep_inputs(nb=6, B=4, rms_dtype=torch.float32, seed=3):
+    """A random packed state [nb + 1, 512, CP] with values on its padding
+    channels, masked cells and sentinel row too, rms zero on a third of
+    its elements, K4-shaped gradients with exact zeros on live cells, a
+    mask, flags and stamps."""
+    g = torch.Generator().manual_seed(seed)
+    cp = ttm.channels(B)
+    packed = torch.randn((nb + 1, 512, cp), generator=g)
+    rms = torch.rand((nb + 1, 512, cp), generator=g).to(rms_dtype)
+    rms[:, ::3] = 0
+    gd, gsh = torch.randn((nb, 512), generator=g), torch.randn((nb, 512, 3 * B), generator=g)
+    gd[:, ::7] = 0
+    gsh[:, ::5] = 0
+    mask = torch.rand((nb, 512), generator=g) > 0.3
+    flag = (torch.rand(nb + 1, generator=g) > 0.5).int()
+    flag[nb] = 1
+    last = torch.randint(-1, 10, (nb + 1,), generator=g, dtype=torch.int32)
+    return [packed, rms, gd, gsh, mask, flag, last]
+
+
+SWEEP_NUMBERS = dict(step=11, lr_sigma=30.0, lr_sh=1e-2, beta=0.95, density_minval=-1e9)
+
+
+@pytest.mark.parametrize("rms_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rmsprop", [True, False])
+def test_dense_sweep_keeps_the_bits_without_a_gradient(rms_dtype, rmsprop):
+    """Padding channels, masked cells, the sentinel row and live elements
+    whose gradient is exactly 0 keep their master and rms bits; every
+    other element moves; the stamps and the bf16 cells follow."""
+    nb, B = 6, 4
+    packed, rms, gd, gsh, mask, flag, last = ins = sweep_inputs(nb, B, rms_dtype)
+    new, rms_new, cells, last_new = dsw.dense_sweep(*ins, rmsprop=rmsprop, **SWEEP_NUMBERS)
+    grad = torch.zeros(packed.shape)
+    grad[:nb, :, 0] = gd
+    grad[:nb, :, 1:1 + 3 * B] = gsh
+    grad[:nb] *= mask[..., None]
+    zero = grad == 0
+    assert bool(zero[:, :, 1 + 3 * B:].all()) and bool(zero[nb].all()) and bool(zero[:nb][~mask].all())
+    assert bool((~zero).any())
+    same_bits(new[zero], packed[zero], "masters without a gradient")
+    assert bool((new[~zero] != packed[~zero]).all())
+    if rmsprop:
+        same_bits(rms_new[zero], rms[zero], "rms without a gradient")
+        assert bool((rms_new[~zero] != 0).all())
+    else:
+        assert rms_new is rms
+    same_bits(cells, new.to(torch.bfloat16), "cells")
+    same_bits(last_new, torch.where(flag == 1, 11, last).index_fill_(0, torch.tensor([nb]), -1), "last_step")
+
+
+def no_build(monkeypatch):
+    """Make any build or load of a kernel library fail the test."""
+    from nerf_projects_tpu_torch.ops.kernels import _build
+
+    def built(*a, **k):
+        raise AssertionError("a kernel library was built")
+
+    for mod, name in ((_build, "build"), (_build, "load"), (dsw, "_library")):
+        monkeypatch.setattr(mod, name, built)
+
+
+def test_dense_sweep_takes_the_plain_version_for_host_tensors(monkeypatch):
+    no_build(monkeypatch)
+    ins = sweep_inputs(nb=3, B=9, rms_dtype=torch.bfloat16, seed=8)
+    launches = dsw.dense_sweep.launches
+    for rmsprop in (True, False):
+        got = dsw.dense_sweep(*ins, rmsprop=rmsprop, **SWEEP_NUMBERS)
+        want = dsw.dense_sweep_reference(*ins, rmsprop=rmsprop, **SWEEP_NUMBERS)
+        for a, b in zip(got, want):
+            same_bits(a, b)
+    got = dsw.dense_sweep(*ins, rmsprop=True, cells=False, **SWEEP_NUMBERS)
+    assert got[2] is None and dsw.dense_sweep.launches == launches
+
+
+BAD_SWEEP_INPUTS = {
+    "packed float64": (0, lambda x: x.double(), TypeError, "packed"),
+    "packed not contiguous": (0, lambda x: x.transpose(0, 1).contiguous().transpose(0, 1), ValueError, "packed"),
+    "rms float16": (1, lambda x: x.half(), TypeError, "rms"),
+    "rms of another shape": (1, lambda x: x[:-1], ValueError, "rms"),
+    "grad_density with the sentinel row": (2, lambda x: torch.cat([x, x[:1]]), ValueError, "grad_density"),
+    "grad_sh not contiguous": (3, lambda x: x.transpose(0, 1).contiguous().transpose(0, 1), ValueError, "grad_sh"),
+    "grad_sh of another basis": (3, lambda x: x[..., :3], ValueError, "grad_sh"),
+    "cell_mask as floats": (4, lambda x: x.float(), TypeError, "cell_mask"),
+    "flag int64": (5, lambda x: x.long(), TypeError, "flag"),
+    "last_step without the sentinel": (6, lambda x: x[:-1], ValueError, "last_step"),
+    "a device other than the CPU or a card": (None, lambda x: x.to("meta"), ValueError, "CUDA device or the CPU"),
+}
+
+
+@pytest.mark.parametrize("case", list(BAD_SWEEP_INPUTS))
+def test_dense_sweep_raises_on_bad_inputs_before_any_build(case, monkeypatch):
+    no_build(monkeypatch)
+    which, bad, err, match = BAD_SWEEP_INPUTS[case]
+    ins = sweep_inputs(nb=4, B=9)
+    ins = [bad(x) if which in (None, i) else x for i, x in enumerate(ins)]
+    with pytest.raises(err, match=match):
+        dsw.dense_sweep(*ins, rmsprop=True, **SWEEP_NUMBERS)
 
 
 def test_dense_optim_rejects_literal_rmsprop():
